@@ -25,10 +25,11 @@ _STATE_FIELDS = ("x", "u", "y", "rho", "K", "d", "P", "p", "reg")
 def problem_from_numpy(arrays: dict, *, N: int, n: int, m: int, dynamics,
                        constraints: Sequence[ConstraintSpec] = (),
                        dynamics_cols=None, dtype=torch.float64,
-                       device="cpu") -> Problem:
+                       device="cuda") -> Problem:
     """Problem from numpy arrays: Q, R, q, r, c (DiagonalCost rows), h, x0,
     and optionally "active", one [N+1] mask per constraint group (it
-    replaces that group's `active`)."""
+    replaces that group's `active`). Lands on the card unless `device`
+    says otherwise."""
     kw = dict(dtype=dtype, device=device)
 
     def t(name):
@@ -46,7 +47,7 @@ def problem_from_numpy(arrays: dict, *, N: int, n: int, m: int, dynamics,
                    dynamics_cols=dynamics_cols)
 
 
-def state_from_numpy(arrays: dict, *, dtype=torch.float64, device="cpu") -> SolverState:
+def state_from_numpy(arrays: dict, *, dtype=torch.float64, device="cuda") -> SolverState:
     """SolverState (batch-major) from a dict of numpy arrays with the JAX
     SolverState's leaf names; "z" is a sequence, one array per group."""
     kw = dict(dtype=dtype, device=device)

@@ -29,66 +29,18 @@
 // whole warp (a broadcast), never copied per lane. State, merit and the
 // policy live in registers; no shared memory.
 //
-// The dynamics are a __device__ function, the twin of
-// models/tile_steps.py::midpoint_cols(bicycle_cols(frame, length, rear)),
-// with the slip angle's cos/sin from the triangle identity as there.
-// Built without --use_fast_math, so sinf/cosf/tanf/sqrtf are the accurate
-// library versions.
+// The dynamics are a __device__ function from csrc/device_steps.cuh, the
+// twin of models/tile_steps.py::midpoint_cols(bicycle_cols(frame, length,
+// rear)).
 
 #include <cuda_runtime.h>
 
+#include "device_steps.cuh"
+
 namespace {
 
-struct BicycleMidpoint {
-  static constexpr int NS = 4;
-  static constexpr int NI = 2;
-  int frame;  // 0 centre of gravity, 1 rear axle, 2 front axle
-  float length;
-  float rear;
-
-  __device__ void f(const float x[NS], const float u[NI], float out[NS]) const {
-    const float v = u[0], delta_dot = u[1];
-    const float theta = x[2], delta = x[3];
-    float cos_ang, sin_ang, omega;
-    if (frame == 0) {
-      const float rd = rear * delta;
-      const float inv_hyp = 1.0f / sqrtf(length * length + rd * rd);
-      const float cosb = length * inv_hyp;
-      const float sinb = rd * inv_hyp;
-      const float ct = cosf(theta), st = sinf(theta);
-      cos_ang = ct * cosb - st * sinb;
-      sin_ang = st * cosb + ct * sinb;
-      omega = v * cosb * tanf(delta) / length;
-    } else if (frame == 1) {
-      omega = v * tanf(delta) / length;
-      cos_ang = cosf(theta);
-      sin_ang = sinf(theta);
-    } else {
-      omega = v * sinf(delta) / length;
-      const float ang = theta + delta;
-      cos_ang = cosf(ang);
-      sin_ang = sinf(ang);
-    }
-    out[0] = v * cos_ang;
-    out[1] = v * sin_ang;
-    out[2] = omega;
-    out[3] = delta_dot;
-  }
-
-  // explicit midpoint: x <- x + h f(x + h/2 f(x, u), u)
-  __device__ void step(float x[NS], const float u[NI], float h) const {
-    float fx[NS], xm[NS], fm[NS];
-    f(x, u, fx);
-#pragma unroll
-    for (int i = 0; i < NS; ++i) xm[i] = x[i] + 0.5f * h * fx[i];
-    f(xm, u, fm);
-#pragma unroll
-    for (int i = 0; i < NS; ++i) x[i] = x[i] + h * fm[i];
-  }
-};
-
-// min(w, 0) that keeps a NaN (as jnp.minimum / torch.clamp do)
-__device__ __forceinline__ float neg_part(float w) { return (w > 0.0f) ? 0.0f : w; }
+using altro_dev::BicycleMidpoint;
+using altro_dev::neg_part;
 
 template <class Model>
 __global__ void rollout_grid_kernel(

@@ -8,8 +8,13 @@ bench.py's closed loop (`child_main`, its problem, options, rescue and
   m=2) with midpoint integration, horizon N, diagonal tracking cost
   (Q = 1e-2, R = 1e-3) on the reference window, one affine steering bound
   |delta| <= 60 deg (NEGATIVE_ORTHANT) with its constant Jacobian given,
-  and the column-form step that the rollout kernel runs.
-* `bench_options` returns the bench's solver and rescue options.
+  and the column-form and block-form steps that the rollout kernels run.
+  The same function builds the N=30 window and the N=500 long horizon
+  (scripts/bench_all.py `scotty_long_horizon_N500`, whose unconstrained
+  row is `dataclasses.replace(problem, constraints=())`).
+* `bench_options` returns the bench's solver and rescue options;
+  `long_horizon_options` the single-solve options of the N=500 rows, and
+  `long_horizon_state` their warm start.
 * `run_closed_loop` runs B lanes for T ticks: each tick slides the cost
   window, solves with the failed-lane rescue, applies u_0 to the true
   plant, and shifts the warm start. The state stays lane-minor for the
@@ -31,11 +36,16 @@ from altro_tpu_torch import tile_solver as tsv
 from altro_tpu_torch.cones import Cone
 from altro_tpu_torch.models.bicycle import bicycle_continuous
 from altro_tpu_torch.models.integrators import midpoint
-from altro_tpu_torch.models.tile_steps import bicycle_cols, midpoint_cols
+from altro_tpu_torch.models.tile_steps import (
+    bicycle_cols,
+    bicycle_tile,
+    midpoint_cols,
+    midpoint_tile,
+)
 from altro_tpu_torch.options import SolverOptions
 from altro_tpu_torch.parallel.batch import batch_init_state
 from altro_tpu_torch.problem import ConstraintSpec, Problem, lqr_cost_from_reference
-from altro_tpu_torch.solver import SolverState
+from altro_tpu_torch.solver import SolverState, init_state
 
 __all__ = [
     "Q_DIAG",
@@ -43,6 +53,8 @@ __all__ = [
     "DELTA_MAX",
     "scotty_problem",
     "bench_options",
+    "long_horizon_options",
+    "long_horizon_state",
     "perturbed_initial_states",
     "ClosedLoopResult",
     "run_closed_loop",
@@ -68,8 +80,10 @@ def _constant_jacobian(J):
     return jac
 
 
-def scotty_problem(ref, N: int = 30, *, dtype=torch.float32, device="cpu") -> Problem:
-    """The bench's Scotty tracking problem over the first reference window."""
+def scotty_problem(ref, N: int = 30, *, dtype=torch.float32, device="cuda") -> Problem:
+    """The bench's Scotty tracking problem over the first reference window
+    (N <= 500 for the vendored path's 501 knots), on the card unless
+    `device` says otherwise."""
     n, m = 4, 2
     kw = dict(dtype=dtype, device=device)
     h = float(np.float32(ref.tf / ref.N))
@@ -93,6 +107,7 @@ def scotty_problem(ref, N: int = 30, *, dtype=torch.float32, device="cpu") -> Pr
         constraints=(steering,), cost=cost, h=torch.full((N,), h, **kw),
         x0=torch.as_tensor(ref.x[0], **kw),
         dynamics_cols=midpoint_cols(bicycle_cols()),
+        dynamics_tile=midpoint_tile(bicycle_tile()),
     )
 
 
@@ -131,8 +146,44 @@ def bench_options(iterations_max: int = 10, rescue_iterations: int = 10,
                                     recovery_max_fails=0)
 
 
+def long_horizon_options() -> SolverOptions:
+    """Single-solve options of the N=500 rows (scripts/bench_all.py
+    `scotty_long_horizon_N500`, scripts/proto_n500_rollout.py): a fixed
+    budget of 20 iterations, the phase-split x-only Armijo-only grid of
+    width 8 over 24 trials (3 blocks), the single-lane backward and
+    trial-rollout kernels, diagonal expansions."""
+    return SolverOptions(
+        iterations_max=20,
+        tol_stationarity=1e-3,
+        tol_primal_feasibility=1e-3,
+        throw_errors=False,
+        use_backtracking_linesearch=True,
+        symmetrize_ctg=True,
+        parallel_linesearch=True,
+        ls_phase_split=True,
+        ls_grid_x_only=True,
+        ls_try_cubic_first=False,
+        ls_armijo_only=True,
+        ls_max_iters=24,
+        pallas_latency_backward=True,
+        pallas_rollout=True,
+        diag_expansion=True,
+    )
+
+
+def long_horizon_state(problem: Problem, ref) -> SolverState:
+    """The N=500 rows' warm start: x = the reference path, u = (u_ref[0][0],
+    0) at every knot (unbatched, on the problem's device and dtype)."""
+    N = problem.N
+    kw = dict(dtype=problem.dtype, device=problem.device)
+    st = init_state(problem)
+    u0 = torch.tensor([ref.u[0][0], 0.0], **kw)
+    return dataclasses.replace(st, u=u0.expand(N, problem.m).contiguous(),
+                               x=torch.as_tensor(ref.x[: N + 1], **kw))
+
+
 def perturbed_initial_states(ref, batch: int, *, seed: int = 0, noise: float = 0.02,
-                             dtype=torch.float32, device="cpu") -> torch.Tensor:
+                             dtype=torch.float32, device="cuda") -> torch.Tensor:
     """[B, n] initial plant states: the path's start plus Gaussian noise
     drawn from a seeded torch.Generator."""
     gen = torch.Generator(device="cpu").manual_seed(seed)

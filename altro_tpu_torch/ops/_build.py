@@ -1,17 +1,20 @@
 """Build the port's CUDA kernels from the sources in the checkout.
 
 No JAX counterpart: the JAX package lowered its Pallas kernels at trace
-time. Here `load()` compiles every `csrc/*.cu` of the package with nvcc
-into one shared library with a plain C interface, on first use, and
+time. Here `load()` compiles every `csrc/*.cu` of the package with nvcc,
+one process per source, all started together, and links the objects
+into one shared library with a plain C interface, on first use, then
 loads it with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas=-v -o libaltro_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas=-v -c -o <name>.o csrc/<name>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o libaltro_kernels.so *.o
 
 The library lands in `altro_tpu_torch/_build/<hash>/`, keyed by a hash of
-the sources and the command, so an edited source rebuilds and an
-unchanged one loads at once. A file lock keeps two processes from
-building at the same time. A failed build raises with nvcc's output;
+the sources (`*.cu` and the shared headers `*.cuh`) and the commands, so
+an edited source or header rebuilds and an unchanged tree loads at once.
+A file lock keeps two processes from building at the same time. A failed build raises with nvcc's output;
 nothing falls back.
 """
 
@@ -39,14 +42,18 @@ _F = ctypes.c_float
 SIGNATURES = {
     "riccati_backward_diag_f32": [_P] * 7 + [_P] * 7 + [_I] * 4 + [_P],
     "rollout_grid_f32": [_P] * 16 + [_P] * 2 + [_I] * 6 + [_I, _F, _F] + [_P],
+    "riccati_latency_f32": [_P] * 9 + [_P] * 7 + [_I] * 5 + [_P],
+    "trial_rollout_f32": [_P] * 16 + [_P] * 2 + [_I] * 3 + [_I] * 3 + [_F, _F] + [_P],
 }
 
 _lib = None
 
 
 def sources() -> list:
+    """Every kernel source and shared header of csrc/, sorted."""
     return sorted(
-        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+        if f.endswith((".cu", ".cuh")))
 
 
 def nvcc_path() -> str:
@@ -57,11 +64,15 @@ def nvcc_path() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def nvcc_command(out_path: str, srcs=None) -> list:
-    """The nvcc command line that builds the kernel library."""
-    srcs = sources() if srcs is None else srcs
-    return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", out_path, *srcs]
+def compile_command(obj_path: str, src: str) -> list:
+    """The nvcc command line that compiles one kernel source."""
+    return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+            "-Xptxas=-v", "-c", "-o", obj_path, src]
+
+
+def link_command(out_path: str, objs) -> list:
+    """The nvcc command line that links the objects into the library."""
+    return [nvcc_path(), *ARCH_FLAGS, "-shared", "-o", out_path, *objs]
 
 
 def _key(srcs) -> str:
@@ -70,7 +81,8 @@ def _key(srcs) -> str:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(nvcc_command("lib", ["src"])[1:]).encode())
+    h.update(" ".join(compile_command("obj", "src")[1:]).encode())
+    h.update(" ".join(link_command("lib", ["obj"])[1:]).encode())
     return h.hexdigest()[:16]
 
 
@@ -88,15 +100,28 @@ def build() -> tuple:
         try:
             if os.path.exists(lib_path):
                 return lib_path, ""
+            cus = [s for s in srcs if s.endswith(".cu")]
+            objs = [os.path.join(out_dir, os.path.basename(s)[:-3] + ".o") for s in cus]
+            procs = [subprocess.Popen(compile_command(o, s), stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+                     for o, s in zip(objs, cus)]
+            logs = []
+            for src, proc in zip(cus, procs):
+                out, err = proc.communicate()
+                logs.append(f"Compiling {os.path.basename(src)}\n{err}")
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                       f"(exit {proc.returncode}):\n{out}\n{err}")
             tmp = lib_path + f".tmp{os.getpid()}"
-            proc = subprocess.run(nvcc_command(tmp, srcs), capture_output=True, text=True)
+            proc = subprocess.run(link_command(tmp, objs), capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+                    f"nvcc link failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
             os.replace(tmp, lib_path)
+            log = "\n".join(logs + [proc.stderr])
             with open(os.path.join(out_dir, "build.log"), "w") as f:
-                f.write(proc.stderr)
-            return lib_path, proc.stderr
+                f.write(log)
+            return lib_path, log
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
 

@@ -37,6 +37,7 @@ __all__ = [
     "ineligibility",
     "affine_constraint_stacks",
     "premultiplied_rows",
+    "plain_grid",
     "rollout_grid_ref",
     "rollout_grid",
 ]
@@ -114,6 +115,31 @@ def premultiplied_rows(stacks, z, rho):
     return wax.contiguous(), wau.contiguous(), wg.contiguous(), 1.0 / (2.0 * rho)
 
 
+def plain_grid(stage, step, terminal, ref_x, ref_u, K, d, alphas, x0):
+    """The plain W-trial loop of both rollout grids (this one and the
+    single-lane ops/trial_rollout.py): a Python loop over knots with the
+    trials on the leading axis, x [W, n, B].
+
+    stage(k, x, u) -> [W, B] and terminal(x) -> [W, B] are the merit
+    terms, step(k, x, u) -> [W, n, B] the dynamics. ref_x [N(+1), n, B],
+    ref_u [N, m, B], K [N, m, n, B], d [N, m, B], alphas [W], x0 [n, B].
+    Returns (phi [W, B], xstack [W, N+1, n, B]).
+    """
+    N = K.shape[0]
+    W, (n, Bsz) = alphas.shape[0], x0.shape
+    a = alphas[:, None, None].to(x0.dtype)
+    x = x0[None].expand(W, n, Bsz)
+    xs = x0.new_empty((W, N + 1, n, Bsz))
+    phi = x0.new_zeros((W, Bsz))
+    for k in range(N):
+        xs[:, k] = x
+        u = ref_u[k] - torch.einsum("jib,wib->wjb", K[k], x - ref_x[k]) + a * d[k]
+        phi = phi + stage(k, x, u)
+        x = step(k, x, u)
+    xs[:, N] = x
+    return phi + terminal(x), xs
+
+
 def rollout_grid_ref(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0):
     """Plain W-trial rollout through the problem's own dynamics and AL cost.
 
@@ -121,25 +147,18 @@ def rollout_grid_ref(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0):
     z per group [N+1, p, B], rho [B], alphas [W], x0 [n, B].
     Returns (phi [W, B], xstack [W, N+1, n, B]).
     """
-    N, n = problem.N, problem.n
-    W, Bsz = alphas.shape[0], x0.shape[-1]
-    a = alphas[:, None, None]
-    x = x0[None].expand(W, n, Bsz)
-    xs = x0.new_empty((W, N + 1, n, Bsz))
-    phi = x0.new_zeros((W, Bsz))
-    for k in range(N):
-        xs[:, k] = x
+    N, W = problem.N, alphas.shape[0]
+
+    def cost(k, x, u, terminal):
         ks = torch.full((W,), k, device=x0.device)
-        u = ref_u[k] - torch.einsum("jib,wib->wjb", K[k], x - ref_x[k]) + a * d[k]
         zk = tuple(zj[k].expand(W, -1, -1) for zj in z)
-        cost, _, _ = al.al_cost(problem, ks, x, u, zk, rho, terminal=False)
-        phi = phi + cost
-        x = problem.dyn_step(k, x.movedim(1, 0), u.movedim(1, 0)).movedim(0, 1)
-    xs[:, N] = x
-    ks = torch.full((W,), N, device=x0.device)
-    zN = tuple(zj[N].expand(W, -1, -1) for zj in z)
-    cost, _, _ = al.al_cost(problem, ks, x, None, zN, rho, terminal=True)
-    return phi + cost, xs
+        return al.al_cost(problem, ks, x, u, zk, rho, terminal=terminal)[0]
+
+    return plain_grid(
+        lambda k, x, u: cost(k, x, u, False),
+        lambda k, x, u: problem.dyn_step(k, x.movedim(1, 0), u.movedim(1, 0)).movedim(0, 1),
+        lambda x: cost(N, x, None, True),
+        ref_x, ref_u, K, d, alphas, x0)
 
 
 def _check(name, t, shape):

@@ -1,0 +1,176 @@
+"""Single-lane W-trial line-search rollout: the CUDA kernel and its plain twin.
+
+Counterparts: altro_tpu/ops/pallas_rollout.py (`_pallas_rollout` and its
+Pallas `_kernel` / `_al_term`, the portable `_scan_rollout` that the
+plain version computes, `make_trial_grid_rollout`,
+`rollout_constraints_eligible` as `problem_ineligibility`;
+`affine_constraint_stacks` is ops/rollout_grid.py's).
+
+For each trial step alpha_w, from x_0 = x0 [n]:
+
+    u_k = u_ref_k - K_k (x_k - x_ref_k) + alpha_w d_k
+    phi += 0.5 Q_k.x.x + q_k.x + 0.5 R_k.u.u + r_k.u + c_k
+           (+ rhoi * sum_e min(w_e, 0)^2,  w = wg_k - wa_k.x - wu_k.u)
+    x_{k+1} = step(x_k, u_k, h_k)
+
+and phi adds the terminal cost and AL term at x_N (no u). Returns
+phis [W] and xstack [W, N+1, n]; the stored state at knot k is the state
+before the step. `con` is the optional affine bundle (wa [N+1, P, n],
+wu [N+1, P, m], wg [N+1, P], rhoi scalar), active-masked and
+rho-premultiplied as the solver builds it. The kernel
+(csrc/trial_rollout.cu) runs one trial per thread of one block.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from altro_tpu_torch.cones import Cone
+from altro_tpu_torch.models.tile_steps import INTEGRATOR_MIDPOINT, MODEL_BICYCLE
+from altro_tpu_torch.ops.rollout_grid import plain_grid
+from altro_tpu_torch.problem import DiagonalCost
+
+__all__ = [
+    "LAUNCHES",
+    "KERNEL_MAX_W",
+    "problem_ineligibility",
+    "ineligibility",
+    "trial_rollout_ref",
+    "trial_rollout",
+]
+
+# Count of kernel launches (plain integer; the CPU path never adds to it).
+LAUNCHES = 0
+
+# The kernel runs one trial per lane of one warp.
+KERNEL_MAX_W = 32
+
+# (model, integrator) pairs the CUDA kernel has a __device__ step for.
+DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): "bicycle_midpoint"}
+
+
+def problem_ineligibility(problem) -> Optional[str]:
+    """Why the single-lane solve cannot run this problem's grid through the
+    trial rollout, or None when it can: it needs a block step, a diagonal
+    cost, and only affine NEGATIVE_ORTHANT groups (unconstrained problems
+    qualify). The JAX `rollout_constraints_eligible` with the solver's own
+    checks (altro_tpu/solver.py:924-930), as a reason."""
+    if problem.dynamics_tile is None:
+        return "the problem has no block step (Problem.dynamics_tile)"
+    if not isinstance(problem.cost, DiagonalCost):
+        return "the cost is not a DiagonalCost"
+    for spec in problem.constraints:
+        if not (spec.affine and spec.cone is Cone.NEGATIVE_ORTHANT):
+            return (f"constraint group {spec.label!r} is not an affine "
+                    "NEGATIVE_ORTHANT group")
+    return None
+
+
+def ineligibility(step_tile, n: int, m: int) -> Optional[str]:
+    """Why the kernel cannot run this block step, or None when it can."""
+    ds = getattr(step_tile, "device_step", None)
+    if ds is None:
+        return "the block step names no device step (models/tile_steps.py)"
+    if (ds.model, ds.integrator) not in DEVICE_STEPS:
+        return f"no __device__ step for model {ds.model}, integrator {ds.integrator}"
+    if (ds.n, ds.m) != (n, m):
+        return f"device step is for n={ds.n}, m={ds.m}, operands have n={n}, m={m}"
+    return None
+
+
+def trial_rollout_ref(step_tile, alphas, x0, xref, uref, K, d, Qd, ql, Rd, rl,
+                      cconst, h, con=None):
+    """Plain PyTorch version: ops/rollout_grid.py's `plain_grid` with one
+    lane, the block step on the [W, n] trial rows, and the diagonal cost
+    rows plus the rows' AL term as the merit."""
+    N, W = K.shape[0], alphas.shape[0]
+
+    def merit(k, x, u):  # x [W, n, 1], u [W, m, 1] (None at x_N) -> [W, 1]
+        x = x[..., 0]
+        phi = 0.5 * torch.sum(Qd[k] * x * x, dim=1) + torch.sum(ql[k] * x, dim=1) + cconst[k]
+        if u is not None:
+            u = u[..., 0]
+            phi = phi + 0.5 * torch.sum(Rd[k] * u * u, dim=1) + torch.sum(rl[k] * u, dim=1)
+        if con is not None:
+            wa, wu, wg, rhoi = con
+            w = wg[k] - x @ wa[k].T  # [W, P]
+            if u is not None:
+                w = w - u @ wu[k].T
+            pw = torch.clamp(w, max=0.0)
+            phi = phi + rhoi * torch.sum(pw * pw, dim=1)
+        return phi[:, None]
+
+    def step(k, x, u):
+        return step_tile(x[..., 0], u[..., 0], h[k].expand(W, 1))[..., None]
+
+    phi, xs = plain_grid(merit, step, lambda x: merit(N, x, None), xref[..., None],
+                         uref[..., None], K[..., None], d[..., None], alphas, x0[:, None])
+    return phi[:, 0], xs[..., 0]
+
+
+def _check(name, t, shape):
+    if t.dtype != torch.float32:
+        raise TypeError(f"trial_rollout kernel: {name} must be float32, got {t.dtype}")
+    if not t.is_cuda:
+        raise ValueError(f"trial_rollout kernel: {name} is not on a CUDA device")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"trial_rollout kernel: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"trial_rollout kernel: {name} must be contiguous")
+
+
+def trial_rollout(step_tile, alphas, x0, xref, uref, K, d, Qd, ql, Rd, rl, cconst, h,
+                  con=None):
+    """W-trial rollout of one lane: the plain version for CPU tensors, the
+    CUDA kernel for CUDA tensors, or a raise when the kernel does not take
+    them (no __device__ twin of the step, W > KERNEL_MAX_W, not float32,
+    wrong shape, not contiguous)."""
+    global LAUNCHES
+    if not x0.is_cuda:
+        return trial_rollout_ref(step_tile, alphas, x0, xref, uref, K, d, Qd, ql, Rd, rl,
+                                 cconst, h, con=con)
+    N, m, n = K.shape
+    W = alphas.shape[0]
+    why = ineligibility(step_tile, n, m)
+    if why is not None:
+        raise NotImplementedError(f"trial_rollout kernel: {why}")
+    if W > KERNEL_MAX_W:
+        raise NotImplementedError(f"trial_rollout kernel: W={W} > {KERNEL_MAX_W} trials")
+    ops = {
+        "alphas": (alphas, (W,)), "x0": (x0, (n,)), "xref": (xref, (N + 1, n)),
+        "uref": (uref, (N, m)), "K": (K, (N, m, n)), "d": (d, (N, m)),
+        "Q": (Qd, (N + 1, n)), "q": (ql, (N + 1, n)), "R": (Rd, (N + 1, m)),
+        "r": (rl, (N + 1, m)), "c": (cconst, (N + 1,)), "h": (h, (N,)),
+    }
+    P = 0
+    if con is not None:
+        wa, wu, wg, rhoi = con
+        P = wg.shape[1]
+        if not torch.is_tensor(rhoi):
+            rhoi = torch.tensor(float(rhoi), dtype=x0.dtype, device=x0.device)
+        ops.update({"wa": (wa, (N + 1, P, n)), "wu": (wu, (N + 1, P, m)),
+                    "wg": (wg, (N + 1, P)), "rhoi": (rhoi.reshape(1), (1,))})
+    for name, (t, shape) in ops.items():
+        _check(name, t, shape)
+    ptr = {name: t.data_ptr() for name, (t, _) in ops.items()}
+    ds = step_tile.device_step
+    frame, length, rear = ds.params
+
+    from altro_tpu_torch.ops import _build
+
+    lib = _build.load()
+    phi = torch.empty((W,), dtype=x0.dtype, device=x0.device)
+    xstack = torch.empty((W, N + 1, n), dtype=x0.dtype, device=x0.device)
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    err = lib.trial_rollout_f32(
+        *(ptr[k] for k in ("alphas", "x0", "xref", "uref", "K", "d", "Q", "q", "R", "r",
+                           "c", "h")),
+        *(ptr.get(k, 0) for k in ("wa", "wu", "wg", "rhoi")),
+        phi.data_ptr(), xstack.data_ptr(), N, W, P, ds.model, ds.integrator, int(frame),
+        float(length), float(rear), stream)
+    _build.check(err, "trial_rollout_f32")
+    LAUNCHES += 1
+    return phi, xstack

@@ -196,7 +196,9 @@ class Problem:
     dynamics(x, u, h, k) -> x_next (component-first); dynamics_jac(x, u,
     h, k) -> [n, n+m, *batch] optional. x0: [n] for one lane, or [n, B]
     lane-minor for the batched solve. dynamics_cols: the column-form step
-    (models/tile_steps.py) that the rollout kernel runs on the card.
+    (models/tile_steps.py) that the batched rollout kernel runs on the
+    card; dynamics_tile: the block-form step ([W, n] trial rows) that the
+    single-lane trial rollout runs.
     """
 
     N: int
@@ -209,6 +211,7 @@ class Problem:
     h: torch.Tensor  # [N]
     x0: torch.Tensor
     dynamics_cols: Optional[Callable[..., tuple]] = None
+    dynamics_tile: Optional[Callable[..., torch.Tensor]] = None
 
     @property
     def dtype(self):

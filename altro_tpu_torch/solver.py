@@ -1,30 +1,69 @@
-"""Solver state, statistics and optimality measures (PyTorch port, subset).
+"""Solver state, statistics, measures and the single-lane solve (PyTorch port).
 
 Counterpart: altro_tpu/solver.py (`SolverState`, `SolveStats`,
 `init_state`, `stationarity`, `feasibility`, `complementarity`,
-`total_cost`). The per-lane `solve` with its strong-Wolfe search is not
-ported yet; the batched solve is tile_solver.solve_tiled.
+`total_cost`, and the single-lane `solve` with its helpers:
+`open_loop_rollout`, `merit_rollout_phi_x`, `light_from_xstack`,
+`al_gradients`, `complete_merit_payload`, `merit0_derivative`,
+`dynamics_expansions`, `_cost_expansions_and_cost_diag`, `_retry_loop`,
+`backward_adaptive`, `_alpha0_merit_out`, `_trajectory_convals`). The
+batched solve is tile_solver.solve_tiled.
 
-`SolverState` and `SolveStats` hold tensors in either layout: batch-major
-([B, ...], the public one) or lane-minor ([..., B], inside the batched
-solve); tile_solver converts between them. The measures below take
-lane-minor stacks and return one value per lane, [B].
+`SolverState` and `SolveStats` hold tensors in either layout: one lane
+(the JAX layout, `x [N+1, n]`, scalars 0-dim), batch-major ([B, ...])
+or lane-minor ([..., B], inside the batched solve). The measures
+`stationarity` .. `total_cost` take lane-minor stacks and return one
+value per lane, [B]; the single-lane helpers take the one-lane layout and
+run the lane-minor blocks of ops/tile_iter.py and al.py with B = 1.
+
+`solve` ports the phase-split x-only grid branch of the JAX solve
+(solver.py:900-981) on a diagonal-expansion problem: the single-lane
+backward pass (ops/packed_backward.py, the kernel on the card) with the
+adaptive-regularization retry, the grid line search
+(linesearch.parallel_backtracking_search_split) through the single-lane
+trial rollout (ops/trial_rollout.py) when `pallas_rollout`, else through
+the problem's own dynamics and AL cost; the status chain, the dual/penalty
+update and ls_failure_recovery. The JAX `lax.while_loop` becomes a Python loop with
+one host sync per iteration on `stop` (plus one per backward retry and
+per extra grid block). Options it does not implement raise
+NotImplementedError naming the option (`single_lane_refusal`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+import time
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from altro_tpu_torch import cones
+from altro_tpu_torch import al, cones
+from altro_tpu_torch.linesearch import (
+    LineSearchOptions,
+    parallel_backtracking_search_split,
+    tree_map,
+)
+from altro_tpu_torch.ops import tile_iter as ti
+from altro_tpu_torch.ops.packed_backward import tvlqr_backward_latency
+from altro_tpu_torch.ops.riccati_latency import riccati_latency_ref
+from altro_tpu_torch.ops.rollout_grid import affine_constraint_stacks, rollout_grid_ref
+from altro_tpu_torch.ops.trial_rollout import problem_ineligibility, trial_rollout
+from altro_tpu_torch.options import SolverOptions, Verbosity
 from altro_tpu_torch.problem import Problem
+from altro_tpu_torch.status import LineSearchCode, SolveStatus
 
 __all__ = [
     "SolverState",
     "SolveStats",
     "init_state",
+    "solve",
+    "single_lane_refusal",
+    "open_loop_rollout",
+    "merit_rollout_phi_x",
+    "light_from_xstack",
+    "complete_merit_payload",
+    "dynamics_expansions",
     "stationarity",
     "feasibility",
     "complementarity",
@@ -138,3 +177,474 @@ def total_cost(problem: Problem, x, u):
     ks = torch.arange(N, device=x.device)
     stage = problem.cost.stage_value(ks, x[:N], u)
     return torch.sum(stage, dim=0) + problem.cost.term_value(x[N:])[0]
+
+
+# ---------------------------------------------------------------------------
+# Single-lane solve
+# ---------------------------------------------------------------------------
+
+_UNSOLVED = int(SolveStatus.UNSOLVED)
+
+
+
+class _Span:
+    """Adds the host seconds of a `with` block to acc[name] (acc None:
+    records nothing)."""
+
+    __slots__ = ("acc", "name", "t0")
+
+    def __init__(self, acc, name):
+        self.acc, self.name = acc, name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if self.acc is not None:
+            self.acc[self.name] = self.acc.get(self.name, 0.0) + time.perf_counter() - self.t0
+
+
+def _l(t):
+    """One-lane tensor -> lane-minor with B = 1 (a view)."""
+    return t[..., None]
+
+
+def _u(t):
+    """Lane-minor with B = 1 -> one-lane tensor (a view)."""
+    return t[..., 0]
+
+
+def _lz(z):
+    return tuple(zj[..., None] for zj in z)
+
+
+def _uz(z):
+    return tuple(zj[..., 0] for zj in z)
+
+
+def _lane_problem(problem: Problem) -> Problem:
+    """The problem with x0 [n, 1], for the lane-minor measures."""
+    return dataclasses.replace(problem, x0=problem.x0[:, None])
+
+
+class MeritOut(NamedTuple):
+    phi: torch.Tensor
+    dphi: torch.Tensor
+    x: torch.Tensor  # [N+1, n]
+    u: torch.Tensor  # [N, m]
+    y: torch.Tensor  # [N+1, n]
+    A: torch.Tensor  # [N, n, n]
+    B: torch.Tensor  # [N, n, m]
+    lx: torch.Tensor  # [N+1, n]
+    lu: torch.Tensor  # [N, m]
+    convals: Tuple[torch.Tensor, ...]  # per group [N+1, p]
+    zproj: Tuple[torch.Tensor, ...]
+
+
+class MeritOutLight(NamedTuple):
+    phi: torch.Tensor
+    x: torch.Tensor
+    u: torch.Tensor
+    y: torch.Tensor
+    convals: Tuple[torch.Tensor, ...]
+    zproj: Tuple[torch.Tensor, ...]
+
+
+def open_loop_rollout(problem: Problem, u, x0=None):
+    """x_{k+1} = f(x_k, u_k) from x0 (default problem.x0); [N+1, n]."""
+    xs = [problem.x0 if x0 is None else x0]
+    for k in range(problem.N):
+        xs.append(problem.dyn_step(k, xs[-1], u[k]))
+    return torch.stack(xs)
+
+
+def merit_rollout_phi_x(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0):
+    """Trial rollouts through the problem's own dynamics and AL cost, for
+    every alpha of alphas [W] at once (the JAX function vmapped over
+    alpha). Returns (phi [W], xstack [W, N+1, n])."""
+    phi, xs = rollout_grid_ref(problem, _l(ref_x), _l(ref_u), _l(K), _l(d), _lz(z),
+                               rho.reshape(1), alphas, _l(x0))
+    return _u(phi), _u(xs)
+
+
+def light_from_xstack(problem: Problem, phi, x, ref_x, ref_u, K, d, P, p, z, rho,
+                      alpha) -> MeritOutLight:
+    """Rebuild the light merit payload (u, y, convals, zproj) knot-parallel
+    from a rolled-out state trajectory x [N+1, n]."""
+    u, y, convals, zproj = ti.light_from_xstack_tiled(
+        problem, _l(x), _l(ref_x), _l(ref_u), _l(K), _l(d), _l(P), _l(p), _lz(z),
+        rho.reshape(1), alpha)
+    return MeritOutLight(phi, x, _u(u), _u(y), _uz(convals), _uz(zproj))
+
+
+def _knots(problem: Problem, device):
+    N = problem.N
+    return (torch.arange(N, device=device),
+            torch.full((1,), N, dtype=torch.long, device=device))
+
+
+def al_gradients(problem: Problem, x, u, z, rho):
+    """AL cost gradients (lx [N+1, n], lu [N, m]) along a trajectory."""
+    N = problem.N
+    ks, kN = _knots(problem, x.device)
+    xl, zl, r = _l(x), _lz(z), rho.reshape(1)
+    lx_st, lu = al.al_grad(problem, ks, xl[:N], _l(u), tuple(zj[:N] for zj in zl), r,
+                           terminal=False)
+    lxN, _ = al.al_grad(problem, kN, xl[N:], None, tuple(zj[N:] for zj in zl), r,
+                        terminal=True)
+    return _u(torch.cat([lx_st, lxN], dim=0)), _u(lu)
+
+
+def dynamics_expansions(problem: Problem, x, u):
+    """(A [N, n, n], B [N, n, m]) at a trajectory, knot-parallel."""
+    ks, _ = _knots(problem, x.device)
+    A, B = problem.dyn_expansion(ks, x[: problem.N].T, u.T)
+    return A.permute(2, 0, 1), B.permute(2, 0, 1)
+
+
+def merit0_derivative(A, B, K, d, lx, lu):
+    """dphi/dalpha at alpha = 0 by the forward-sensitivity recurrence over
+    the cached linear data (a Python loop over knots)."""
+    N = A.shape[0]
+    dx = A.new_zeros(A.shape[1])
+    contribs = []
+    for k in range(N):
+        du = -(K[k] @ dx) + d[k]
+        contribs.append(lx[k] @ dx + lu[k] @ du)
+        dx = A[k] @ dx + B[k] @ du
+    return torch.sum(torch.stack(contribs)) + lx[N] @ dx
+
+
+def complete_merit_payload(problem: Problem, light: MeritOutLight, K, d, z, rho,
+                           with_dphi: bool = True):
+    """The full MeritOut from a light payload: dynamics expansions and AL
+    gradients knot-parallel, dphi by `merit0_derivative` (NaN when
+    with_dphi=False). Returns (dphi, MeritOut)."""
+    A, B = dynamics_expansions(problem, light.x, light.u)
+    lx, lu = al_gradients(problem, light.x, light.u, z, rho)
+    if with_dphi:
+        dphi = merit0_derivative(A, B, K, d, lx, lu)
+    else:
+        dphi = torch.full((), math.nan, dtype=light.phi.dtype, device=light.phi.device)
+    return dphi, MeritOut(light.phi, dphi, light.x, light.u, light.y, A, B, lx, lu,
+                          light.convals, light.zproj)
+
+
+def _cost_expansions_and_cost_diag(problem: Problem, x, u, z, rho):
+    """Diagonal AL cost expansions and the total AL cost at a trajectory:
+    (lx, lu, lxx_diag [N+1, n], luu_diag [N, m], None, al_cost)."""
+    lx, lu, lxx, luu, _, phi0 = ti.cost_expansions_tiled(
+        problem, _l(x), _l(u), _lz(z), rho.reshape(1), diag=True)
+    return _u(lx), _u(lu), _u(lxx), _u(luu), None, phi0[0]
+
+
+def _trajectory_convals(problem: Problem, x, u):
+    """Constraint values along a trajectory, per group [N+1, p]."""
+    N = problem.N
+    ks, kN = _knots(problem, x.device)
+    stage = al.constraint_values(problem, ks, _l(x[:N]), _l(u))
+    term = al.constraint_values(problem, kN, _l(x[N:]), x.new_zeros((1, problem.m, 1)))
+    return tuple(_u(torch.cat([s, t], dim=0)) for s, t in zip(stage, term))
+
+
+def _retry_loop(opts: SolverOptions, attempt, reg0):
+    """Adaptive-regularization retry: while the factorization fails, bump
+    reg geometrically (up to reg_max_retries) and re-run `attempt`. One
+    host sync per attempt (on ok)."""
+    gains = attempt(reg0)
+    reg = reg0
+    tries = 0
+    while tries < opts.reg_max_retries and not bool(gains.ok):
+        reg = torch.where(reg <= 0, torch.full_like(reg, opts.reg_min), reg * opts.reg_scaling)
+        gains = attempt(reg)
+        tries += 1
+    return gains, reg
+
+
+def backward_adaptive(opts: SolverOptions, A, B, lxx, luu, lux, lx, lu, reg0):
+    """Single-lane backward pass with the retry: the latency dispatcher
+    (the kernel on CUDA tensors) when pallas_latency_backward, else the
+    plain recursion on whatever device the operands are."""
+    if opts.pallas_backward or opts.parallel_riccati:
+        raise NotImplementedError(
+            "solve: pallas_backward / parallel_riccati are not ported for the single-lane solve")
+    A, B, lxx, luu, lx, lu = (t.contiguous() for t in (A, B, lxx, luu, lx, lu))
+    lux = None if lux is None else lux.contiguous()
+    if opts.pallas_latency_backward:
+        def attempt(reg):
+            return tvlqr_backward_latency(A, B, None, lxx, luu, lux, lx, lu, reg,
+                                          symmetrize=opts.symmetrize_ctg)
+    else:
+        def attempt(reg):
+            return riccati_latency_ref(A, B, lxx, luu, lx, lu, reg, lux=lux)
+    return _retry_loop(opts, attempt, reg0)
+
+
+def _alpha0_merit_out(problem: Problem, x, u, z, rho, convals, A, B, lx, lu, gains,
+                      phi0, dphi0) -> MeritOut:
+    """merit(0) from cached data: the reference trajectory, y = p, the
+    loop-top expansions, and one projection of z - rho c per group."""
+    _, zproj = al.projected_duals(problem, _lz(convals), _lz(z), rho.reshape(1))
+    return MeritOut(phi0, dphi0, x, u, gains.p, A, B, lx, lu, convals, _uz(zproj))
+
+
+def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
+    """Why `solve` does not implement this configuration, or None."""
+    checks = (
+        (opts.rti_mode, "rti_mode (the real-time iteration) is not ported for the "
+                        "single-lane solve"),
+        (not opts.parallel_linesearch, "parallel_linesearch=False (the strong-Wolfe "
+                                       "search) is not ported"),
+        (not opts.use_backtracking_linesearch, "use_backtracking_linesearch=False is not "
+                                               "ported (the grid search backtracks)"),
+        (not opts.ls_phase_split, "ls_phase_split=False (the non-split grid) is not ported"),
+        (not opts.ls_grid_x_only, "ls_grid_x_only=False (the light-payload grid) is not "
+                                  "ported"),
+        (opts.pallas_backward, "pallas_backward (the batch-major fused backward) is not "
+                               "ported for the single-lane solve"),
+        (opts.parallel_riccati, "parallel_riccati is not ported"),
+        (opts.exact_al_hessian, "exact_al_hessian is not ported"),
+        (not opts.diag_expansion, "diag_expansion=False (dense expansions) is not ported"),
+        (not al.diag_expansion_eligible(problem),
+         "dense expansions are not ported: the cost is not a DiagonalCost or a "
+         "constraint group lacks diag_hessian"),
+        (opts.iteration_callback is not None, "iteration_callback is not ported"),
+        (opts.verbose != Verbosity.SILENT, "verbose output is not ported"),
+    )
+    why = next((why for bad, why in checks if bad), None)
+    grid_why = problem_ineligibility(problem) if opts.pallas_rollout else None
+    if why is None and grid_why is not None:
+        why = (f"pallas_rollout (the trial-rollout grid) cannot take this problem: "
+               f"{grid_why}; pallas_rollout=False selects the problem's own grid")
+    return why
+
+
+def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOptions(),
+          layer_seconds: Optional[dict] = None):
+    """Single-lane AL-iLQR solve. Returns (SolverState, SolveStats), both in
+    the one-lane layout (problem.x0 [n], state.x [N+1, n], scalars 0-dim).
+
+    On CUDA tensors the backward pass and the trial rollout run their
+    kernels (float32) or raise; on CPU tensors their plain versions run.
+    `pallas_rollout` needs a problem with a block step, a diagonal cost
+    and only affine NEGATIVE_ORTHANT groups on every device (the JAX solve
+    falls back to the plain grid instead; here that is refused with its
+    reason). `pallas_latency_backward=False` and `pallas_rollout=False`
+    select the plain paths on any device.
+
+    layer_seconds: a dict to accumulate host seconds per layer into:
+    open_loop_rollout, expansions, backward (with its retry syncs),
+    line_search (inclusive of grid and completion, and of its per-block
+    syncs), grid, completion, update (criteria, duals, status) and sync
+    (the iteration's wait on `stop`).
+    """
+    why = single_lane_refusal(problem, opts)
+    if why is not None:
+        raise NotImplementedError(f"solve: {why}")
+    N = problem.N
+    dtype, dev = problem.dtype, problem.device
+    kw = dict(dtype=dtype, device=dev)
+    lp = _lane_problem(problem)
+
+    def span(name):
+        return _Span(layer_seconds, name)
+
+    ls_opts = LineSearchOptions(
+        c1=opts.ls_c1, c2=opts.ls_c2, max_iters=opts.ls_max_iters,
+        alpha_max=opts.ls_alpha_max, beta_increase=opts.ls_beta_increase,
+        beta_decrease=opts.ls_beta_decrease, min_interval_size=opts.ls_min_interval_size,
+        try_cubic_first=opts.ls_try_cubic_first,
+        use_backtracking=opts.use_backtracking_linesearch,
+        armijo_slack=opts.ls_armijo_slack)
+
+    rho = torch.tensor(opts.penalty_initial, **kw)
+    if opts.penalty_warm_start:
+        rho = torch.clamp(state.rho.to(dtype) * opts.penalty_warm_start_decay,
+                          min=opts.penalty_initial, max=opts.penalty_max)
+    x0 = problem.x0
+    with span("open_loop_rollout"):
+        x = open_loop_rollout(problem, state.u)
+    u = state.u
+    with span("expansions"):
+        convals = _trajectory_convals(problem, x, u)
+        A, B = dynamics_expansions(problem, x, u)
+
+    # the trial-rollout grid (single_lane_refusal checked that the problem
+    # has its block step, diagonal cost and affine NEGATIVE_ORTHANT groups;
+    # their rows are extracted once)
+    cost = problem.cost
+    kernel_grid = opts.pallas_rollout
+    rollout_con = None
+    if kernel_grid and problem.constraints:
+        ax, au, g_raw, act = affine_constraint_stacks(problem)
+        rollout_con = (ax * act[..., None], au * act[..., None], g_raw, act)
+
+    y, z, K, d, P, p = state.y, state.z, state.K, state.d, state.P, state.p
+    reg = torch.tensor(opts.reg_initial, **kw)
+    status = torch.tensor(_UNSOLVED, dtype=torch.int32, device=dev)
+    phi = torch.zeros((), **kw)
+    dphi = torch.zeros((), **kw)
+    alpha = torch.zeros((), **kw)
+    stat = torch.full((), math.inf, **kw)
+    feas = torch.full((), math.inf, **kw)
+    ls_iters = torch.zeros((), dtype=torch.int32, device=dev)
+    ls_fails = torch.zeros((), dtype=torch.int32, device=dev)
+    bp_fail_index = torch.tensor(N, dtype=torch.int32, device=dev)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    zero = torch.zeros((), **kw)
+
+    def code(s):
+        return torch.tensor(int(s), dtype=torch.int32, device=dev)
+
+    it = 0
+    stop = False
+    while it < opts.iterations_max and not stop:
+        # 1-2. expansions at the reference trajectory + backward with retry
+        with span("expansions"):
+            lx, lu, lxx, luu, lux, phi0 = _cost_expansions_and_cost_diag(
+                problem, x, u, z, rho)
+        with span("backward"):
+            gains, reg_used = backward_adaptive(opts, A, B, lxx, luu, lux, lx, lu, reg)
+        bp_failed = ~gains.ok
+
+        # 3. dphi(0) from the expected-decrease identity
+        dphi0 = gains.delta_V[0]
+        grad_small = torch.abs(dphi0) < opts.tol_meritfun_gradient
+        with span("expansions"):
+            aux0 = _alpha0_merit_out(problem, x, u, z, rho, convals, A, B, lx, lu, gains,
+                                     phi0, dphi0)
+
+        # 4. phase-split x-only grid line search (the closures run inside
+        #    this iteration's search, on this iteration's values)
+        def reconstruct(xstack, a, ph):
+            with span("completion"):
+                return light_from_xstack(problem, ph, xstack, x, u, gains.K, gains.d,
+                                         gains.P, gains.p, z, rho, a)
+
+        if kernel_grid:
+            con = None
+            if rollout_con is not None:
+                axm, aum, g_raw, act = rollout_con
+                cz = torch.cat(z, dim=1)
+                con = (rho * axm, rho * aum, (cz - rho * g_raw) * act, 1.0 / (2.0 * rho))
+            ops = (x0, x.contiguous(), u.contiguous(), gains.K, gains.d, cost.Q, cost.q,
+                   cost.R, cost.r, cost.c, problem.h)
+
+            def merit_grid(alphas):
+                with span("grid"):
+                    return trial_rollout(problem.dynamics_tile, alphas, *ops, con=con)
+        else:
+            def merit_grid(alphas):
+                with span("grid"):
+                    return merit_rollout_phi_x(problem, x, u, gains.K, gains.d, z, rho,
+                                               alphas, x0)
+
+        def complete(light, with_dphi=True):
+            with span("completion"):
+                return complete_merit_payload(problem, light, gains.K, gains.d, z, rho,
+                                              with_dphi=with_dphi)
+
+        with span("line_search"):
+            ls = parallel_backtracking_search_split(
+                None, complete, phi0, dphi0, 1.0, ls_opts, width=opts.ls_parallel_width,
+                armijo_only=opts.ls_armijo_only, reconstruct=reconstruct,
+                merit_grid=merit_grid,
+                best_decrease_fallback=opts.ls_best_decrease_fallback)
+        with span("update"):
+            alpha = torch.where(grad_small, zero, ls.alpha)
+            ls_ok = (ls.code == int(LineSearchCode.MINIMUM_FOUND)) | (
+                ls.code == int(LineSearchCode.HIT_MAX_STEPSIZE))
+            ls_failed = ~grad_small & (torch.isnan(alpha) | ~ls_ok)
+            ls_accepted = ls_ok | (ls.code == int(LineSearchCode.BEST_DECREASE))
+
+            # 5. accepted-step payload, or merit(0) on the short-circuit and
+            #    failure paths
+            use_ls_payload = ls_accepted & ~grad_small & (ls.aux_alpha == alpha)
+            m = tree_map(lambda a, b: torch.where(use_ls_payload, a, b), ls.aux, aux0)
+
+            # 6. optimality criteria at the candidate
+            stat = stationarity(_l(m.A), _l(m.B), _l(m.lx), _l(m.lu), _l(m.y))[0]
+            feas = feasibility(lp, _lz(m.convals))[0]
+            stat_tol = torch.tensor(opts.tol_stationarity, **kw)
+            if opts.tol_stationarity_rel > 0:
+                scale = torch.maximum(
+                    torch.maximum(torch.abs(m.lx).max(), torch.abs(m.lu).max()),
+                    torch.abs(m.y).max())
+                stat_tol = torch.maximum(stat_tol, opts.tol_stationarity_rel * scale)
+            x_oob, u_oob, obj_exceeded = no, no, no
+            if math.isfinite(opts.max_state_value):
+                x_oob = torch.abs(m.x).max() > opts.max_state_value
+            if math.isfinite(opts.max_input_value):
+                u_oob = torch.abs(m.u).max() > opts.max_input_value
+            if math.isfinite(opts.max_objective_value):
+                obj_exceeded = ~torch.isfinite(m.phi) | (m.phi > opts.max_objective_value)
+            diverged = obj_exceeded | x_oob | u_oob
+            converged = (torch.abs(stat) < stat_tol) & (feas < opts.tol_primal_feasibility)
+            if opts.enable_cost_tolerance:
+                converged = converged | ((it > 0) & (torch.abs(phi - m.phi) < opts.tol_cost)
+                                         & (feas < opts.tol_primal_feasibility))
+
+            # 7. adaptive dual/penalty update
+            do_dual = stat < torch.sqrt(torch.tensor(opts.tol_stationarity, **kw))
+            z_new = tuple(torch.where(do_dual & spec.active[:, None], zp, zj)
+                          for spec, zp, zj in zip(problem.constraints, m.zproj, z))
+            do_penalty = do_dual & (feas > opts.tol_primal_feasibility)
+            rho_new = torch.where(
+                do_penalty, torch.clamp(rho * opts.penalty_scaling, max=opts.penalty_max), rho)
+
+            # status chain, lowest priority first (MERIT_FUN_GRADIENT_TOO_SMALL
+            # sticky only while the gradient stays small)
+            new_status = torch.where(status == int(SolveStatus.MERIT_FUN_GRADIENT_TOO_SMALL),
+                                     code(SolveStatus.UNSOLVED), status)
+            for cond_, s in ((grad_small, SolveStatus.MERIT_FUN_GRADIENT_TOO_SMALL),
+                             (u_oob, SolveStatus.INPUT_OUT_OF_BOUNDS),
+                             (x_oob, SolveStatus.STATE_OUT_OF_BOUNDS),
+                             (obj_exceeded, SolveStatus.MAX_OBJECTIVE_EXCEEDED),
+                             (bp_failed, SolveStatus.BACKWARD_PASS_FAILED),
+                             (ls_failed, SolveStatus.LINE_SEARCH_FAILED),
+                             (converged, SolveStatus.SUCCESS)):
+                new_status = torch.where(cond_, code(s), new_status)
+            ls_fails_new = ls_fails + ls_failed.to(torch.int32)
+            if opts.ls_failure_recovery:
+                reg_cap = opts.reg_min * opts.reg_scaling ** opts.reg_max_retries
+                escalated = torch.clamp(
+                    torch.where(reg_used <= 0, torch.full_like(reg_used, opts.reg_min),
+                                reg_used * opts.reg_scaling), max=reg_cap)
+                reg_used = torch.where(ls_failed, escalated, reg_used)
+                cleared = ~ls_failed & ~converged & (status == int(SolveStatus.LINE_SEARCH_FAILED))
+                new_status = torch.where(cleared, code(SolveStatus.UNSOLVED), new_status)
+                cap = opts.ls_recovery_max_fails
+                exhausted = (ls_failed & (ls_fails_new > cap)) if cap > 0 else no
+                stop_t = converged | bp_failed | exhausted
+            else:
+                stop_t = converged | ls_failed | bp_failed
+            stop_t = stop_t | diverged
+
+            x, u, y, z, rho = m.x, m.u, m.y, z_new, rho_new
+            K, d, P, p, reg = gains.K, gains.d, gains.P, gains.p, reg_used
+            convals, A, B = m.convals, m.A, m.B
+            status, phi, dphi = new_status, m.phi, m.dphi
+            ls_iters, ls_fails = ls.n_iters, ls_fails_new
+            bp_fail_index = gains.fail_index.to(torch.int32)
+            it += 1
+        with span("sync"):
+            stop = bool(stop_t)  # the iteration's host sync
+
+    if it >= opts.iterations_max:
+        status = torch.where(status == _UNSOLVED, code(SolveStatus.MAX_ITERATIONS), status)
+    new_state = SolverState(x=x, u=u, y=y, z=z, rho=rho, K=K, d=d, P=P, p=p, reg=reg)
+    stats = SolveStats(
+        status=status,
+        iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+        objective_value=total_cost(lp, _l(x), _l(u))[0],
+        merit_value=phi,
+        stationarity=stat,
+        primal_feasibility=feas,
+        complementarity=complementarity(lp, _lz(convals), _lz(z))[0],
+        rho=rho,
+        alpha=alpha,
+        ls_iterations=ls_iters,
+        dphi=dphi,
+        bp_fail_index=bp_fail_index,
+    )
+    return new_state, stats

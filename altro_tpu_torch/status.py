@@ -1,9 +1,9 @@
 """Solver status and error codes (PyTorch port).
 
-Counterpart: altro_tpu/status.py (SolveStatus, ErrorCode), copied value
-for value so a status code means the same in both packages. A batched
-solve carries the status per lane as an int32 tensor. LineSearchCode and
-AltroError come with the strong-Wolfe search and the facade.
+Counterpart: altro_tpu/status.py (SolveStatus, ErrorCode, LineSearchCode),
+copied value for value so a status code means the same in both packages.
+A batched solve carries the status per lane as an int32 tensor.
+AltroError comes with the facade.
 """
 
 from __future__ import annotations
@@ -51,3 +51,19 @@ class ErrorCode(enum.IntEnum):
     NON_POSITIVE_PENALTY = 23
     COST_NOT_QUADRATIC = 24
     FILE_ERROR = 25
+
+
+class LineSearchCode(enum.IntEnum):
+    """Return codes of the line searches (the reference's codes plus
+    BEST_DECREASE, the grid search's best-decrease fallback, which counts
+    as a failure for status and recovery but carries a usable step)."""
+
+    NO_ERROR = 0
+    MINIMUM_FOUND = 1
+    INVALID_POINTER = 2
+    NOT_DESCENT_DIRECTION = 3
+    WINDOW_TOO_SMALL = 4
+    GOT_NONFINITE_STEP_SIZE = 5
+    MAX_ITERATIONS = 6
+    HIT_MAX_STEPSIZE = 7
+    BEST_DECREASE = 8

@@ -44,16 +44,34 @@ def test_package_imports_without_jax():
 def test_nvcc_command_targets_hopper():
     from altro_tpu_torch.ops import _build
 
-    cmd = _build.nvcc_command("out.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
-        assert flag in cmd
-    assert "--use_fast_math" not in cmd
     srcs = _build.sources()
-    assert {os.path.basename(s) for s in srcs} >= {"riccati_backward.cu", "rollout_grid.cu"}
-    assert all(s in cmd for s in srcs)
+    names = {os.path.basename(s) for s in srcs}
+    assert names >= {"riccati_backward.cu", "rollout_grid.cu", "riccati_latency.cu",
+                     "trial_rollout.cu", "device_steps.cuh"}
+    for src in (s for s in srcs if s.endswith(".cu")):
+        cmd = _build.compile_command("out.o", src)
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        for flag in ("-std=c++17", "-O3", "-c", "-fPIC"):
+            assert flag in cmd
+        assert "--use_fast_math" not in cmd and src in cmd
+    link = _build.link_command("out.so", ["a.o", "b.o"])
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
     # every C entry point the wrappers call has declared argument types
-    assert set(_build.SIGNATURES) == {"riccati_backward_diag_f32", "rollout_grid_f32"}
+    assert set(_build.SIGNATURES) == {"riccati_backward_diag_f32", "rollout_grid_f32",
+                                      "riccati_latency_f32", "trial_rollout_f32"}
+
+
+def test_build_key_follows_shared_headers(tmp_path):
+    """An edited header changes the library's hash directory, so a stale
+    library is never loaded."""
+    from altro_tpu_torch.ops import _build
+
+    cu, cuh = tmp_path / "k.cu", tmp_path / "steps.cuh"
+    cu.write_text('#include "steps.cuh"\n')
+    cuh.write_text("// v1\n")
+    before = _build._key([str(cu), str(cuh)])
+    cuh.write_text("// v2\n")
+    assert _build._key([str(cu), str(cuh)]) != before
 
 
 def test_cpu_wrappers_do_not_count_launches():
@@ -74,7 +92,7 @@ def test_cpu_wrappers_do_not_count_launches():
                             t(rng.standard_normal((N, m, B))), 0.0, diag_cost=True)
     assert bool(g.ok.all())
     ref = load_scotty()
-    prob = mpc.scotty_problem(ref, N=N, dtype=torch.float64)
+    prob = mpc.scotty_problem(ref, N=N, dtype=torch.float64, device="cpu")
     xr = t(np.repeat(ref.x[: N + 1, :, None], B, axis=2))
     ur = t(np.repeat(ref.u[:N, :, None], B, axis=2))
     phi, xs = rg.rollout_grid(prob, xr, ur, g.K, g.d, (t(np.zeros((N + 1, 2, B))),),
@@ -91,7 +109,7 @@ def test_kernel_wrappers_refuse_what_they_do_not_implement():
     from altro_tpu_torch.ops import rollout_grid as rg
     import dataclasses
 
-    prob = mpc.scotty_problem(load_scotty(), N=4, dtype=torch.float64)
+    prob = mpc.scotty_problem(load_scotty(), N=4, dtype=torch.float64, device="cpu")
     assert rg.rollout_tiled_eligible(prob)
     no_cols = dataclasses.replace(prob, dynamics_cols=None)
     assert "column-form" in rg.ineligibility(no_cols)
@@ -104,3 +122,15 @@ def test_kernel_wrappers_refuse_what_they_do_not_implement():
     z = torch.zeros((2, 4, 4, 3), dtype=torch.float64)
     with pytest.raises(ValueError, match="symmetric"):
         rb.riccati_backward(z, z[:, :, :2], z[0], z[0], z[0], z[0], 0.0, symmetrize=True)
+
+
+def test_entry_points_default_to_the_card():
+    """The port's entry points put their tensors on the card unless the
+    caller asks for the CPU (on a machine without one, torch raises)."""
+    import inspect
+
+    from altro_tpu_torch import convert, mpc
+
+    for fn in (mpc.scotty_problem, mpc.perturbed_initial_states,
+               convert.problem_from_numpy, convert.state_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__

@@ -5,8 +5,10 @@ inside the fixture, never at import). On a machine with an H100 and nvcc:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -p no:randomly -n 0
 
-Small shapes with a ragged batch (B not a multiple of the block size),
-the same comparisons as chip_smoke.py's parity phase.
+Small shapes with a ragged batch (B not a multiple of the block size)
+for the batched kernels, and a 150-knot horizon (three staged chunks,
+the last ragged) for the single-lane ones: the same comparisons as
+chip_smoke.py's parity phases.
 """
 
 import numpy as np
@@ -143,3 +145,84 @@ def test_solve_on_card_tracks_plain_path(dev, rti):
     a, b = out
     assert torch.equal(a.status.cpu(), b.status)
     assert float((a.x_true.double().cpu() - b.x_true).abs().max()) < 1e-2
+
+
+NL = 150  # single-lane horizon: three staged chunks of 64 knots, the last ragged
+
+
+def _latency_inputs(dev, dense, seed=2):
+    rng = np.random.default_rng(seed)
+    n, m = 4, 2
+    A = np.eye(n)[None] + 0.05 * rng.standard_normal((NL, n, n))
+    Bm = 0.3 * rng.standard_normal((NL, n, m))
+    if dense:
+        Wm = rng.standard_normal((NL + 1, n, n))
+        lxx = np.einsum("kij,klj->kil", Wm, Wm) / n + np.eye(n)
+        Vm = rng.standard_normal((NL, m, m))
+        luu = np.einsum("kij,klj->kil", Vm, Vm) / m + np.eye(m)
+        luu[NL - 30] = -1e3 * np.eye(m)
+        extra = dict(lux=0.05 * rng.standard_normal((NL, m, n)),
+                     f=0.02 * rng.standard_normal((NL, n)))
+    else:
+        lxx = np.abs(rng.standard_normal((NL + 1, n))) + 0.1
+        luu = np.abs(rng.standard_normal((NL, m))) + 0.1
+        luu[70] = -10.0
+        extra = {}
+    lx = rng.standard_normal((NL + 1, n))
+    lu = rng.standard_normal((NL, m))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
+    return [t(a) for a in (A, Bm, lxx, luu, lx, lu)], {k: t(v) for k, v in extra.items()}
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_riccati_latency_kernel_matches_plain(dev, dense):
+    from altro_tpu_torch.ops import riccati_latency as rl
+
+    args, extra = _latency_inputs(dev, dense)
+    before = rl.LAUNCHES
+    gk = rl.riccati_latency(*args, 0.01, **extra)
+    gr = rl.riccati_latency_ref(*args, 0.01, **extra)
+    torch.cuda.synchronize()
+    assert rl.LAUNCHES == before + 1
+    assert float((gk.K - gr.K).abs().max()) < 1e-4
+    assert float((gk.d - gr.d).abs().max()) < 1e-4
+    assert float(((gk.P - gr.P).abs() / (1 + gr.P.abs())).max()) < 1e-5
+    assert bool(gk.ok) == bool(gr.ok) is False
+    assert int(gk.fail_index) == int(gr.fail_index)
+    with pytest.raises(TypeError):
+        rl.riccati_latency(*(a.double() for a in args), 0.01)
+
+
+@pytest.mark.parametrize("P", [0, 2])
+def test_trial_rollout_kernel_matches_plain(dev, P):
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch.io.scotty import load_scotty
+    from altro_tpu_torch.ops import trial_rollout as tr
+    from altro_tpu_torch.ops.rollout_grid import affine_constraint_stacks
+
+    ref = load_scotty()
+    prob = mpc.scotty_problem(ref, N=NL, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(3)
+    xr = ref.x[: NL + 1] + 0.1 * rng.standard_normal((NL + 1, 4))
+    xr[:, 3] = 1.0 + 0.05 * rng.standard_normal(NL + 1)
+    ur = ref.u[:NL] + 0.02 * rng.standard_normal((NL, 2))
+    ur[:, 1] *= 0.1
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
+    c = prob.cost
+    args = (t(0.5 ** np.arange(8)), t(xr[0]), t(xr), t(ur),
+            t(0.002 * rng.standard_normal((NL, 2, 4))), t(0.05 * rng.standard_normal((NL, 2))),
+            c.Q, c.q, c.R, c.r, c.c, prob.h)
+    con = None
+    if P:
+        ax, au, g, act = affine_constraint_stacks(prob)
+        rho = torch.tensor(3.0, device=dev)
+        z = t(np.abs(rng.standard_normal((NL + 1, 2))))
+        con = (rho * ax * act[..., None], rho * au * act[..., None], (z - rho * g) * act,
+               1.0 / (2.0 * rho))
+    before = tr.LAUNCHES
+    pk, xk = tr.trial_rollout(prob.dynamics_tile, *args, con=con)
+    pr, xs = tr.trial_rollout_ref(prob.dynamics_tile, *args, con=con)
+    torch.cuda.synchronize()
+    assert tr.LAUNCHES == before + 1
+    assert float(((pk - pr).abs() / pr.abs().clamp(min=1.0)).max()) < 1e-4
+    assert float((xk - xs).abs().max()) < 1e-4 * max(1.0, float(xs.abs().max()))

@@ -60,7 +60,7 @@ def _problems(constrained):
                               diag_hessian=True, affine=True)
     tprob = problem_from_numpy(arrays, N=N, n=n, m=m, dynamics=midpoint(bicycle_continuous()),
                                constraints=(steering,) if constrained else (),
-                               dynamics_cols=midpoint_cols(bicycle_cols()))
+                               dynamics_cols=midpoint_cols(bicycle_cols()), device="cpu")
     return jprob, tprob
 
 

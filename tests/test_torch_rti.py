@@ -84,8 +84,8 @@ def test_rti_closed_loop_matches_vmapped_solve():
         errs.append(np.linalg.norm(np.asarray(xt) - xw[t + 1, 0][None], axis=1))
 
     tref = load_scotty()
-    res = mpc.run_closed_loop(mpc.scotty_problem(tref, N=N, dtype=torch.float64), tref,
-                              torch.as_tensor(x_true0), ticks=T, opts=t_opts)
+    prob = mpc.scotty_problem(tref, N=N, dtype=torch.float64, device="cpu")
+    res = mpc.run_closed_loop(prob, tref, torch.as_tensor(x_true0), ticks=T, opts=t_opts)
     np.testing.assert_array_equal(res.iterations.numpy(), np.stack(iters))
     np.testing.assert_array_equal(res.status.numpy(), np.stack(status))
     np.testing.assert_allclose(res.tracking_error.numpy(), np.stack(errs), rtol=0, atol=1e-8)

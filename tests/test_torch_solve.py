@@ -89,7 +89,7 @@ def _jax_closed_loop(x_true0):
 
 def _port_closed_loop(x_true0):
     ref = load_scotty()
-    prob = mpc.scotty_problem(ref, N=N, dtype=torch.float64)
+    prob = mpc.scotty_problem(ref, N=N, dtype=torch.float64, device="cpu")
     return mpc.run_closed_loop(prob, ref, torch.as_tensor(x_true0), ticks=T,
                                opts=T_OPTS, opts_rescue=T_RESCUE)
 

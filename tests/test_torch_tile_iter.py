@@ -42,7 +42,7 @@ DM = 60 * np.pi / 180.0
 
 def _setup():
     ref = load_scotty()
-    tprob = mpc.scotty_problem(ref, N=N, dtype=torch.float64)
+    tprob = mpc.scotty_problem(ref, N=N, dtype=torch.float64, device="cpu")
     h = float(tprob.h[0])
     jprob = JProblem(
         N=N, n=n, m=m, dynamics=jmidpoint(jbicycle()), dynamics_jac=None,
@@ -69,7 +69,7 @@ def _setup():
     arrays = {f.name: (tuple(np.asarray(z) for z in jstate.z) if f.name == "z"
                        else np.asarray(getattr(jstate, f.name)))
               for f in dataclasses.fields(JState)}
-    tstate = tsv.state_to_lanes(state_from_numpy(arrays))
+    tstate = tsv.state_to_lanes(state_from_numpy(arrays, device="cpu"))
     prob_axes = dataclasses.replace(
         jprob, cost=dataclasses.replace(jprob.cost, Q=False, R=False, q=False, r=False,
                                         c=False),
