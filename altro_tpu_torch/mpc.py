@@ -1,8 +1,9 @@
-"""Batched receding-horizon MPC on the Scotty path: the port's main entry.
+"""Batched receding-horizon MPC: the port's entry points.
 
-Counterparts: altro_tpu/mpc.py (the MPC layer) and the tiled branch of
+Counterparts: altro_tpu/mpc.py (the MPC layer), the tiled branch of
 bench.py's closed loop (`child_main`, its problem, options, rescue and
-`tick_tiled`), here as library functions:
+`tick_tiled`) and the quadrotor waypoint row of scripts/bench_all.py
+(:322-512, its non-tiled branch), here as library functions:
 
 * `scotty_problem` builds the bench problem: kinematic bicycle (n=4,
   m=2) with midpoint integration, horizon N, diagonal tracking cost
@@ -19,6 +20,11 @@ bench.py's closed loop (`child_main`, its problem, options, rescue and
   window, solves with the failed-lane rescue, applies u_0 to the true
   plant, and shifts the warm start. The state stays lane-minor for the
   whole run (converted once at each end).
+* `quadrotor_waypoint_problem`, `quadrotor_options`,
+  `quadrotor_initial_states` and `run_quadrotor_waypoints`: the n=12
+  quadrotor (rk4) flying B lanes through four waypoints, switched every
+  25 ticks, each tick one vmapped solve (`parallel.batch.solve_lanes`)
+  with the dense backward kernel (`pallas_backward=True`).
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ from altro_tpu_torch import rescue as rsc
 from altro_tpu_torch import tile_solver as tsv
 from altro_tpu_torch.cones import Cone
 from altro_tpu_torch.models.bicycle import bicycle_continuous
-from altro_tpu_torch.models.integrators import midpoint
+from altro_tpu_torch.models.integrators import midpoint, rk4
+from altro_tpu_torch.models.quadrotor import quadrotor_continuous
 from altro_tpu_torch.models.tile_steps import (
     bicycle_cols,
     bicycle_tile,
@@ -43,7 +50,7 @@ from altro_tpu_torch.models.tile_steps import (
     midpoint_tile,
 )
 from altro_tpu_torch.options import SolverOptions
-from altro_tpu_torch.parallel.batch import batch_init_state
+from altro_tpu_torch.parallel.batch import batch_init_state, solve_lanes
 from altro_tpu_torch.problem import ConstraintSpec, Problem, lqr_cost_from_reference
 from altro_tpu_torch.solver import SolverState, init_state
 
@@ -58,6 +65,13 @@ __all__ = [
     "perturbed_initial_states",
     "ClosedLoopResult",
     "run_closed_loop",
+    "QUAD_HOVER",
+    "QUAD_WAYPOINTS",
+    "quadrotor_waypoint_problem",
+    "quadrotor_options",
+    "quadrotor_initial_states",
+    "WaypointResult",
+    "run_quadrotor_waypoints",
 ]
 
 Q_DIAG = 1e-2
@@ -270,3 +284,144 @@ def run_closed_loop(problem: Problem, ref, x_true0: torch.Tensor, *, ticks: int,
     seconds = time.perf_counter() - t0
     return ClosedLoopResult(iters, errs, statuses, rescue_ticks, x_true_b, state_b,
                             seconds)
+
+
+# ---------------------------------------------------------------------------
+# Quadrotor waypoint MPC (scripts/bench_all.py:322-512, non-tiled branch)
+# ---------------------------------------------------------------------------
+
+QUAD_HOVER = 0.5 * 9.81 / 4.0  # per-rotor thrust that holds the 0.5 kg body
+QUAD_WAYPOINTS = ((1.0, 0.0, 1.0), (1.0, 1.0, 1.5), (0.0, 1.0, 1.0), (0.0, 0.0, 0.5))
+
+
+def _quadrotor_q_diag(N: int) -> np.ndarray:
+    """Q diag (1, 1, 1, 0.1 x 9) at every knot, the terminal knot x 10."""
+    Qd = np.tile(np.concatenate([np.full(3, 1.0), np.full(9, 0.1)]), (N + 1, 1))
+    Qd[N] *= 10
+    return Qd
+
+
+def quadrotor_waypoint_problem(N: int = 30, *, dtype=torch.float32, device="cuda") -> Problem:
+    """The row's problem: rk4 quadrotor (n=12, m=4), h=0.05, no
+    constraints, diagonal tracking cost toward the first waypoint with
+    R=1e-2 and u_ref = hover; on the card unless `device` says otherwise."""
+    n, m = 12, 4
+    kw = dict(dtype=dtype, device=device)
+    xf = np.zeros(n)
+    xf[:3] = QUAD_WAYPOINTS[0]
+    cost = lqr_cost_from_reference(
+        torch.as_tensor(_quadrotor_q_diag(N), **kw), torch.full((N + 1, m), 1e-2, **kw),
+        torch.as_tensor(np.tile(xf, (N + 1, 1)), **kw), torch.full((N + 1, m), QUAD_HOVER, **kw))
+    return Problem(N=N, n=n, m=m, dynamics=rk4(quadrotor_continuous()), dynamics_jac=None,
+                   constraints=(), cost=cost, h=torch.full((N,), 0.05, **kw),
+                   x0=torch.zeros(n, **kw))
+
+
+def quadrotor_options() -> SolverOptions:
+    """The row's options (`qopts` off the tiled branch): 15 iterations,
+    the phase-split x-only grid of width 8 in one block with the
+    strong-Wolfe test on its first trial, relative stationarity 1e-5,
+    Armijo slack 1e-6, penalty warm start, the dense backward kernel."""
+    return SolverOptions(
+        iterations_max=15,
+        tol_stationarity=1e-3,
+        tol_primal_feasibility=1e-3,
+        throw_errors=False,
+        rti_mode=False,
+        use_backtracking_linesearch=True,
+        parallel_linesearch=True,
+        ls_phase_split=True,
+        ls_try_cubic_first=False,
+        ls_max_iters=8,
+        penalty_warm_start=True,
+        ls_armijo_only=False,
+        tol_stationarity_rel=1e-5,
+        pallas_backward=True,
+        ls_armijo_slack=1e-6,
+    )
+
+
+def quadrotor_initial_states(batch: int = 1024, *, seed: int = 1, scale: float = 0.05,
+                             dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """[B, 12] initial plant states scale * N(0, 1) from a seeded
+    torch.Generator (the JAX row draws them from jax.random, which gives
+    other numbers for the same seed)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    xs = scale * torch.randn((batch, 12), generator=gen, dtype=torch.float64)
+    return xs.to(dtype=dtype, device=device)
+
+
+@dataclasses.dataclass
+class WaypointResult:
+    iterations: torch.Tensor  # [T, B] int32
+    status: torch.Tensor  # [T, B] int32
+    x_true: torch.Tensor  # [B, 12] final plant states
+    final_waypoint: tuple  # the waypoint of the last tick
+    state: SolverState  # final solver state, batch-major
+    seconds: float  # wall time of the run (synchronized on CUDA)
+
+    def metrics(self) -> dict:
+        """The row's numbers (scripts/bench_all.py:501-510, unrounded)."""
+        T, B = self.iterations.shape
+        wp = torch.as_tensor(self.final_waypoint, dtype=torch.float64)
+        dist = torch.linalg.norm(self.x_true[:, :3].double().cpu() - wp[None], dim=1)
+        return {
+            "solves_per_s": B * T / self.seconds,
+            "ms_per_tick": 1e3 * self.seconds / T,
+            "mean_iterations": float(self.iterations.double().mean()),
+            "success_rate": float((self.status == 0).double().mean()),
+            "mean_final_waypoint_dist": float(dist.mean()),
+        }
+
+
+def run_quadrotor_waypoints(problem: Problem, x_true0: torch.Tensor, *, ticks: int = 100,
+                            opts: Optional[SolverOptions] = None, switch_every: int = 25,
+                            state0: Optional[SolverState] = None,
+                            layer_seconds: Optional[dict] = None) -> WaypointResult:
+    """Closed-loop waypoint MPC: each tick every lane solves (the vmapped
+    solve), applies u_0 through the rk4 plant and shifts its warm start;
+    the waypoint's cost rows (shared by all lanes) switch every
+    `switch_every` ticks. problem: from `quadrotor_waypoint_problem`;
+    x_true0 [B, 12]; opts default `quadrotor_options()`; state0
+    (batch-major) defaults to the cold start with the inputs at hover.
+    The lanes stay lane-minor for the whole run. layer_seconds: a dict
+    that accumulates the solves' host seconds by layer
+    (`tile_solver.lane_loop`)."""
+    opts = quadrotor_options() if opts is None else opts
+    N, n, m, B = problem.N, problem.n, problem.m, x_true0.shape[0]
+    dt, dev = problem.dtype, problem.device
+    wps = np.zeros((len(QUAD_WAYPOINTS), n))
+    wps[:, :3] = QUAD_WAYPOINTS
+    Qd = _quadrotor_q_diag(N)
+    q_wp = torch.as_tensor(-(Qd[None] * wps[:, None]), dtype=dt, device=dev)
+    c_wp = 0.5 * np.sum(Qd[None] * wps[:, None] ** 2, axis=2)
+    c_wp[:, :N] += 0.5 * float(np.full(m, QUAD_HOVER) @ (np.full(m, 1e-2) * np.full(m, QUAD_HOVER)))
+    c_wp = torch.as_tensor(c_wp, dtype=dt, device=dev)
+    wp_idx = [(t // switch_every) % len(QUAD_WAYPOINTS) for t in range(ticks)]
+    if state0 is None:
+        state0 = dataclasses.replace(batch_init_state(problem, B),
+                                     u=torch.full((B, N, m), QUAD_HOVER, dtype=dt, device=dev))
+    if x_true0.is_cuda:
+        torch.cuda.synchronize(x_true0.device)
+    t0 = time.perf_counter()
+    st = tsv.state_to_lanes(state0)
+    x_true = tsv.batch_to_lanes(x_true0)
+    iters = torch.empty((ticks, B), dtype=torch.int32, device=dev)
+    statuses = torch.empty((ticks, B), dtype=torch.int32, device=dev)
+    h = problem.h[0]
+    for t in range(ticks):
+        w = wp_idx[t]
+        prob_t = dataclasses.replace(
+            problem, cost=dataclasses.replace(problem.cost, q=q_wp[w], c=c_wp[w]), x0=x_true)
+        st, stats = solve_lanes(prob_t, st, opts, layer_seconds)
+        x_true = problem.dynamics(x_true, st.u[0], h, 0)
+        st = tsv.shift_trajectory_tiled(st)
+        iters[t] = stats.iterations
+        statuses[t] = stats.status
+    x_true_b = tsv.lanes_to_batch(x_true)
+    state_b = tsv.state_from_lanes(st)
+    if x_true0.is_cuda:
+        torch.cuda.synchronize(x_true0.device)
+    seconds = time.perf_counter() - t0
+    return WaypointResult(iters, statuses, x_true_b, QUAD_WAYPOINTS[wp_idx[-1]], state_b,
+                          seconds)

@@ -15,7 +15,8 @@ The library lands in `altro_tpu_torch/_build/<hash>/`, keyed by a hash of
 the sources (`*.cu` and the shared headers `*.cuh`) and the commands, so
 an edited source or header rebuilds and an unchanged tree loads at once.
 A file lock keeps two processes from building at the same time. A failed build raises with nvcc's output;
-nothing falls back.
+nothing falls back. `check_operand` is the wrappers' shared check of what
+every kernel takes (contiguous float32 CUDA tensors of the stated shape).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -44,6 +47,7 @@ SIGNATURES = {
     "rollout_grid_f32": [_P] * 16 + [_P] * 2 + [_I] * 6 + [_I, _F, _F] + [_P],
     "riccati_latency_f32": [_P] * 9 + [_P] * 7 + [_I] * 5 + [_P],
     "trial_rollout_f32": [_P] * 16 + [_P] * 2 + [_I] * 3 + [_I] * 3 + [_F, _F] + [_P],
+    "riccati_dense_f32": [_P] * 9 + [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _lib = None
@@ -138,6 +142,20 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def check_operand(kernel: str, name: str, t, shape) -> None:
+    """Raise unless operand `name` of `kernel` is a contiguous float32 CUDA
+    tensor of the given shape (what every kernel of csrc/ takes)."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{kernel} kernel: {name} must be float32, got {t.dtype}")
+    if not t.is_cuda:
+        raise ValueError(f"{kernel} kernel: {name} is not on a CUDA device")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel} kernel: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel} kernel: {name} must be contiguous")
 
 
 def check(err: int, name: str) -> None:

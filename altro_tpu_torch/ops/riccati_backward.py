@@ -27,6 +27,8 @@ from typing import NamedTuple
 
 import torch
 
+from altro_tpu_torch.ops import _build
+
 __all__ = ["Gains", "riccati_backward", "riccati_backward_ref", "LAUNCHES"]
 
 # Count of kernel launches (plain integer; the CPU path never adds to it).
@@ -148,18 +150,6 @@ def riccati_backward_ref(A, B, lxx, luu, lx, lu, reg, lux=None, f=None) -> Gains
                  fail == N, fail)
 
 
-def _check(name, t, shape):
-    if t.dtype != torch.float32:
-        raise TypeError(f"riccati_backward kernel: {name} must be float32, got {t.dtype}")
-    if not t.is_cuda:
-        raise ValueError(f"riccati_backward kernel: {name} is not on a CUDA device")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"riccati_backward kernel: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"riccati_backward kernel: {name} must be contiguous")
-
-
 def riccati_backward(A, B, lxx, luu, lx, lu, reg, lux=None, diag_cost=False,
                      symmetrize=False) -> Gains:
     """Batched Riccati backward pass on lane-minor operands.
@@ -184,15 +174,11 @@ def riccati_backward(A, B, lxx, luu, lx, lu, reg, lux=None, diag_cost=False,
     if (n, m) not in KERNEL_SHAPES:
         raise NotImplementedError(
             f"riccati_backward kernel: no instantiation for n={n}, m={m}")
-    _check("A", A, (N, n, n, Bsz))
-    _check("B", B, (N, n, m, Bsz))
-    _check("lxx", lxx, (N + 1, n, Bsz))
-    _check("luu", luu, (N, m, Bsz))
-    _check("lx", lx, (N + 1, n, Bsz))
-    _check("lu", lu, (N, m, Bsz))
-    _check("reg", reg, (Bsz,))
-
-    from altro_tpu_torch.ops import _build
+    for name, t, shape in (("A", A, (N, n, n, Bsz)), ("B", B, (N, n, m, Bsz)),
+                           ("lxx", lxx, (N + 1, n, Bsz)), ("luu", luu, (N, m, Bsz)),
+                           ("lx", lx, (N + 1, n, Bsz)), ("lu", lu, (N, m, Bsz)),
+                           ("reg", reg, (Bsz,))):
+        _build.check_operand("riccati_backward", name, t, shape)
 
     lib = _build.load()
     K = torch.empty((N, m, n, Bsz), dtype=A.dtype, device=A.device)

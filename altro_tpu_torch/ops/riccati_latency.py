@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from altro_tpu_torch.ops import _build
 from altro_tpu_torch.ops.riccati_backward import riccati_backward_ref
 from altro_tpu_torch.tvlqr import TVLQRGains
 
@@ -48,18 +49,6 @@ def riccati_latency_ref(A, B, lxx, luu, lx, lu, reg=0.0, lux=None, f=None) -> TV
                              lux=_lane(lux), f=_lane(f))
     return TVLQRGains(g.K[..., 0], g.d[..., 0], g.P[..., 0], g.p[..., 0],
                       g.delta_V[..., 0], g.ok[0], g.fail_index[0])
-
-
-def _check(name, t, shape):
-    if t.dtype != torch.float32:
-        raise TypeError(f"riccati_latency kernel: {name} must be float32, got {t.dtype}")
-    if not t.is_cuda:
-        raise ValueError(f"riccati_latency kernel: {name} is not on a CUDA device")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"riccati_latency kernel: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"riccati_latency kernel: {name} must be contiguous")
 
 
 def riccati_latency(A, B, lxx, luu, lx, lu, reg=0.0, lux=None, f=None,
@@ -90,9 +79,7 @@ def riccati_latency(A, B, lxx, luu, lx, lu, reg=0.0, lux=None, f=None,
     if f is not None:
         ops["f"] = (f, (N, n))
     for name, (t, shape) in ops.items():
-        _check(name, t, shape)
-
-    from altro_tpu_torch.ops import _build
+        _build.check_operand("riccati_latency", name, t, shape)
 
     lib = _build.load()
     kw = dict(dtype=A.dtype, device=A.device)

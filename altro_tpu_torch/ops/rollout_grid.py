@@ -29,6 +29,7 @@ import torch
 from altro_tpu_torch import al
 from altro_tpu_torch.cones import Cone
 from altro_tpu_torch.models.tile_steps import INTEGRATOR_MIDPOINT, MODEL_BICYCLE
+from altro_tpu_torch.ops import _build
 from altro_tpu_torch.problem import DiagonalCost, Problem
 
 __all__ = [
@@ -161,18 +162,6 @@ def rollout_grid_ref(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0):
         ref_x, ref_u, K, d, alphas, x0)
 
 
-def _check(name, t, shape):
-    if t.dtype != torch.float32:
-        raise TypeError(f"rollout_grid kernel: {name} must be float32, got {t.dtype}")
-    if not t.is_cuda:
-        raise ValueError(f"rollout_grid kernel: {name} is not on a CUDA device")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"rollout_grid kernel: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"rollout_grid kernel: {name} must be contiguous")
-
-
 def rollout_grid(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0,
                  stacks=None):
     """W-trial rollout grid: the plain version for CPU tensors, the CUDA
@@ -203,11 +192,9 @@ def rollout_grid(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0,
         "x0": (x0, (n, Bsz)), "rhoi": (rhoi, (Bsz,)),
     }
     for name, (t, shape) in ops.items():
-        _check(name, t, shape)
+        _build.check_operand("rollout_grid", name, t, shape)
     ds = problem.dynamics_cols.device_step
     frame, length, rear = ds.params
-
-    from altro_tpu_torch.ops import _build
 
     lib = _build.load()
     phi = torch.empty((W, Bsz), dtype=x0.dtype, device=x0.device)

@@ -2,7 +2,8 @@
 
 Counterpart: altro_tpu/ops/tile_iter.py (`cost_expansions_tiled`,
 `completion_tiled`, `light_from_xstack_tiled`, `retry_tiled`,
-`select_trial_tiled`, `select_best_tiled`). The JAX module lifted
+`select_trial_tiled`, `select_best_tiled`) and, for the vmapped solve's
+strong-Wolfe test, altro_tpu/solver.py::merit0_derivative. The JAX module lifted
 per-lane functions over (8, 128) lane tiles with nested vmaps; here
 every array carries the lanes on its last axis ([N(+1), entry..., B]),
 the knot-parallel pieces run on whole knot stacks at once, and a
@@ -19,6 +20,7 @@ __all__ = [
     "cost_expansions_tiled",
     "completion_tiled",
     "light_from_xstack_tiled",
+    "merit0_derivative_tiled",
     "retry_tiled",
     "select_trial_tiled",
     "select_best_tiled",
@@ -93,6 +95,22 @@ def light_from_xstack_tiled(problem, x, ref_x, ref_u, K, d, P, p, z, rho, alpha)
     convals = tuple(torch.cat([a, b], dim=0) for a, b in zip(conv_st, conv_N))
     zproj = tuple(torch.cat([a, b], dim=0) for a, b in zip(zp_st, zp_N))
     return u, y, convals, zproj
+
+
+def merit0_derivative_tiled(A, B, K, d, lx, lu):
+    """dphi/dalpha at alpha = 0 per lane by the forward-sensitivity
+    recurrence over cached linear data (altro_tpu/solver.py::
+    merit0_derivative, a Python loop over knots). A [N, n, n, B],
+    B [N, n, m, B], K [N, m, n, B], d [N, m, B], lx [N+1, n, B],
+    lu [N, m, B]; returns [B]."""
+    N = A.shape[0]
+    dx = A.new_zeros(A.shape[1:2] + A.shape[3:])
+    contribs = []
+    for k in range(N):
+        du = d[k] - torch.einsum("jib,ib->jb", K[k], dx)
+        contribs.append(torch.sum(lx[k] * dx, dim=0) + torch.sum(lu[k] * du, dim=0))
+        dx = torch.einsum("ijb,jb->ib", A[k], dx) + torch.einsum("ijb,jb->ib", B[k], du)
+    return torch.sum(torch.stack(contribs), dim=0) + torch.sum(lx[N] * dx, dim=0)
 
 
 def retry_tiled(opts, attempt, reg0):

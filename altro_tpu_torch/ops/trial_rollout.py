@@ -29,6 +29,7 @@ import torch
 
 from altro_tpu_torch.cones import Cone
 from altro_tpu_torch.models.tile_steps import INTEGRATOR_MIDPOINT, MODEL_BICYCLE
+from altro_tpu_torch.ops import _build
 from altro_tpu_torch.ops.rollout_grid import plain_grid
 from altro_tpu_torch.problem import DiagonalCost
 
@@ -110,18 +111,6 @@ def trial_rollout_ref(step_tile, alphas, x0, xref, uref, K, d, Qd, ql, Rd, rl,
     return phi[:, 0], xs[..., 0]
 
 
-def _check(name, t, shape):
-    if t.dtype != torch.float32:
-        raise TypeError(f"trial_rollout kernel: {name} must be float32, got {t.dtype}")
-    if not t.is_cuda:
-        raise ValueError(f"trial_rollout kernel: {name} is not on a CUDA device")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"trial_rollout kernel: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"trial_rollout kernel: {name} must be contiguous")
-
-
 def trial_rollout(step_tile, alphas, x0, xref, uref, K, d, Qd, ql, Rd, rl, cconst, h,
                   con=None):
     """W-trial rollout of one lane: the plain version for CPU tensors, the
@@ -154,12 +143,10 @@ def trial_rollout(step_tile, alphas, x0, xref, uref, K, d, Qd, ql, Rd, rl, ccons
         ops.update({"wa": (wa, (N + 1, P, n)), "wu": (wu, (N + 1, P, m)),
                     "wg": (wg, (N + 1, P)), "rhoi": (rhoi.reshape(1), (1,))})
     for name, (t, shape) in ops.items():
-        _check(name, t, shape)
+        _build.check_operand("trial_rollout", name, t, shape)
     ptr = {name: t.data_ptr() for name, (t, _) in ops.items()}
     ds = step_tile.device_step
     frame, length, rear = ds.params
-
-    from altro_tpu_torch.ops import _build
 
     lib = _build.load()
     phi = torch.empty((W,), dtype=x0.dtype, device=x0.device)

@@ -59,6 +59,7 @@ __all__ = [
     "init_state",
     "solve",
     "single_lane_refusal",
+    "grid_search_refusal",
     "open_loop_rollout",
     "merit_rollout_phi_x",
     "light_from_xstack",
@@ -304,15 +305,8 @@ def dynamics_expansions(problem: Problem, x, u):
 
 def merit0_derivative(A, B, K, d, lx, lu):
     """dphi/dalpha at alpha = 0 by the forward-sensitivity recurrence over
-    the cached linear data (a Python loop over knots)."""
-    N = A.shape[0]
-    dx = A.new_zeros(A.shape[1])
-    contribs = []
-    for k in range(N):
-        du = -(K[k] @ dx) + d[k]
-        contribs.append(lx[k] @ dx + lu[k] @ du)
-        dx = A[k] @ dx + B[k] @ du
-    return torch.sum(torch.stack(contribs)) + lx[N] @ dx
+    the cached linear data (`ti.merit0_derivative_tiled` with one lane)."""
+    return ti.merit0_derivative_tiled(_l(A), _l(B), _l(K), _l(d), _l(lx), _l(lu))[0]
 
 
 def complete_merit_payload(problem: Problem, light: MeritOutLight, K, d, z, rho,
@@ -388,30 +382,39 @@ def _alpha0_merit_out(problem: Problem, x, u, z, rho, convals, A, B, lx, lu, gai
     return MeritOut(phi0, dphi0, x, u, gains.p, A, B, lx, lu, convals, _uz(zproj))
 
 
-def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
-    """Why `solve` does not implement this configuration, or None."""
+def grid_search_refusal(opts: SolverOptions) -> Optional[str]:
+    """Why the port's solves (this module's `solve` and the vmapped solve
+    of parallel/batch.py) cannot run these options, or None: both search
+    the phase-split x-only grid and report nothing along the way."""
     checks = (
-        (opts.rti_mode, "rti_mode (the real-time iteration) is not ported for the "
-                        "single-lane solve"),
-        (not opts.parallel_linesearch, "parallel_linesearch=False (the strong-Wolfe "
-                                       "search) is not ported"),
+        (not opts.parallel_linesearch, "parallel_linesearch=False (the sequential "
+                                       "strong-Wolfe search) is not ported"),
         (not opts.use_backtracking_linesearch, "use_backtracking_linesearch=False is not "
                                                "ported (the grid search backtracks)"),
         (not opts.ls_phase_split, "ls_phase_split=False (the non-split grid) is not ported"),
         (not opts.ls_grid_x_only, "ls_grid_x_only=False (the light-payload grid) is not "
                                   "ported"),
-        (opts.pallas_backward, "pallas_backward (the batch-major fused backward) is not "
-                               "ported for the single-lane solve"),
         (opts.parallel_riccati, "parallel_riccati is not ported"),
         (opts.exact_al_hessian, "exact_al_hessian is not ported"),
+        (opts.iteration_callback is not None, "iteration_callback is not ported"),
+        (opts.verbose != Verbosity.SILENT, "verbose output is not ported"),
+    )
+    return next((why for bad, why in checks if bad), None)
+
+
+def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
+    """Why `solve` does not implement this configuration, or None."""
+    checks = (
+        (opts.rti_mode, "rti_mode (the real-time iteration) is not ported for the "
+                        "single-lane solve"),
+        (opts.pallas_backward, "pallas_backward (the batch-major fused backward) is not "
+                               "ported for the single-lane solve"),
         (not opts.diag_expansion, "diag_expansion=False (dense expansions) is not ported"),
         (not al.diag_expansion_eligible(problem),
          "dense expansions are not ported: the cost is not a DiagonalCost or a "
          "constraint group lacks diag_hessian"),
-        (opts.iteration_callback is not None, "iteration_callback is not ported"),
-        (opts.verbose != Verbosity.SILENT, "verbose output is not ported"),
     )
-    why = next((why for bad, why in checks if bad), None)
+    why = next((why for bad, why in checks if bad), None) or grid_search_refusal(opts)
     grid_why = problem_ineligibility(problem) if opts.pallas_rollout else None
     if why is None and grid_why is not None:
         why = (f"pallas_rollout (the trial-rollout grid) cannot take this problem: "

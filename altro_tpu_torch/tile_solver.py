@@ -15,6 +15,11 @@ the Riccati backward
 with adaptive regularization retry, the status chain, the dual/penalty
 update, and the per-lane freeze of lanes that stopped.
 
+The iteration itself is `lane_loop`, shared with the vmapped solve of
+parallel/batch.py (`vmap_solve`), which adds what `jax.vmap(solve)` has
+and `solve_tiled` lacks: dense expansions, the dense backward kernel
+(`pallas_backward`) and the strong-Wolfe test on the grid's first trial.
+
 The JAX `lax.while_loop`s become Python `while` loops on a device-side
 `any(...)`: one host sync per solver trip (and one per retry or extra
 line-search block). The trip count is not fixed: a tick whose lanes all
@@ -25,13 +30,20 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
+from typing import Optional
 
 import torch
 
 from altro_tpu_torch import al
 from altro_tpu_torch.ops import tile_iter as ti
-from altro_tpu_torch.ops.riccati_backward import riccati_backward
-from altro_tpu_torch.ops.rollout_grid import affine_constraint_stacks, rollout_grid
+from altro_tpu_torch.ops.riccati_backward import riccati_backward, riccati_backward_ref
+from altro_tpu_torch.ops.riccati_dense import riccati_backward_dense
+from altro_tpu_torch.ops.rollout_grid import (
+    affine_constraint_stacks,
+    rollout_grid,
+    rollout_grid_ref,
+)
 from altro_tpu_torch.options import SolverOptions
 from altro_tpu_torch.problem import Problem
 from altro_tpu_torch.solver import (
@@ -46,6 +58,7 @@ from altro_tpu_torch.status import SolveStatus
 
 __all__ = [
     "solve_tiled",
+    "lane_loop",
     "batch_to_lanes",
     "lanes_to_batch",
     "state_to_lanes",
@@ -120,7 +133,7 @@ def _trajectory_convals_tiled(problem: Problem, x, u):
 
 
 _CARRY = ("x", "u", "y", "z", "rho", "K", "d", "P", "p", "reg", "convals", "A",
-          "B", "iter", "status", "stop", "phi", "alpha", "stat", "feas",
+          "B", "iter", "status", "stop", "phi", "dphi", "alpha", "stat", "feas",
           "ls_iters", "ls_fails", "bp_fail_index")
 
 
@@ -136,6 +149,22 @@ def _freeze(active, new: dict, old: dict) -> dict:
     return out
 
 
+class _Laps:
+    """Adds the host seconds since the previous lap to acc[name] (acc
+    None: records nothing)."""
+
+    __slots__ = ("acc", "t0")
+
+    def __init__(self, acc):
+        self.acc, self.t0 = acc, time.perf_counter()
+
+    def __call__(self, name):
+        if self.acc is not None:
+            t = time.perf_counter()
+            self.acc[name] = self.acc.get(name, 0.0) + t - self.t0
+            self.t0 = t
+
+
 def solve_tiled(problem: Problem, state: SolverState,
                 opts: SolverOptions = SolverOptions()):
     """Lane-minor batched solve. Returns (SolverState, SolveStats), the
@@ -144,17 +173,47 @@ def solve_tiled(problem: Problem, state: SolverState,
     problem.x0 is [n, B]; the cost, the constraints and h are shared by
     all lanes. On CUDA tensors the backward pass and the line-search
     rollout run the CUDA kernels (or raise); on CPU tensors their plain
-    versions.
+    versions. `pallas_backward` is not read (as in JAX) and stats.dphi
+    is NaN.
     """
     if not supported_options(opts):
         raise ValueError(
             "solve_tiled supports the phase-split x-only armijo-only grid "
             "line search or rti_mode; other configurations are not ported")
+    return lane_loop(problem, state, opts, vmapped=False)
+
+
+def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
+              vmapped: bool, layer_seconds: Optional[dict] = None):
+    """The lane-minor AL-iLQR iteration shared by `solve_tiled`
+    (vmapped=False) and parallel.batch's vmapped solve (vmapped=True).
+
+    vmapped=True gives the per-lane semantics of `jax.vmap(solve)`:
+    dense expansions whenever `pallas_backward`, `not diag_expansion` or
+    the problem is not diag-eligible (altro_tpu/solver.py:747-753); the
+    backward pass through ops/riccati_dense.py (the kernel on CUDA, its
+    plain version on the CPU) when `pallas_backward`, else the plain
+    recursion on any device; the plain trial grid through the problem's
+    own dynamics; trial 0 held to the strong-Wolfe test unless
+    `ls_armijo_only` (altro_tpu/linesearch.py:749-771); stats.dphi from
+    the accepted payload. The caller checks the options.
+
+    layer_seconds: a dict to accumulate host seconds into, by layer, each
+    exclusive of the others: open_loop_rollout, expansions, backward
+    (with its retry syncs), grid (the trial rollouts, with the syncs of
+    extra blocks), wolfe_completion (trial 0's payload and dphi),
+    select, completion (the accepted payload), update and sync (the wait
+    on the loop condition).
+    """
+    lap = _Laps(layer_seconds)
     N = problem.N
     dtype, dev = state.x.dtype, state.x.device
     Bsz = state.x.shape[-1]
     lane = dict(dtype=dtype, device=dev)
-    diag = opts.diag_expansion and al.diag_expansion_eligible(problem)
+    fused = vmapped and opts.pallas_backward
+    diag = opts.diag_expansion and al.diag_expansion_eligible(problem) and not fused
+    wolfe = vmapped and not (opts.rti_mode or opts.ls_armijo_only)
+    with_dphi = vmapped and not opts.ls_armijo_only
 
     def full(v, dt=None):
         return torch.full((Bsz,), v, dtype=dt or dtype, device=dev)
@@ -165,6 +224,7 @@ def solve_tiled(problem: Problem, state: SolverState,
                            min=opts.penalty_initial, max=opts.penalty_max)
     x0 = problem.x0
     x_init = open_loop_rollout_tiled(problem, state.u, x0)
+    lap("open_loop_rollout")
     convals0 = _trajectory_convals_tiled(problem, x_init, state.u)
     A0, B0, _, _ = ti.completion_tiled(problem, x_init, state.u, state.z, rho0)
 
@@ -172,9 +232,10 @@ def solve_tiled(problem: Problem, state: SolverState,
     n_blocks = max(1, -(-int(opts.ls_max_iters) // W))
     beta = opts.ls_beta_decrease
     c1 = opts.ls_c1
+    c2 = opts.ls_c2
     slack = opts.ls_armijo_slack
     fallback = opts.ls_best_decrease_fallback
-    stacks = affine_constraint_stacks(problem) if x0.is_cuda else None
+    stacks = affine_constraint_stacks(problem) if x0.is_cuda and not vmapped else None
 
     c = dict(
         x=x_init, u=state.u, y=state.y, z=state.z, rho=rho0, K=state.K,
@@ -182,7 +243,7 @@ def solve_tiled(problem: Problem, state: SolverState,
         convals=convals0, A=A0, B=B0,
         iter=full(0, torch.int32), status=full(_UNSOLVED, torch.int32),
         stop=torch.zeros(Bsz, dtype=torch.bool, device=dev),
-        phi=full(0.0), alpha=full(0.0), stat=full(math.inf),
+        phi=full(0.0), dphi=full(0.0), alpha=full(0.0), stat=full(math.inf),
         feas=full(math.inf), ls_iters=full(0, torch.int32),
         ls_fails=full(0, torch.int32), bp_fail_index=full(N, torch.int32),
     )
@@ -191,25 +252,50 @@ def solve_tiled(problem: Problem, state: SolverState,
         return torch.logical_and(~c["stop"], c["iter"] < opts.iterations_max)
 
     def grid(alphas, c, g):
+        if vmapped:  # jax.vmap(solve) runs the scan grid, never a rollout kernel
+            return rollout_grid_ref(problem, c["x"], c["u"], g.K, g.d, c["z"], c["rho"],
+                                    alphas, x0)
         # the kernels take contiguous operands (a no-op copy when they are)
         return rollout_grid(problem, c["x"].contiguous(), c["u"].contiguous(),
                             g.K, g.d, c["z"], c["rho"].contiguous(), alphas,
                             x0.contiguous(), stacks=stacks)
 
+    def dphi_at(x, alpha, c, g):
+        """The merit derivative along the trial rolled out to x: its
+        payload completed, then the forward-sensitivity recurrence."""
+        u = ti.light_from_xstack_tiled(problem, x, c["x"], c["u"], g.K, g.d, g.P, g.p,
+                                       c["z"], c["rho"], alpha)[0]
+        A, B, lx, lu = ti.completion_tiled(problem, x, u, c["z"], c["rho"])
+        return ti.merit0_derivative_tiled(A, B, g.K, g.d, lx, lu)
+
     active = lane_active(c)
+    lap("expansions")
     while bool(torch.any(active)):
+        lap("sync")
         # 1-2. expansions + backward pass with adaptive reg retry
         lx, lu, lxx, luu, lux, phi0 = ti.cost_expansions_tiled(
             problem, c["x"], c["u"], c["z"], c["rho"], diag=diag)
+        lap("expansions")
 
         ops = [t.contiguous() for t in (c["A"], c["B"], lxx, luu, lx, lu)]
+        lux = None if lux is None else lux.contiguous()
 
-        def attempt(reg):
-            return riccati_backward(*ops, reg.contiguous(), lux=lux, diag_cost=diag,
-                                    symmetrize=opts.symmetrize_ctg)
+        if fused:
+            def attempt(reg):
+                A, B, lxx_, luu_, lx_, lu_ = ops
+                return riccati_backward_dense(A, B, None, lxx_, luu_, lux, lx_, lu_,
+                                              reg.contiguous())
+        elif vmapped:
+            def attempt(reg):
+                return riccati_backward_ref(*ops, reg, lux=lux)
+        else:
+            def attempt(reg):
+                return riccati_backward(*ops, reg.contiguous(), lux=lux, diag_cost=diag,
+                                        symmetrize=opts.symmetrize_ctg)
 
         g, reg_used = ti.retry_tiled(opts, attempt, c["reg"])
         bp_failed = ~g.ok
+        lap("backward")
 
         # 3. dphi(0) from the expected-decrease identity
         dphi0 = g.delta_V[0]
@@ -219,6 +305,7 @@ def solve_tiled(problem: Problem, state: SolverState,
         if opts.rti_mode:
             # one trial at alpha = 1 through the same rollout (W = 1)
             phi1, xs1 = grid(torch.ones(1, **lane), c, g)
+            lap("grid")
             phi_acc, xsel = phi1[0], xs1[0]
             alpha_acc = full(1.0)
             use_ls = torch.ones(Bsz, dtype=torch.bool, device=dev)
@@ -229,8 +316,14 @@ def solve_tiled(problem: Problem, state: SolverState,
                 ks = block * W + torch.arange(W, device=dev)
                 alphas = torch.full((W,), beta, **lane) ** ks.to(dtype)
                 phis, xstacks = grid(alphas, c, g)
+                lap("grid")
                 armijo = phis <= (phi0[None] + c1 * alphas[:, None] * dphi0[None]
                                   + slack * torch.abs(phi0)[None])
+                if block == 0 and wolfe:
+                    # trial 0 passes on Armijo and strong Wolfe, the rest on Armijo
+                    dphi_first = dphi_at(xstacks[0], alphas[0], c, g)
+                    armijo[0] &= torch.abs(dphi_first) <= -c2 * dphi0
+                    lap("wolfe_completion")
                 sel = ti.select_trial_tiled(armijo, alphas, phis, xstacks)
                 best = ti.select_best_tiled(alphas, phis, xstacks) if fallback else ()
                 return sel, best
@@ -273,6 +366,7 @@ def solve_tiled(problem: Problem, state: SolverState,
                 ~torch.logical_and(fb, ~grad_small))
             alpha_acc = torch.where(zero_alpha, torch.zeros_like(alpha_acc), alpha_acc)
 
+        lap("select")
         # 5. accepted payload on the blended trajectory (failed lanes at
         #    alpha = 0, x = reference)
         x_m = torch.where(use_ls, xsel, c["x"])
@@ -281,6 +375,12 @@ def solve_tiled(problem: Problem, state: SolverState,
         u_m, y_m, convals_m, zproj_m = ti.light_from_xstack_tiled(
             problem, x_m, c["x"], c["u"], g.K, g.d, g.P, g.p, c["z"], c["rho"], alpha_m)
         A_m, B_m, lx_m, lu_m = ti.completion_tiled(problem, x_m, u_m, c["z"], c["rho"])
+        if with_dphi:  # the accepted step's payload completed with its dphi
+            dphi_m = torch.where(use_ls, ti.merit0_derivative_tiled(
+                A_m, B_m, g.K, g.d, lx_m, lu_m), dphi0)
+        else:
+            dphi_m = torch.where(use_ls, full(math.nan), dphi0)
+        lap("completion")
 
         # 6. optimality criteria
         stat = stationarity(A_m, B_m, lx_m, lu_m, y_m)
@@ -357,12 +457,13 @@ def solve_tiled(problem: Problem, state: SolverState,
         new = dict(
             x=x_m, u=u_m, y=y_m, z=z_new, rho=rho_new, K=g.K, d=g.d, P=g.P,
             p=g.p, reg=reg_used, convals=convals_m, A=A_m, B=B_m,
-            iter=c["iter"] + 1, status=status, stop=stop, phi=phi_m,
+            iter=c["iter"] + 1, status=status, stop=stop, phi=phi_m, dphi=dphi_m,
             alpha=alpha_m, stat=stat, feas=feas, ls_iters=ls_iters,
             ls_fails=ls_fails_new, bp_fail_index=g.fail_index.to(torch.int32),
         )
         c = _freeze(active, new, c)
         active = lane_active(c)
+        lap("update")
 
     status = torch.where(
         (c["status"] == _UNSOLVED) & (c["iter"] >= opts.iterations_max),
@@ -381,7 +482,7 @@ def solve_tiled(problem: Problem, state: SolverState,
         rho=c["rho"],
         alpha=c["alpha"],
         ls_iterations=c["ls_iters"],
-        dphi=torch.full((Bsz,), math.nan, **lane),
+        dphi=c["dphi"] if vmapped else full(math.nan),
         bp_fail_index=c["bp_fail_index"],
     )
     return new_state, stats

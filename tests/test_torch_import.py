@@ -28,6 +28,9 @@ for name in names:
 loaded = [m for m in sys.modules if m == "altro_tpu" or m.startswith("altro_tpu.")]
 assert not loaded, loaded
 assert sys.modules["jax"] is None
+for new in ("altro_tpu_torch.ops.riccati_dense", "altro_tpu_torch.models.quadrotor",
+            "altro_tpu_torch.models.integrators", "altro_tpu_torch.parallel.batch"):
+    assert new in names, new
 print(len(names))
 """
 
@@ -47,7 +50,7 @@ def test_nvcc_command_targets_hopper():
     srcs = _build.sources()
     names = {os.path.basename(s) for s in srcs}
     assert names >= {"riccati_backward.cu", "rollout_grid.cu", "riccati_latency.cu",
-                     "trial_rollout.cu", "device_steps.cuh"}
+                     "trial_rollout.cu", "riccati_dense.cu", "device_steps.cuh"}
     for src in (s for s in srcs if s.endswith(".cu")):
         cmd = _build.compile_command("out.o", src)
         assert "arch=compute_90a,code=sm_90a" in cmd
@@ -58,7 +61,8 @@ def test_nvcc_command_targets_hopper():
     assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
     # every C entry point the wrappers call has declared argument types
     assert set(_build.SIGNATURES) == {"riccati_backward_diag_f32", "rollout_grid_f32",
-                                      "riccati_latency_f32", "trial_rollout_f32"}
+                                      "riccati_latency_f32", "trial_rollout_f32",
+                                      "riccati_dense_f32"}
 
 
 def test_build_key_follows_shared_headers(tmp_path):
@@ -132,5 +136,6 @@ def test_entry_points_default_to_the_card():
     from altro_tpu_torch import convert, mpc
 
     for fn in (mpc.scotty_problem, mpc.perturbed_initial_states,
+               mpc.quadrotor_waypoint_problem, mpc.quadrotor_initial_states,
                convert.problem_from_numpy, convert.state_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__

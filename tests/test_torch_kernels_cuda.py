@@ -226,3 +226,78 @@ def test_trial_rollout_kernel_matches_plain(dev, P):
     assert tr.LAUNCHES == before + 1
     assert float(((pk - pr).abs() / pr.abs().clamp(min=1.0)).max()) < 1e-4
     assert float((xk - xs).abs().max()) < 1e-4 * max(1.0, float(xs.abs().max()))
+
+
+def _dense_inputs(dev, n, m, seed=4):
+    """Lane-minor dense backward operands: SPD lxx/luu, f and lux nonzero,
+    a per-lane reg; lane 5 broken at knots 2 and 5, lane 299 at the last."""
+    rng = np.random.default_rng(seed)
+    A = np.eye(n)[None, :, :, None] + 0.05 * rng.standard_normal((NK, n, n, BR))
+    Bm = 0.3 * rng.standard_normal((NK, n, m, BR))
+    f = 0.01 * rng.standard_normal((NK, n, BR))
+    Wx = rng.standard_normal((NK + 1, n, n, BR))
+    lxx = np.einsum("kijb,kljb->kilb", Wx, Wx) / n + np.eye(n)[None, :, :, None]
+    Wu = rng.standard_normal((NK, m, m, BR))
+    luu = np.einsum("kijb,kljb->kilb", Wu, Wu) / m + np.eye(m)[None, :, :, None]
+    luu[[2, 5], :, :, 5] = -10.0 * np.eye(m)
+    luu[NK - 1, :, :, 299] = -10.0 * np.eye(m)
+    lux = 0.02 * rng.standard_normal((NK, m, n, BR))
+    lx = rng.standard_normal((NK + 1, n, BR))
+    lu = rng.standard_normal((NK, m, BR))
+    reg = 0.01 * rng.random(BR)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
+    return [t(a) for a in (A, Bm, f, lxx, luu, lux, lx, lu, reg)]
+
+
+@pytest.mark.parametrize("n, m", [(4, 2), (12, 4)])
+@pytest.mark.parametrize("with_f_lux", [True, False])
+def test_riccati_dense_kernel_matches_plain(dev, n, m, with_f_lux):
+    from altro_tpu_torch.ops import riccati_dense as rd
+    from altro_tpu_torch.ops.riccati_backward import riccati_backward_ref
+
+    A, Bm, f, lxx, luu, lux, lx, lu, reg = _dense_inputs(dev, n, m)
+    if not with_f_lux:
+        f = lux = None
+    before = rd.LAUNCHES
+    gk = rd.riccati_backward_dense(A, Bm, f, lxx, luu, lux, lx, lu, reg)
+    gr = riccati_backward_ref(A, Bm, lxx, luu, lx, lu, reg, lux=lux, f=f)
+    torch.cuda.synchronize()
+    assert rd.LAUNCHES == before + 1
+    assert float((gk.K - gr.K).abs().max()) < 1e-4
+    assert float((gk.d - gr.d).abs().max()) < 1e-4
+    assert float(((gk.P - gr.P).abs() / (1 + gr.P.abs())).max()) < 1e-5
+    assert torch.equal(gk.ok, gr.ok) and torch.equal(gk.fail_index, gr.fail_index)
+    assert int(gk.fail_index[5]) == 2 and int(gk.fail_index[299]) == NK - 1
+    assert int((~gk.ok).sum()) == 2
+
+
+def test_riccati_dense_kernel_refuses_what_it_does_not_implement(dev):
+    from altro_tpu_torch.ops import riccati_dense as rd
+
+    A, Bm, f, lxx, luu, lux, lx, lu, reg = _dense_inputs(dev, 4, 2)
+    with pytest.raises(TypeError, match="float32"):
+        rd.riccati_backward_dense(A.double(), Bm, f, lxx, luu, lux, lx, lu, reg)
+    with pytest.raises(ValueError, match="contiguous"):
+        rd.riccati_backward_dense(A.transpose(1, 2), Bm, f, lxx, luu, lux, lx, lu, reg)
+    with pytest.raises(NotImplementedError, match="n=4, m=1"):
+        rd.riccati_backward_dense(A, Bm[:, :, :1], f, lxx, luu[:, :1, :1], lux[:, :1], lx,
+                                  lu[:, :1], reg)
+
+
+def test_vmap_solve_on_card_tracks_plain_path(dev):
+    """Two quadrotor waypoint ticks through the dense kernel (f32) against
+    the plain path on the CPU (f64): every lane's status, and plant states
+    to 1e-2."""
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch.ops import riccati_dense as rd
+
+    out = []
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        prob = mpc.quadrotor_waypoint_problem(N=12, dtype=dtype, device=device)
+        x0 = mpc.quadrotor_initial_states(16, seed=2, dtype=dtype, device=device)
+        before = rd.LAUNCHES
+        out.append(mpc.run_quadrotor_waypoints(prob, x0, ticks=2))
+        assert (rd.LAUNCHES > before) == (device == dev)
+    a, b = out
+    assert torch.equal(a.status.cpu(), b.status)
+    assert float((a.x_true.double().cpu() - b.x_true).abs().max()) < 1e-2
