@@ -1,38 +1,45 @@
-// Batched W-trial line-search rollout with the dynamics in the kernel,
-// one thread per (lane, trial), for Hopper (sm_90a).
+// Batched W-trial line-search rollout with the dynamics in the kernel, for
+// Hopper (sm_90a): a tile of lanes x trials per block, each lane's operands
+// staged once for all its trials.
 //
 // Replaces: altro_tpu/ops/pallas_rollout_tiled.py::rollout_grid_pallas_tiled
 // (its Pallas `_kernel`): W closed-loop trial rollouts
 //   u = u_ref - K (x - x_ref) + alpha_w d,   x+ = step(x, u, h),
 // the merit accumulated in the kernel from the diagonal cost rows plus the
 // affine NEGATIVE_ORTHANT augmented-Lagrangian term rhoi * min(w, 0)^2 with
-// w = wg - wax.x - wau.u taken from rho-premultiplied rows, rhoi = 1/(2 rho).
+// w = wg - wax.x - wau.u, rhoi = 1/(2 rho). The rows are formed here, per
+// lane and knot, from the lane-shared affine stacks (cax, cau, cg, act of
+// ops/rollout_grid.py::affine_constraint_stacks) and the lane's z and rho:
+//   wax = rho (cax act), wau = rho (cau act), wg = act z - rho (cg act),
+// each product rounded as the plain twin (`premultiplied_rows`) rounds it.
 //
 // What bounds it on this card: each thread runs a chain of N dependent
 // knot steps; a bicycle midpoint step is two evaluations of the model
 // (sin, cos, tan and a square root each) plus the policy and merit, some
-// 150 dependent instructions per knot. Per knot a thread reads the lane's
-// x_ref, u_ref, K, d and constraint rows ((n + m + m*n + m + P*(n+m+1)) * 4
-// = 80 bytes at n=4, m=2, P=2; the W threads of one lane share them through
-// L1/L2) and writes its state (n * 4 = 16 bytes). At W=8, B=2048, N=30 the
-// whole grid moves about 6 MB: 2 us at 3.35 TB/s, against a chain of 30
-// knots of transcendental-heavy steps. Latency of the sequential chain is
-// the bound, and 16,384 threads fill the card only thinly.
+// 120 dependent instructions per knot. The grid moves about 3.5 MB at W=8,
+// B=2048, N=30, P=2 (1 us at 3.35 TB/s, the state stacks most of it):
+// latency of the sequential chain is the bound.
 //
-// What the design does about it: one thread per (lane, trial) rather than
-// one thread per lane with the trials unrolled, so the card runs W times
-// more independent chains (16,384 instead of 2,048 on the main path) and
-// each thread's chain stays short in registers. blockIdx.y is the trial,
-// so a warp's 32 threads are 32 neighbouring lanes of one trial and every
-// lane-minor load and store ([N, entry, B]) is coalesced. The shared cost
-// rows ([N+1, n], the same for every lane) are read at one address by the
-// whole warp (a broadcast), never copied per lane. State, merit and the
-// policy live in registers; no shared memory.
+// What the design does about it: a block is LANES = 16 lanes
+// (threadIdx.x, the coalesced axis) x up to 8 trials (threadIdx.y; more
+// trials take more blocks along blockIdx.y): 128 blocks of 128 threads at
+// B=2048, W=8. A lane's per-knot operands (K, d, x_ref, u_ref, z) and the
+// lane-shared rows (Q, q, R, r, c, h and the affine stacks) are copied
+// into shared memory once per block, in chunks of CHUNK knots, with
+// cp.async into a second buffer while the previous chunk computes: the W
+// trial threads of a lane read them there (the trials of a warp read one
+// address, a broadcast) instead of each fetching them through L2 on the
+// chain. P is a template parameter (0 and 2), so the row loops unroll. Each
+// thread's arithmetic (policy, merit, AL term, step) is in the order of the
+// one-thread-per-(lane, trial) design it replaces, so its states are the
+// same to the bit. Lanes past B and trials past W compute copies and store
+// nothing; every barrier is reached by every thread.
 //
 // The dynamics are a __device__ function from csrc/device_steps.cuh, the
 // twin of models/tile_steps.py::midpoint_cols(bicycle_cols(frame, length,
 // rear)).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "device_steps.cuh"
@@ -42,119 +49,237 @@ namespace {
 using altro_dev::BicycleMidpoint;
 using altro_dev::neg_part;
 
-template <class Model>
-__global__ void rollout_grid_kernel(
-    const float* __restrict__ xref,    // [N, NS, Bsz]
-    const float* __restrict__ uref,    // [N, NI, Bsz]
-    const float* __restrict__ K,       // [N, NI, NS, Bsz]
-    const float* __restrict__ d,       // [N, NI, Bsz]
-    const float* __restrict__ Qd,      // [N+1, NS] shared by all lanes
-    const float* __restrict__ q,       // [N+1, NS]
-    const float* __restrict__ Rd,      // [N+1, NI]
-    const float* __restrict__ r,       // [N+1, NI]
-    const float* __restrict__ c,       // [N+1]
-    const float* __restrict__ h,       // [N]
-    const float* __restrict__ wax,     // [N+1, P, NS, Bsz]
-    const float* __restrict__ wau,     // [N+1, P, NI, Bsz]
-    const float* __restrict__ wg,      // [N+1, P, Bsz]
-    const float* __restrict__ alphas,  // [W]
-    const float* __restrict__ x0,      // [NS, Bsz]
-    const float* __restrict__ rhoi,    // [Bsz]
-    float* __restrict__ phi_out,       // [W, Bsz]
-    float* __restrict__ xstack,        // [W, N+1, NS, Bsz]
-    int N, int Bsz, int P, Model model) {
+constexpr int LANES = 16;       // lanes per block (threadIdx.x)
+constexpr int MAX_TRIALS = 8;   // trials per block (threadIdx.y)
+constexpr int CHUNK = 8;        // knots per staged chunk
+
+struct Ops {
+  const float *xref, *uref, *K, *d;       // [N+1, NS, B], [N, NI, B], [N, NI, NS, B], [N, NI, B]
+  const float *Q, *q, *R, *r, *c, *h;     // [N+1, NS], [N+1, NS], [N+1, NI], [N+1, NI], [N+1], [N]
+  const float *cax, *cau, *cg, *act;      // [N+1, P, NS], [N+1, P, NI], [N+1, P], [N+1, P]
+  const float *z0, *z1;                   // [N+1, p0, B], [N+1, P - p0, B] (constraint groups)
+  const float *rho, *alphas, *x0;         // [B], [W], [NS, B]
+  float *phi, *xstack;                    // [W, B], [W, N+1, NS, B]
+  int N, Bsz, W, p0;
+};
+
+// Offsets of one knot's data in a staged chunk.
+template <int NS, int NI, int P>
+struct Chunk {
+  // per lane (element e of lane l of knot kk at [(kk * LANE + e) * LANES + l])
+  static constexpr int K = 0;  // NI x NS
+  static constexpr int D = K + NI * NS;
+  static constexpr int XR = D + NI;
+  static constexpr int UR = XR + NS;
+  static constexpr int Z = UR + NI;
+  static constexpr int LANE = Z + P;
+  // shared by the lanes (knot kk at [kk * ROW])
+  static constexpr int RQ = 0, Rq = NS, RR = 2 * NS, Rr = 2 * NS + NI, RC = 2 * (NS + NI);
+  static constexpr int RH = RC + 1;
+  static constexpr int AX = RH + 1;  // P x NS
+  static constexpr int AU = AX + P * NS;
+  static constexpr int CG = AU + P * NI;
+  static constexpr int ACT = CG + P;
+  static constexpr int ROW = ACT + P;
+  static constexpr int ROWS = CHUNK * LANE * LANES;  // the rows follow the lanes' data
+  static constexpr int BUF = ROWS + CHUNK * ROW;
+};
+
+// Copy chunk ch (knots ch * CHUNK ...) into buf with cp.async: the trial
+// threads of a lane split its entries, the block splits the rows.
+template <int NS, int NI, int P>
+__device__ __forceinline__ void stage_chunk(float* buf, const Ops& o, int ch, int lane, int bl,
+                                            int y, int ny) {
+  using Ck = Chunk<NS, NI, P>;
+  const long S = o.Bsz;
+  const int N = o.N, k0 = ch * CHUNK;
+  for (int e = y; e < CHUNK * Ck::LANE; e += ny) {
+    const int kk = e / Ck::LANE, f = e % Ck::LANE, k = k0 + kk;
+    if (k > N) break;
+    const float* src = nullptr;
+    if (f < Ck::D) {
+      if (k < N) src = o.K + ((long)k * NI * NS + f) * S;
+    } else if (f < Ck::XR) {
+      if (k < N) src = o.d + ((long)k * NI + f - Ck::D) * S;
+    } else if (f < Ck::UR) {
+      if (k < N) src = o.xref + ((long)k * NS + f - Ck::XR) * S;
+    } else if (f < Ck::Z) {
+      if (k < N) src = o.uref + ((long)k * NI + f - Ck::UR) * S;
+    } else {
+      const int g = f - Ck::Z;
+      src = (g < o.p0) ? o.z0 + ((long)k * o.p0 + g) * S
+                       : o.z1 + ((long)k * (P - o.p0) + g - o.p0) * S;
+    }
+    if (src) __pipeline_memcpy_async(buf + (kk * Ck::LANE + f) * LANES + lane, src + bl, sizeof(float));
+  }
+  float* rows = buf + Ck::ROWS;
+  for (int e = y * LANES + lane; e < CHUNK * Ck::ROW; e += ny * LANES) {
+    const int kk = e / Ck::ROW, f = e % Ck::ROW, k = k0 + kk;
+    if (k > N) break;
+    const float* src;
+    if (f < Ck::Rq) src = o.Q + k * NS + f;
+    else if (f < Ck::RR) src = o.q + k * NS + f - Ck::Rq;
+    else if (f < Ck::Rr) src = o.R + k * NI + f - Ck::RR;
+    else if (f < Ck::RC) src = o.r + k * NI + f - Ck::Rr;
+    else if (f == Ck::RC) src = o.c + k;
+    else if (f == Ck::RH) src = (k < N) ? o.h + k : nullptr;
+    else if (f < Ck::AU) src = o.cax + k * P * NS + f - Ck::AX;
+    else if (f < Ck::CG) src = o.cau + k * P * NI + f - Ck::AU;
+    else if (f < Ck::ACT) src = o.cg + k * P + f - Ck::CG;
+    else src = o.act + k * P + f - Ck::ACT;
+    if (src) __pipeline_memcpy_async(rows + kk * Ck::ROW + f, src, sizeof(float));
+  }
+}
+
+template <class Model, int P>
+__global__ void __launch_bounds__(LANES * MAX_TRIALS) rollout_grid_kernel(const Ops o, Model model) {
   constexpr int NS = Model::NS;
   constexpr int NI = Model::NI;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int w = blockIdx.y;
-  if (b >= Bsz) return;
-  const long S = Bsz;
-  const float alpha = alphas[w];
-  const float ri = rhoi[b];
-  float* xs = xstack + (long)w * (N + 1) * NS * S;
+  using Ck = Chunk<NS, NI, P>;
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x, y = threadIdx.y, ny = blockDim.y;
+  const int N = o.N;
+  const long S = o.Bsz;
+  const int b = blockIdx.x * LANES + lane;
+  const int w = blockIdx.y * ny + y;
+  const bool valid = b < o.Bsz && w < o.W;
+  const int bl = min(b, o.Bsz - 1);  // lanes past B and trials past W compute copies
+  const float alpha = o.alphas[min(w, o.W - 1)];
+  const float rh = o.rho[bl];
+  const float ri = 1.0f / (2.0f * rh);
+  float* xs = o.xstack + (long)min(w, o.W - 1) * (N + 1) * NS * S;
 
   float x[NS];
 #pragma unroll
-  for (int i = 0; i < NS; ++i) x[i] = x0[i * S + b];
+  for (int i = 0; i < NS; ++i) x[i] = o.x0[i * S + bl];
   float phi = 0.0f;
 
-  for (int k = 0; k < N; ++k) {
-    float u[NI];
-#pragma unroll
-    for (int j = 0; j < NI; ++j) {
-      float s = 0.0f;
-#pragma unroll
-      for (int i = 0; i < NS; ++i)
-        s += K[(((long)k * NI + j) * NS + i) * S + b] * (x[i] - xref[((long)k * NS + i) * S + b]);
-      u[j] = uref[((long)k * NI + j) * S + b] + alpha * d[((long)k * NI + j) * S + b] - s;
-    }
-    float sq = 0.0f, sl = 0.0f, su = 0.0f, sr = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      sq += Qd[k * NS + i] * x[i] * x[i];
-      sl += q[k * NS + i] * x[i];
-    }
-#pragma unroll
-    for (int j = 0; j < NI; ++j) {
-      su += Rd[k * NI + j] * u[j] * u[j];
-      sr += r[k * NI + j] * u[j];
-    }
-    float ph = phi + 0.5f * sq + sl + 0.5f * su + sr + c[k];
-    for (int e = 0; e < P; ++e) {
-      float we = wg[((long)k * P + e) * S + b];
-#pragma unroll
-      for (int i = 0; i < NS; ++i) we -= wax[(((long)k * P + e) * NS + i) * S + b] * x[i];
-#pragma unroll
-      for (int j = 0; j < NI; ++j) we -= wau[(((long)k * P + e) * NI + j) * S + b] * u[j];
-      const float pw = neg_part(we);
-      ph += ri * pw * pw;
-    }
-#pragma unroll
-    for (int i = 0; i < NS; ++i) xs[((long)k * NS + i) * S + b] = x[i];
-    model.step(x, u, h[k]);
-    phi = ph;
-  }
+  const int nchunks = (N + CHUNK) / CHUNK;  // knots 0..N
+  float* const bufs[2] = {smem, smem + Ck::BUF};
+  stage_chunk<NS, NI, P>(bufs[0], o, 0, lane, bl, y, ny);
+  __pipeline_commit();
+  for (int ch = 0; ch < nchunks; ++ch) {
+    if (ch + 1 < nchunks) stage_chunk<NS, NI, P>(bufs[(ch + 1) & 1], o, ch + 1, lane, bl, y, ny);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
+    __syncthreads();  // chunk ch is in place
 
-  // terminal knot: state-only cost and constraint rows
-  float sq = 0.0f, sl = 0.0f;
+    const float* ln = bufs[ch & 1] + lane;
+    const float* rows = bufs[ch & 1] + Ck::ROWS;
+    for (int kk = 0; kk < CHUNK; ++kk) {
+      const int k = ch * CHUNK + kk;
+      if (k > N) break;
+      const float* L = ln + kk * Ck::LANE * LANES;  // this lane's entry e at L[e * LANES]
+      const float* R = rows + kk * Ck::ROW;
+      // this lane's constraint rows at knot k
+      float wax[P > 0 ? P : 1][NS], wau[P > 0 ? P : 1][NI], wg[P > 0 ? P : 1];
 #pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    sq += Qd[N * NS + i] * x[i] * x[i];
-    sl += q[N * NS + i] * x[i];
+      for (int e = 0; e < P; ++e) {
+        const float a = R[Ck::ACT + e];
+#pragma unroll
+        for (int i = 0; i < NS; ++i) wax[e][i] = __fmul_rn(rh, __fmul_rn(R[Ck::AX + e * NS + i], a));
+#pragma unroll
+        for (int j = 0; j < NI; ++j) wau[e][j] = __fmul_rn(rh, __fmul_rn(R[Ck::AU + e * NI + j], a));
+        wg[e] = __fsub_rn(__fmul_rn(a, L[(Ck::Z + e) * LANES]),
+                          __fmul_rn(rh, __fmul_rn(R[Ck::CG + e], a)));
+      }
+
+      if (k < N) {
+        float u[NI];
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          float s = 0.0f;
+#pragma unroll
+          for (int i = 0; i < NS; ++i)
+            s += L[(Ck::K + j * NS + i) * LANES] * (x[i] - L[(Ck::XR + i) * LANES]);
+          u[j] = L[(Ck::UR + j) * LANES] + alpha * L[(Ck::D + j) * LANES] - s;
+        }
+        float sq = 0.0f, sl = 0.0f, su = 0.0f, sr = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          sq += R[Ck::RQ + i] * x[i] * x[i];
+          sl += R[Ck::Rq + i] * x[i];
+        }
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          su += R[Ck::RR + j] * u[j] * u[j];
+          sr += R[Ck::Rr + j] * u[j];
+        }
+        float ph = phi + 0.5f * sq + sl + 0.5f * su + sr + R[Ck::RC];
+#pragma unroll
+        for (int e = 0; e < P; ++e) {
+          float we = wg[e];
+#pragma unroll
+          for (int i = 0; i < NS; ++i) we -= wax[e][i] * x[i];
+#pragma unroll
+          for (int j = 0; j < NI; ++j) we -= wau[e][j] * u[j];
+          const float pw = neg_part(we);
+          ph += ri * pw * pw;
+        }
+        if (valid) {
+#pragma unroll
+          for (int i = 0; i < NS; ++i) xs[((long)k * NS + i) * S + b] = x[i];
+        }
+        model.step(x, u, R[Ck::RH]);
+        phi = ph;
+      } else {  // terminal knot: state-only cost and constraint rows
+        float sq = 0.0f, sl = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          sq += R[Ck::RQ + i] * x[i] * x[i];
+          sl += R[Ck::Rq + i] * x[i];
+        }
+        float ph = phi + 0.5f * sq + sl + R[Ck::RC];
+#pragma unroll
+        for (int e = 0; e < P; ++e) {
+          float we = wg[e];
+#pragma unroll
+          for (int i = 0; i < NS; ++i) we -= wax[e][i] * x[i];
+          const float pw = neg_part(we);
+          ph += ri * pw * pw;
+        }
+        if (valid) {
+          o.phi[(long)w * S + b] = ph;
+#pragma unroll
+          for (int i = 0; i < NS; ++i) xs[((long)N * NS + i) * S + b] = x[i];
+        }
+      }
+    }
+    __syncthreads();  // before this buffer takes chunk ch + 2
   }
-  float ph = phi + 0.5f * sq + sl + c[N];
-  for (int e = 0; e < P; ++e) {
-    float we = wg[((long)N * P + e) * S + b];
-#pragma unroll
-    for (int i = 0; i < NS; ++i) we -= wax[(((long)N * P + e) * NS + i) * S + b] * x[i];
-    const float pw = neg_part(we);
-    ph += ri * pw * pw;
-  }
-  phi_out[(long)w * S + b] = ph;
-#pragma unroll
-  for (int i = 0; i < NS; ++i) xs[((long)N * NS + i) * S + b] = x[i];
+}
+
+template <class Model, int P>
+int launch(const Ops& o, const Model& model, cudaStream_t s) {
+  const int trials = o.W < MAX_TRIALS ? o.W : MAX_TRIALS;
+  const dim3 block(LANES, trials);
+  const dim3 grid((o.Bsz + LANES - 1) / LANES, (o.W + trials - 1) / trials);
+  const size_t bytes = 2 * (size_t)Chunk<Model::NS, Model::NI, P>::BUF * sizeof(float);
+  rollout_grid_kernel<Model, P><<<grid, block, bytes, s>>>(o, model);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// z0 holds the first p0 constraint rows and z1 the other P - p0 (the
+// problem's constraint groups, null when empty); P is 0 or 2.
 extern "C" int rollout_grid_f32(
     const float* xref, const float* uref, const float* K, const float* d,
-    const float* Qd, const float* q, const float* Rd, const float* r,
-    const float* c, const float* h, const float* wax, const float* wau,
-    const float* wg, const float* alphas, const float* x0, const float* rhoi,
-    float* phi, float* xstack, int N, int Bsz, int W, int P, int model,
+    const float* Q, const float* q, const float* R, const float* r,
+    const float* c, const float* h, const float* cax, const float* cau,
+    const float* cg, const float* act, const float* z0, const float* z1,
+    const float* rho, const float* alphas, const float* x0,
+    float* phi, float* xstack, int N, int Bsz, int W, int P, int p0, int model,
     int integrator, int frame, float length, float rear, void* stream) {
-  if (N <= 0 || Bsz <= 0 || W <= 0 || W > 65535 || P < 0) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const dim3 grid((Bsz + threads - 1) / threads, W);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (model == 0 && integrator == 0) {
-    const BicycleMidpoint m{frame, length, rear};
-    rollout_grid_kernel<BicycleMidpoint><<<grid, threads, 0, s>>>(
-        xref, uref, K, d, Qd, q, Rd, r, c, h, wax, wau, wg, alphas, x0, rhoi,
-        phi, xstack, N, Bsz, P, m);
-  } else {
+  if (N <= 0 || Bsz <= 0 || W <= 0 || (W + MAX_TRIALS - 1) / MAX_TRIALS > 65535 || p0 < 0 ||
+      p0 > P)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const Ops o{xref, uref, K, d, Q, q, R, r, c, h, cax, cau, cg, act, z0, z1, rho, alphas, x0,
+              phi, xstack, N, Bsz, W, p0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (model != 0 || integrator != 0) return (int)cudaErrorInvalidValue;
+  const BicycleMidpoint m{frame, length, rear};
+  if (P == 0) return launch<BicycleMidpoint, 0>(o, m, s);
+  if (P == 2) return launch<BicycleMidpoint, 2>(o, m, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -44,7 +44,7 @@ _F = ctypes.c_float
 # the stream are c_void_p (a bare Python int would be cut to 32 bits).
 SIGNATURES = {
     "riccati_backward_diag_f32": [_P] * 7 + [_P] * 7 + [_I] * 4 + [_P],
-    "rollout_grid_f32": [_P] * 16 + [_P] * 2 + [_I] * 6 + [_I, _F, _F] + [_P],
+    "rollout_grid_f32": [_P] * 19 + [_P] * 2 + [_I] * 8 + [_F, _F] + [_P],
     "riccati_latency_f32": [_P] * 9 + [_P] * 7 + [_I] * 5 + [_P],
     "trial_rollout_f32": [_P] * 16 + [_P] * 2 + [_I] * 3 + [_I] * 3 + [_F, _F] + [_P],
     "riccati_dense_f32": [_P] * 9 + [_P] * 7 + [_I] * 4 + [_P],
@@ -146,7 +146,12 @@ def load() -> ctypes.CDLL:
 
 def check_operand(kernel: str, name: str, t, shape) -> None:
     """Raise unless operand `name` of `kernel` is a contiguous float32 CUDA
-    tensor of the given shape (what every kernel of csrc/ takes)."""
+    tensor of the given shape (what every kernel of csrc/ takes). One
+    expression when the operand is fine: the wrappers run it per operand
+    on every launch."""
+    if (t.dtype is torch.float32 and t.is_cuda and t.shape == shape
+            and t.is_contiguous()):
+        return
     if t.dtype != torch.float32:
         raise TypeError(f"{kernel} kernel: {name} must be float32, got {t.dtype}")
     if not t.is_cuda:

@@ -4,7 +4,9 @@ Counterpart: altro_tpu/ops/pallas_riccati.py::riccati_backward_pallas (the
 Pallas `_kernel` run by `_run`, pallas_call at :387), the batch-fused
 backward of the vmapped solve with `pallas_backward=True`
 (altro_tpu/ops/fused_backward.py swapped it in for the vmapped scan).
-csrc/riccati_dense.cu runs one thread per lane on lane-minor operands,
+csrc/riccati_dense.cu runs blocks of 8 lanes (16 at (4, 2)) with n + m
+compute threads per lane, each a tile of [A B]'P' and of the Q blocks,
+and two warps that copy operands in and gains out, on lane-minor operands,
 `[N(+1), entry..., B]`, with dense lxx/luu, the cross block lux and the
 affine term f, both optional, and a per-lane reg. The plain version is
 ops/riccati_backward.py::riccati_backward_ref, the same recursion (see

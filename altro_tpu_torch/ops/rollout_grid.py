@@ -17,7 +17,10 @@ before the step.
 The kernel (csrc/rollout_grid.cu) evaluates the merit from the diagonal
 cost rows and, for affine NEGATIVE_ORTHANT groups, from rho-premultiplied
 rows: w = wg - wax.x - wau.u equals z - rho c(x, u) on active knots, and
-the AL term is min(w, 0)^2 / (2 rho).
+the AL term is min(w, 0)^2 / (2 rho). It forms those rows itself from the
+lane-shared `affine_constraint_stacks`, the lane's duals z and its rho;
+`premultiplied_rows` is their plain twin. The wrapper runs no eager op
+besides allocating the outputs.
 """
 
 from __future__ import annotations
@@ -49,6 +52,9 @@ LAUNCHES = 0
 # (model, integrator) pairs the CUDA kernel has a __device__ step for.
 DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): "bicycle_midpoint"}
 
+# Constraint row counts P the CUDA kernel is instantiated for.
+KERNEL_ROWS = (0, 2)
+
 
 def ineligibility(problem: Problem) -> Optional[str]:
     """Why the kernel cannot run this problem, or None when it can."""
@@ -68,6 +74,10 @@ def ineligibility(problem: Problem) -> Optional[str]:
         if not (spec.affine and spec.cone is Cone.NEGATIVE_ORTHANT):
             return (f"constraint group {spec.label!r} is not an affine "
                     "NEGATIVE_ORTHANT group")
+    rows = sum(spec.dim for spec in problem.constraints)
+    if rows not in KERNEL_ROWS or len(problem.constraints) > 2:
+        return (f"{rows} constraint rows in {len(problem.constraints)} groups (the kernel "
+                f"takes {KERNEL_ROWS} rows in at most two groups)")
     return None
 
 
@@ -103,8 +113,11 @@ def affine_constraint_stacks(problem: Problem):
 
 
 def premultiplied_rows(stacks, z, rho):
-    """rho-premultiplied, active-masked constraint rows for the kernel:
-    wax [N+1, P, n, B], wau [N+1, P, m, B], wg [N+1, P, B], rhoi [B]."""
+    """The rows the kernel forms per lane and knot, as a plain twin:
+    wax = rho (cax act) [N+1, P, n, B], wau = rho (cau act) [N+1, P, m, B],
+    wg = act z - rho (cg act) [N+1, P, B] and rhoi = 1 / (2 rho) [B], each
+    product rounded as the kernel rounds it. `stacks` are
+    `affine_constraint_stacks`, z the per-group duals [N+1, p, B]."""
     cax, cau, cg, act = stacks
     if z:
         z_cat = torch.cat(z, dim=1)
@@ -113,7 +126,7 @@ def premultiplied_rows(stacks, z, rho):
     wax = rho * (cax * act[:, :, None])[..., None]
     wau = rho * (cau * act[:, :, None])[..., None]
     wg = act[..., None] * z_cat - rho * (cg * act)[..., None]
-    return wax.contiguous(), wau.contiguous(), wg.contiguous(), 1.0 / (2.0 * rho)
+    return wax, wau, wg, 1.0 / (2.0 * rho)
 
 
 def plain_grid(stage, step, terminal, ref_x, ref_u, K, d, alphas, x0):
@@ -166,7 +179,8 @@ def rollout_grid(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0,
                  stacks=None):
     """W-trial rollout grid: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (or a raise). `stacks` are the problem's
-    `affine_constraint_stacks`, computed here when not given."""
+    `affine_constraint_stacks` (computed here when not given: pass them
+    once per solve)."""
     global LAUNCHES
     if not x0.is_cuda:
         return rollout_grid_ref(problem, ref_x, ref_u, K, d, z, rho, alphas, x0)
@@ -178,21 +192,25 @@ def rollout_grid(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0,
     cost = problem.cost
     if stacks is None:
         stacks = affine_constraint_stacks(problem)
-    wax, wau, wg, rhoi = premultiplied_rows(stacks, z, rho)
-    P = wg.shape[1]
-    xref = ref_x[:N].contiguous()
+    cax, cau, cg, act = stacks
+    P = cg.shape[1]
+    z0 = z[0] if z else None
+    z1 = z[1] if len(z) > 1 else None
+    p0 = 0 if z0 is None else z0.shape[1]
     ops = {
-        "xref": (xref, (N, n, Bsz)), "uref": (ref_u, (N, m, Bsz)),
+        "xref": (ref_x, (N + 1, n, Bsz)), "uref": (ref_u, (N, m, Bsz)),
         "K": (K, (N, m, n, Bsz)), "d": (d, (N, m, Bsz)),
         "Q": (cost.Q, (N + 1, n)), "q": (cost.q, (N + 1, n)),
         "R": (cost.R, (N + 1, m)), "r": (cost.r, (N + 1, m)),
         "c": (cost.c, (N + 1,)), "h": (problem.h, (N,)),
-        "wax": (wax, (N + 1, P, n, Bsz)), "wau": (wau, (N + 1, P, m, Bsz)),
-        "wg": (wg, (N + 1, P, Bsz)), "alphas": (alphas, (W,)),
-        "x0": (x0, (n, Bsz)), "rhoi": (rhoi, (Bsz,)),
+        "cax": (cax, (N + 1, P, n)), "cau": (cau, (N + 1, P, m)),
+        "cg": (cg, (N + 1, P)), "act": (act, (N + 1, P)),
+        "z0": (z0, (N + 1, p0, Bsz)), "z1": (z1, (N + 1, P - p0, Bsz)),
+        "rho": (rho, (Bsz,)), "alphas": (alphas, (W,)), "x0": (x0, (n, Bsz)),
     }
     for name, (t, shape) in ops.items():
-        _build.check_operand("rollout_grid", name, t, shape)
+        if t is not None:
+            _build.check_operand("rollout_grid", name, t, shape)
     ds = problem.dynamics_cols.device_step
     frame, length, rear = ds.params
 
@@ -201,9 +219,9 @@ def rollout_grid(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0,
     xstack = torch.empty((W, N + 1, n, Bsz), dtype=x0.dtype, device=x0.device)
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     err = lib.rollout_grid_f32(
-        *(t.data_ptr() for t, _ in ops.values()),
+        *(None if t is None else t.data_ptr() for t, _ in ops.values()),
         phi.data_ptr(), xstack.data_ptr(),
-        N, Bsz, W, P, ds.model, ds.integrator, int(frame), float(length),
+        N, Bsz, W, P, p0, ds.model, ds.integrator, int(frame), float(length),
         float(rear), stream)
     _build.check(err, "rollout_grid_f32")
     LAUNCHES += 1

@@ -257,7 +257,8 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
                                     alphas, x0)
         # the kernels take contiguous operands (a no-op copy when they are)
         return rollout_grid(problem, c["x"].contiguous(), c["u"].contiguous(),
-                            g.K, g.d, c["z"], c["rho"].contiguous(), alphas,
+                            g.K, g.d, tuple(zj.contiguous() for zj in c["z"]),
+                            c["rho"].contiguous(), alphas,
                             x0.contiguous(), stacks=stacks)
 
     def dphi_at(x, alpha, c, g):

@@ -76,34 +76,47 @@ def test_riccati_kernel_refuses_what_it_does_not_implement(dev):
         rb.riccati_backward(A.transpose(1, 2), Bm, lxx, luu, lx, lu, reg, diag_cost=True)
 
 
-def _rollout_inputs(dev, seed=1):
+def _rollout_inputs(dev, seed=1, Bsz=BR, Nk=NK, W=4, P=2):
+    """Scotty problem (steering bound for P=2, none for P=0) and rollout
+    operands of Bsz lanes, Nk knots and W trials."""
+    import dataclasses
+
     from altro_tpu_torch import mpc
     from altro_tpu_torch.io.scotty import load_scotty
 
     ref = load_scotty()
-    prob = mpc.scotty_problem(ref, N=NK, dtype=torch.float32, device=dev)
+    prob = mpc.scotty_problem(ref, N=Nk, dtype=torch.float32, device=dev)
+    if P == 0:
+        prob = dataclasses.replace(prob, constraints=())
     rng = np.random.default_rng(seed)
-    xr = ref.x[: NK + 1, :, None] + 0.2 * rng.standard_normal((NK + 1, 4, BR))
-    xr[:, 3] = np.sign(rng.standard_normal(BR)) * (1.07 + 0.02 * rng.standard_normal((NK + 1, BR)))
-    ur = ref.u[:NK, :, None] + 0.02 * rng.standard_normal((NK, 2, BR))
-    K = 0.002 * rng.standard_normal((NK, 2, 4, BR))
-    d = 0.05 * rng.standard_normal((NK, 2, BR))
-    z = np.abs(rng.standard_normal((NK + 1, 2, BR)))
-    rho = 1.0 + 9.0 * rng.random(BR)
-    x0 = xr[0] + 0.01 * rng.standard_normal((4, BR))
+    xr = ref.x[: Nk + 1, :, None] + 0.2 * rng.standard_normal((Nk + 1, 4, Bsz))
+    xr[:, 3] = np.sign(rng.standard_normal(Bsz)) * (1.07 + 0.02 * rng.standard_normal((Nk + 1, Bsz)))
+    ur = ref.u[:Nk, :, None] + 0.02 * rng.standard_normal((Nk, 2, Bsz))
+    K = 0.002 * rng.standard_normal((Nk, 2, 4, Bsz))
+    d = 0.05 * rng.standard_normal((Nk, 2, Bsz))
+    z = np.abs(rng.standard_normal((Nk + 1, 2, Bsz)))
+    rho = 1.0 + 9.0 * rng.random(Bsz)
+    x0 = xr[0] + 0.01 * rng.standard_normal((4, Bsz))
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
-    return prob, (t(xr), t(ur), t(K), t(d), (t(z),), t(rho), t(0.5 ** np.arange(4)), t(x0))
+    zs = (t(z),) if P else ()
+    return prob, (t(xr), t(ur), t(K), t(d), zs, t(rho), t(0.5 ** np.arange(W)), t(x0))
 
 
-def test_rollout_kernel_matches_plain(dev):
+@pytest.mark.parametrize("P", [0, 2])
+@pytest.mark.parametrize("Bsz, W", [(1, 4), (33, 12), (2000, 8)])
+def test_rollout_kernel_matches_plain(dev, Bsz, W, P):
+    """Ragged lane tiles (B = 1, 33, 2000 against 16-lane blocks), a trial
+    count past one block's 8 (W=12) and 20 knots (three staged chunks of
+    8, the first buffer reused)."""
     from altro_tpu_torch.ops import rollout_grid as rg
 
-    prob, args = _rollout_inputs(dev)
+    prob, args = _rollout_inputs(dev, Bsz=Bsz, Nk=20, W=W, P=P)
     before = rg.LAUNCHES
     pk, xk = rg.rollout_grid(prob, *args)
     pr, xr = rg.rollout_grid_ref(prob, *args)
     torch.cuda.synchronize()
     assert rg.LAUNCHES == before + 1
+    assert pk.shape == (W, Bsz) and xk.shape == (W, 21, 4, Bsz)
     # chip_smoke.py's gates: phi to 1e-4 relative, states to 1e-4
     assert float(((pk - pr).abs() / pr.abs().clamp(min=1.0)).max()) < 1e-4
     assert float((xk - xr).abs().max()) < 1e-4
@@ -228,36 +241,42 @@ def test_trial_rollout_kernel_matches_plain(dev, P):
     assert float((xk - xs).abs().max()) < 1e-4 * max(1.0, float(xs.abs().max()))
 
 
-def _dense_inputs(dev, n, m, seed=4):
+def _dense_inputs(dev, n, m, seed=4, Bsz=BR):
     """Lane-minor dense backward operands: SPD lxx/luu, f and lux nonzero,
-    a per-lane reg; lane 5 broken at knots 2 and 5, lane 299 at the last."""
+    a per-lane reg; lane min(5, B-1) broken at knots 2 and 5, lane B-1 at
+    the last."""
     rng = np.random.default_rng(seed)
-    A = np.eye(n)[None, :, :, None] + 0.05 * rng.standard_normal((NK, n, n, BR))
-    Bm = 0.3 * rng.standard_normal((NK, n, m, BR))
-    f = 0.01 * rng.standard_normal((NK, n, BR))
-    Wx = rng.standard_normal((NK + 1, n, n, BR))
+    A = np.eye(n)[None, :, :, None] + 0.05 * rng.standard_normal((NK, n, n, Bsz))
+    Bm = 0.3 * rng.standard_normal((NK, n, m, Bsz))
+    f = 0.01 * rng.standard_normal((NK, n, Bsz))
+    Wx = rng.standard_normal((NK + 1, n, n, Bsz))
     lxx = np.einsum("kijb,kljb->kilb", Wx, Wx) / n + np.eye(n)[None, :, :, None]
-    Wu = rng.standard_normal((NK, m, m, BR))
+    Wu = rng.standard_normal((NK, m, m, Bsz))
     luu = np.einsum("kijb,kljb->kilb", Wu, Wu) / m + np.eye(m)[None, :, :, None]
-    luu[[2, 5], :, :, 5] = -10.0 * np.eye(m)
-    luu[NK - 1, :, :, 299] = -10.0 * np.eye(m)
-    lux = 0.02 * rng.standard_normal((NK, m, n, BR))
-    lx = rng.standard_normal((NK + 1, n, BR))
-    lu = rng.standard_normal((NK, m, BR))
-    reg = 0.01 * rng.random(BR)
+    luu[[2, 5], :, :, min(5, Bsz - 1)] = -10.0 * np.eye(m)
+    luu[NK - 1, :, :, Bsz - 1] = -10.0 * np.eye(m)
+    lux = 0.02 * rng.standard_normal((NK, m, n, Bsz))
+    lx = rng.standard_normal((NK + 1, n, Bsz))
+    lu = rng.standard_normal((NK, m, Bsz))
+    reg = 0.01 * rng.random(Bsz)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
     return [t(a) for a in (A, Bm, f, lxx, luu, lux, lx, lu, reg)]
 
 
 @pytest.mark.parametrize("n, m", [(4, 2), (12, 4)])
-@pytest.mark.parametrize("with_f_lux", [True, False])
-def test_riccati_dense_kernel_matches_plain(dev, n, m, with_f_lux):
+@pytest.mark.parametrize("with_f, with_lux", [(True, True), (True, False), (False, True),
+                                               (False, False)])
+@pytest.mark.parametrize("Bsz", [1, 33, 1000, BR])
+def test_riccati_dense_kernel_matches_plain(dev, n, m, with_f, with_lux, Bsz):
+    """Every f/lux instantiation at both (n, m), with ragged lane tiles
+    (B = 1, 33, 1000, 300 against blocks of 8 and 16 lanes); B = 1 and 33
+    take the one-float copies, the others the 16-byte ones."""
     from altro_tpu_torch.ops import riccati_dense as rd
     from altro_tpu_torch.ops.riccati_backward import riccati_backward_ref
 
-    A, Bm, f, lxx, luu, lux, lx, lu, reg = _dense_inputs(dev, n, m)
-    if not with_f_lux:
-        f = lux = None
+    A, Bm, f, lxx, luu, lux, lx, lu, reg = _dense_inputs(dev, n, m, Bsz=Bsz)
+    f = f if with_f else None
+    lux = lux if with_lux else None
     before = rd.LAUNCHES
     gk = rd.riccati_backward_dense(A, Bm, f, lxx, luu, lux, lx, lu, reg)
     gr = riccati_backward_ref(A, Bm, lxx, luu, lx, lu, reg, lux=lux, f=f)
@@ -266,9 +285,13 @@ def test_riccati_dense_kernel_matches_plain(dev, n, m, with_f_lux):
     assert float((gk.K - gr.K).abs().max()) < 1e-4
     assert float((gk.d - gr.d).abs().max()) < 1e-4
     assert float(((gk.P - gr.P).abs() / (1 + gr.P.abs())).max()) < 1e-5
+    assert float(((gk.p - gr.p).abs() / (1 + gr.p.abs())).max()) < 1e-5
+    assert float(((gk.delta_V - gr.delta_V).abs() / (1 + gr.delta_V.abs())).max()) < 1e-5
     assert torch.equal(gk.ok, gr.ok) and torch.equal(gk.fail_index, gr.fail_index)
-    assert int(gk.fail_index[5]) == 2 and int(gk.fail_index[299]) == NK - 1
-    assert int((~gk.ok).sum()) == 2
+    assert int(gk.fail_index[min(5, Bsz - 1)]) == 2
+    if Bsz > 5:
+        assert int(gk.fail_index[Bsz - 1]) == NK - 1
+    assert int((~gk.ok).sum()) == min(2, Bsz)
 
 
 def test_riccati_dense_kernel_refuses_what_it_does_not_implement(dev):

@@ -4,8 +4,9 @@ The plain version (ops/rollout_grid.py::rollout_grid_ref) against the JAX
 scan grid `ops/tile_iter.rollout_grid_tiled` (which the Pallas kernel
 matches) at B=1024, N=12, W=8, unconstrained and with the steering bound
 active and nonzero duals: phi and the state stacks to rtol 1e-10 in f64.
-Also checks the kernel's merit algebra (rho-premultiplied rows) against
-the plain AL merit, since the CUDA kernel itself runs only on the card.
+Also checks the kernel's operand contract (the rows it forms from the
+affine stacks, z and rho, through their plain twin) against the plain AL
+merit, since the CUDA kernel itself runs only on the card.
 """
 
 import dataclasses
@@ -28,7 +29,7 @@ from altro_tpu.ops.pallas_rollout import affine_constraint_stacks as jstacks  # 
 from altro_tpu.problem import ConstraintSpec as JSpec  # noqa: E402
 from altro_tpu.problem import Problem as JProblem  # noqa: E402
 from altro_tpu.problem import lqr_cost_from_reference as jlqr  # noqa: E402
-from altro_tpu_torch import mpc  # noqa: E402
+from altro_tpu_torch import al, mpc  # noqa: E402
 from altro_tpu_torch.cones import Cone  # noqa: E402
 from altro_tpu_torch.convert import problem_from_numpy  # noqa: E402
 from altro_tpu_torch.models.bicycle import bicycle_continuous  # noqa: E402
@@ -122,9 +123,11 @@ def test_affine_stacks_match_jax():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-14, atol=0)
 
 
-def test_premultiplied_rows_reproduce_al_merit():
-    """The kernel's merit, from the diagonal cost rows and the
-    rho-premultiplied constraint rows, equals the plain AL merit."""
+def test_kernel_rows_reproduce_al_merit():
+    """The kernel's operand contract: from the lane-shared affine stacks,
+    the lane's duals z and its rho, the rows it forms (`premultiplied_rows`,
+    their plain twin) give the plain AL merit (`al.al_cost`) at every
+    stage knot and at the terminal knot, and sum to the grid's phi."""
     _, tprob = _problems(True)
     x, u, K, d, z, rho, x0 = _inputs([2], seed=7)
     Wt = 3
@@ -138,15 +141,24 @@ def test_premultiplied_rows_reproduce_al_merit():
     xk = xs[:, :N]
     uk = ur[None] - torch.einsum("kjib,wkib->wkjb", Kl, xk - xr[None, :N]) \
         + alphas[:, None, None, None] * dl[None]
-    ph = (0.5 * (c.Q[:N, :, None] * xk * xk).sum(2) + (c.q[:N, :, None] * xk).sum(2)
-          + 0.5 * (c.R[:N, :, None] * uk * uk).sum(2) + (c.r[:N, :, None] * uk).sum(2)
-          + c.c[:N, None]).sum(1)
+    stage = (0.5 * (c.Q[:N, :, None] * xk * xk).sum(2) + (c.q[:N, :, None] * xk).sum(2)
+             + 0.5 * (c.R[:N, :, None] * uk * uk).sum(2) + (c.r[:N, :, None] * uk).sum(2)
+             + c.c[:N, None])
     we = wg[None, :N] - torch.einsum("kpib,wkib->wkpb", wax[:N], xk) \
         - torch.einsum("kpjb,wkjb->wkpb", wau[:N], uk)
-    ph = ph + (rhoi * torch.clamp(we, max=0.0) ** 2).sum((1, 2))
+    stage = stage + (rhoi * torch.clamp(we, max=0.0) ** 2).sum(2)  # [W, N, B]
     xN = xs[:, N]
-    ph = ph + 0.5 * (c.Q[N, :, None] * xN * xN).sum(1) + (c.q[N, :, None] * xN).sum(1) + c.c[N]
+    term = 0.5 * (c.Q[N, :, None] * xN * xN).sum(1) + (c.q[N, :, None] * xN).sum(1) + c.c[N]
     weN = wg[None, N] - torch.einsum("pib,wib->wpb", wax[N], xN)
-    ph = ph + (rhoi * torch.clamp(weN, max=0.0) ** 2).sum(1)
+    term = term + (rhoi * torch.clamp(weN, max=0.0) ** 2).sum(1)  # [W, B]
     assert float((torch.clamp(we, max=0.0) != 0).float().mean()) > 0.01  # bound bites
-    np.testing.assert_allclose(ph.numpy(), phi.numpy(), rtol=1e-10)
+
+    z_stage = tuple(zj[:N] for zj in zl)
+    z_term = tuple(zj[N:] for zj in zl)
+    for w in range(Wt):
+        ref = al.al_cost(tprob, torch.arange(N), xk[w], uk[w], z_stage, rh, terminal=False)[0]
+        np.testing.assert_allclose(stage[w].numpy(), ref.numpy(), rtol=1e-10, atol=1e-12)
+        ref_t = al.al_cost(tprob, torch.full((1,), N), xN[w][None], None, z_term, rh,
+                           terminal=True)[0][0]
+        np.testing.assert_allclose(term[w].numpy(), ref_t.numpy(), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose((stage.sum(1) + term).numpy(), phi.numpy(), rtol=1e-10)
