@@ -29,15 +29,16 @@
 // cp.async into a second buffer while the previous chunk computes: the W
 // trial threads of a lane read them there (the trials of a warp read one
 // address, a broadcast) instead of each fetching them through L2 on the
-// chain. P is a template parameter (0 and 2), so the row loops unroll. Each
-// thread's arithmetic (policy, merit, AL term, step) is in the order of the
-// one-thread-per-(lane, trial) design it replaces, so its states are the
-// same to the bit. Lanes past B and trials past W compute copies and store
-// nothing; every barrier is reached by every thread.
+// chain. P (0 and 2) and the model's frame (0, 1, 2) are template
+// parameters (6 instantiations), so the row loops unroll and the step has
+// no branch. Each thread's policy, merit and AL term are in the order of
+// the one-thread-per-(lane, trial) design it replaces. Lanes past B and
+// trials past W compute copies and store nothing; every barrier is reached
+// by every thread.
 //
-// The dynamics are a __device__ function from csrc/device_steps.cuh, the
-// twin of models/tile_steps.py::midpoint_cols(bicycle_cols(frame, length,
-// rear)).
+// The dynamics are BicycleFrame<FRAME>::step from csrc/device_steps.cuh,
+// the twin of models/tile_steps.py::midpoint_cols(bicycle_cols(frame,
+// length, rear)), the model csrc/trial_rollout.cu runs too.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -46,7 +47,7 @@
 
 namespace {
 
-using altro_dev::BicycleMidpoint;
+using altro_dev::BicycleFrame;
 using altro_dev::neg_part;
 
 constexpr int LANES = 16;       // lanes per block (threadIdx.x)
@@ -259,10 +260,19 @@ int launch(const Ops& o, const Model& model, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+template <int FRAME>
+int launch_p(const Ops& o, float length, float rear, int P, cudaStream_t s) {
+  const BicycleFrame<FRAME> m{length, rear};
+  if (P == 0) return launch<BicycleFrame<FRAME>, 0>(o, m, s);
+  if (P == 2) return launch<BicycleFrame<FRAME>, 2>(o, m, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // z0 holds the first p0 constraint rows and z1 the other P - p0 (the
-// problem's constraint groups, null when empty); P is 0 or 2.
+// problem's constraint groups, null when empty); P is 0 or 2; frame 0,
+// 1 or 2.
 extern "C" int rollout_grid_f32(
     const float* xref, const float* uref, const float* K, const float* d,
     const float* Q, const float* q, const float* R, const float* r,
@@ -278,8 +288,8 @@ extern "C" int rollout_grid_f32(
               phi, xstack, N, Bsz, W, p0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (model != 0 || integrator != 0) return (int)cudaErrorInvalidValue;
-  const BicycleMidpoint m{frame, length, rear};
-  if (P == 0) return launch<BicycleMidpoint, 0>(o, m, s);
-  if (P == 2) return launch<BicycleMidpoint, 2>(o, m, s);
+  if (frame == 0) return launch_p<0>(o, length, rear, P, s);
+  if (frame == 1) return launch_p<1>(o, length, rear, P, s);
+  if (frame == 2) return launch_p<2>(o, length, rear, P, s);
   return (int)cudaErrorInvalidValue;
 }

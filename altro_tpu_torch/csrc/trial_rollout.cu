@@ -1,4 +1,6 @@
-// Single-lane W-trial line-search rollout (latency kernel) for Hopper (sm_90a).
+// Single-lane W-trial line-search rollout (latency kernel) for Hopper
+// (sm_90a): two warps walk the state chains (two lanes a trial), one
+// accumulates the merit, one copies.
 //
 // Replaces: altro_tpu/ops/pallas_rollout.py::_pallas_rollout (its Pallas
 // `_kernel` and `_al_term`): the W <= 8 trial rollouts of ONE solve's
@@ -8,26 +10,44 @@
 // with P > 0 constraint rows, the affine NEGATIVE_ORTHANT augmented-
 // Lagrangian term rhoi * sum_e min(w_e, 0)^2, w = wg - wa.x - wu.u taken
 // from active-masked, rho-premultiplied rows (rhoi = 1/(2 rho)); the
-// terminal knot adds its cost and its state-only AL term.
+// terminal knot adds its cost and its state-only AL term. The TPU kernel
+// ran the W trials as rows of one tile down a sequential grid.
 //
 // What bounds it on this card: the chain. At N=500, W=8, n=4, m=2, P=2
 // the kernel reads 44 floats per knot (88 KB in all) and writes the W
 // state stacks (64 KB): 0.05 us at 3.35 TB/s. Each trial is a chain of N
-// dependent midpoint steps (two bicycle evaluations with sin, cos, tan and
-// a square root, the policy and the merit: some 150 dependent
-// instructions per knot), so the time is N times one knot's latency.
+// dependent midpoint steps; only the policy and the two bicycle
+// evaluations (a square root and a divide, a sine and cosine, a tangent
+// and a divide by the length, each) lie on it, and the time is N times
+// their latency. The merit depends on the states but feeds nothing back.
+// The accurate library functions branch to their slow paths, so one
+// thread's evaluations run one after the other.
 //
-// What the design does about it: one block of 128 threads. Lanes 0..W-1
-// of warp 0 each run one trial with its state and merit in registers,
-// reading the knot's operands from shared memory, where all W lanes read
-// the same address (a broadcast). Warps 1-3 stage the operands in chunks
-// of CH knots, double-buffered: while the trials walk chunk c, they load
-// chunk c+1 (knot-major slices are contiguous, so the loads coalesce) and
-// copy chunk c-1's states from their shared-memory staging out to the
-// state stacks, so neither loads nor stores sit on the chain. Only chunk
-// 0's load is exposed. Dynamic shared memory is 2 x (operands + states)
-// of one chunk (38 KB at n=4, m=2, P=2, W=8); above 48 KB the launch opts
-// in with cudaFuncSetAttribute.
+// What the design does about it: one block of 128 threads, launched once.
+// Two lanes of warps 0-1 (the chain warps) run each trial and do only what
+// the chain needs: per knot the policy, the store of x to a staging buffer
+// in shared memory and the midpoint step, with the next knot's K, x_ref,
+// u_ref, d and h read (16-byte loads, all lanes one address) into
+// registers one knot ahead. The steering angle moves by u_1 alone, so
+// once u is known both its midpoint and its next value are: lane 1 of the
+// pair computes the midpoint's steering terms (tanf, and the slip angle's
+// square root and divide) while lane 0 computes the next knot's, the same
+// code on two arguments, and a shuffle hands each its partner's. So a
+// lane runs one of the model's two evaluations of those terms a knot, and
+// the same arithmetic as the one-lane step (the same bits). The frame and
+// P are template parameters (6 instantiations), so the step has no
+// branch of its own and the row loops unroll. Lanes 0..W-1 of warp 2 (the
+// merit warp) walk each chunk after the chain warps have left it: each
+// recomputes u from the staged state with the same expression (so the
+// same bits), accumulates phi in the same knot and term order as the
+// plain version's terms below, and stores the states to xstack. Warp 3
+// stages the operands in chunks of CH knots with 16-byte cp.async where
+// a slice is 16-byte aligned. The pipeline runs in steps: in step s warp 3
+// stages chunk s+1, the chain warps walk chunk s and warp 2 chunk s-1, so
+// the operands are triple-buffered and the states double-buffered; one
+// barrier ends each step. Dynamic shared memory is 3 x operands + 2 x
+// states of one chunk (50 KB at n=4, m=2, P=2, W=8; the launch opts in
+// above 48 KB).
 //
 // The dynamics are a __device__ step from csrc/device_steps.cuh, the twin
 // of models/tile_steps.py::midpoint_tile(bicycle_tile(frame, length,
@@ -35,66 +55,72 @@
 // for term: phi += 0.5 Q.x.x + q.x + 0.5 R.u.u + r.u + c, then
 // + rhoi * sum_e min(w_e, 0)^2.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "device_steps.cuh"
 
 namespace {
 
-using altro_dev::BicycleMidpoint;
+using altro_dev::BicycleFrame;
 using altro_dev::neg_part;
 
-constexpr int CH = 64;        // knots per staged chunk
-constexpr int THREADS = 128;  // warp 0: the trials; warps 1-3: staging
-constexpr int STAGERS = THREADS - 32;
+constexpr int NS = 4, NI = 2;  // the bicycle's state and input widths
+constexpr int CH = 64;         // knots per staged chunk
+constexpr int THREADS = 128;   // warps 0-1: the chain; warp 2: the merit; warp 3: copies
+constexpr int COPIERS = 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int MAX_W = 32;
 
-// Float offsets of one chunk's buffers in shared memory.
+// Float offsets of one chunk's operands in shared memory (each array
+// [CH][width], 16-byte aligned); three such buffers, then two state
+// buffers [W][CH][NS] and the final states [W][NS].
+template <int P>
 struct Layout {
-  int xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg, in_size;
-  int out_size;  // W trials x CH knots x n states
+  static constexpr int XREF = 0;
+  static constexpr int UREF = XREF + CH * NS;
+  static constexpr int K = UREF + CH * NI;
+  static constexpr int D = K + CH * NI * NS;
+  static constexpr int H = D + CH * NI;
+  static constexpr int Q = H + CH;
+  static constexpr int QL = Q + CH * NS;
+  static constexpr int R = QL + CH * NS;
+  static constexpr int RL = R + CH * NI;
+  static constexpr int C = RL + CH * NI;
+  static constexpr int WA = C + CH;
+  static constexpr int WU = WA + CH * P * NS;
+  static constexpr int WG = WU + CH * P * NI;
+  static constexpr int IN = WG + CH * P;
+  static constexpr int XS = 3 * IN;
+  static_assert(IN % 4 == 0 && CH % 4 == 0, "16-byte aligned arrays");
+  static int floats(int W) { return XS + 2 * W * CH * NS + W * NS; }
 };
 
-__host__ __device__ inline Layout make_layout(int n, int m, int P, int W) {
-  Layout L;
-  int c = 0;
-  L.xref = c; c += CH * n;
-  L.uref = c; c += CH * m;
-  L.K = c;    c += CH * m * n;
-  L.d = c;    c += CH * m;
-  L.Q = c;    c += CH * n;
-  L.q = c;    c += CH * n;
-  L.R = c;    c += CH * m;
-  L.r = c;    c += CH * m;
-  L.c = c;    c += CH;
-  L.h = c;    c += CH;
-  L.wa = c;   c += CH * P * n;
-  L.wu = c;   c += CH * P * m;
-  L.wg = c;   c += CH * P;
-  L.in_size = c;
-  L.out_size = W * CH * n;
-  return L;
+struct Args {
+  const float *xref, *uref, *K, *d, *Q, *q, *R, *r, *c, *h, *wa, *wu, *wg;
+  const float* rhoi;
+  const float *alphas, *x0;
+  float *phi, *xstack;
+  int N, W;
+  float length, rear;
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-struct Operands {
-  const float* xref;  // [N+1, NS] (rows 0..N-1 read)
-  const float* uref;  // [N, NI]
-  const float* K;     // [N, NI, NS]
-  const float* d;     // [N, NI]
-  const float* Q;     // [N+1, NS]
-  const float* q;     // [N+1, NS]
-  const float* R;     // [N+1, NI]
-  const float* r;     // [N+1, NI]
-  const float* c;     // [N+1]
-  const float* h;     // [N]
-  const float* wa;    // [N+1, P, NS]
-  const float* wu;    // [N+1, P, NI]
-  const float* wg;    // [N+1, P]
-};
-
-__device__ __forceinline__ void copy(float* __restrict__ dst, const float* __restrict__ src,
-                                     int count, int t, int nt) {
-  for (int i = t; i < count; i += nt) dst[i] = src[i];
+// count floats global -> shared with cp.async: 16 bytes a copy when both
+// ends are 16-byte aligned, else one float a copy.
+__device__ __forceinline__ void copy_in(float* dst, const float* src, int count, int t) {
+  int done = 0;
+  if (aligned16(dst) && aligned16(src)) {
+    const int n4 = count / 4;
+    for (int i = t; i < n4; i += COPIERS) __pipeline_memcpy_async(dst + 4 * i, src + 4 * i, 16);
+    done = 4 * n4;
+  }
+  for (int i = done + t; i < count; i += COPIERS) __pipeline_memcpy_async(dst + i, src + i, 4);
 }
 
 // Chunk c covers knots [kbeg, kbeg + cnt), walked forward.
@@ -103,173 +129,271 @@ __device__ __forceinline__ void chunk_range(int c, int N, int& kbeg, int& cnt) {
   cnt = (N - kbeg < CH) ? N - kbeg : CH;
 }
 
-__device__ void stage_in(float* buf, const Layout& L, const Operands& op, int c, int N,
-                         int n, int m, int P, int t, int nt) {
+template <int P>
+__device__ void stage(float* buf, const Args& a, int c, int t) {
+  using Ly = Layout<P>;
   int kbeg, cnt;
-  chunk_range(c, N, kbeg, cnt);
+  chunk_range(c, a.N, kbeg, cnt);
   const long k0 = kbeg;
-  copy(buf + L.xref, op.xref + k0 * n, cnt * n, t, nt);
-  copy(buf + L.uref, op.uref + k0 * m, cnt * m, t, nt);
-  copy(buf + L.K, op.K + k0 * m * n, cnt * m * n, t, nt);
-  copy(buf + L.d, op.d + k0 * m, cnt * m, t, nt);
-  copy(buf + L.Q, op.Q + k0 * n, cnt * n, t, nt);
-  copy(buf + L.q, op.q + k0 * n, cnt * n, t, nt);
-  copy(buf + L.R, op.R + k0 * m, cnt * m, t, nt);
-  copy(buf + L.r, op.r + k0 * m, cnt * m, t, nt);
-  copy(buf + L.c, op.c + k0, cnt, t, nt);
-  copy(buf + L.h, op.h + k0, cnt, t, nt);
+  copy_in(buf + Ly::XREF, a.xref + k0 * NS, cnt * NS, t);
+  copy_in(buf + Ly::UREF, a.uref + k0 * NI, cnt * NI, t);
+  copy_in(buf + Ly::K, a.K + k0 * NI * NS, cnt * NI * NS, t);
+  copy_in(buf + Ly::D, a.d + k0 * NI, cnt * NI, t);
+  copy_in(buf + Ly::H, a.h + k0, cnt, t);
+  copy_in(buf + Ly::Q, a.Q + k0 * NS, cnt * NS, t);
+  copy_in(buf + Ly::QL, a.q + k0 * NS, cnt * NS, t);
+  copy_in(buf + Ly::R, a.R + k0 * NI, cnt * NI, t);
+  copy_in(buf + Ly::RL, a.r + k0 * NI, cnt * NI, t);
+  copy_in(buf + Ly::C, a.c + k0, cnt, t);
   if (P > 0) {
-    copy(buf + L.wa, op.wa + k0 * P * n, cnt * P * n, t, nt);
-    copy(buf + L.wu, op.wu + k0 * P * m, cnt * P * m, t, nt);
-    copy(buf + L.wg, op.wg + k0 * P, cnt * P, t, nt);
+    copy_in(buf + Ly::WA, a.wa + k0 * P * NS, cnt * P * NS, t);
+    copy_in(buf + Ly::WU, a.wu + k0 * P * NI, cnt * P * NI, t);
+    copy_in(buf + Ly::WG, a.wg + k0 * P, cnt * P, t);
   }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
 }
 
-// States of chunk c: staging [W][CH][n] -> xstack [W, N+1, n].
-__device__ void write_out(const float* buf, float* xstack, int c, int N, int n, int W,
-                          int t, int nt) {
-  int kbeg, cnt;
-  chunk_range(c, N, kbeg, cnt);
-  const int per = cnt * n;
-  for (int i = t; i < W * per; i += nt) {
-    const int w = i / per, e = i - w * per;
-    xstack[((long)w * (N + 1) + kbeg) * n + e] = buf[w * CH * n + e];
-  }
+// The policy's operands at one knot.
+struct Policy {
+  float4 K0, K1, xr;
+  float2 ur, d;
+};
+
+template <int P>
+__device__ __forceinline__ Policy load_policy(const float* in, int j) {
+  using Ly = Layout<P>;
+  Policy o;
+  o.K0 = reinterpret_cast<const float4*>(in + Ly::K)[2 * j];
+  o.K1 = reinterpret_cast<const float4*>(in + Ly::K)[2 * j + 1];
+  o.xr = reinterpret_cast<const float4*>(in + Ly::XREF)[j];
+  o.ur = reinterpret_cast<const float2*>(in + Ly::UREF)[j];
+  o.d = reinterpret_cast<const float2*>(in + Ly::D)[j];
+  return o;
 }
 
-template <class Model>
-__global__ void __launch_bounds__(THREADS) trial_rollout_kernel(
-    Operands op, const float* __restrict__ alphas, const float* __restrict__ x0,
-    const float* __restrict__ rhoi, float* __restrict__ phi_out,
-    float* __restrict__ xstack, int N, int W, int P, Model model) {
-  constexpr int NS = Model::NS;
-  constexpr int NI = Model::NI;
-  extern __shared__ float smem[];
-  const Layout L = make_layout(NS, NI, P, W);
-  float* inbuf[2] = {smem, smem + L.in_size};
-  float* outbuf[2] = {smem + 2 * L.in_size, smem + 2 * L.in_size + L.out_size};
-  const int tid = threadIdx.x;
-  const int nch = (N + CH - 1) / CH;
-  const bool runner = tid < W;
+// u = u_ref + alpha d - K (x - x_ref), each rounding pinned, so the chain
+// and the merit warp compute the same bits.
+__device__ __forceinline__ void policy(const Policy& o, const float x[NS], float alpha,
+                                       float u[NI]) {
+  const float dx[NS] = {__fsub_rn(x[0], o.xr.x), __fsub_rn(x[1], o.xr.y),
+                        __fsub_rn(x[2], o.xr.z), __fsub_rn(x[3], o.xr.w)};
+  const float k0[NS] = {o.K0.x, o.K0.y, o.K0.z, o.K0.w};
+  const float k1[NS] = {o.K1.x, o.K1.y, o.K1.z, o.K1.w};
+  float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    s0 = __fmaf_rn(k0[i], dx[i], s0);
+    s1 = __fmaf_rn(k1[i], dx[i], s1);
+  }
+  u[0] = __fsub_rn(__fmaf_rn(alpha, o.d.x, o.ur.x), s0);
+  u[1] = __fsub_rn(__fmaf_rn(alpha, o.d.y, o.ur.y), s1);
+}
 
-  stage_in(inbuf[0], L, op, 0, N, NS, NI, P, tid, THREADS);
+// One block per launch; saying so lets ptxas use what registers it likes.
+template <int FRAME, int P>
+__global__ void __launch_bounds__(THREADS, 1) trial_rollout_kernel(const Args a) {
+  using Ly = Layout<P>;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int N = a.N, W = a.W, nch = (N + CH - 1) / CH;
+  float* const xsbuf = smem + Ly::XS;  // states of chunk s at xsbuf + (s & 1) * W * CH * NS
+  float* const xfinal = xsbuf + 2 * W * CH * NS;
+
+  if (warp == 3) stage<P>(smem, a, 0, tid - 96);
   __syncthreads();
 
-  float x[NS];
-  float phi = 0.0f, alpha = 0.0f, ri = 0.0f;
-  if (runner) {
-    alpha = alphas[tid];
-    if (P > 0) ri = rhoi[0];
+  if (warp < 2) {  // the chain: x through the N steps, two lanes a trial
+    using Model = BicycleFrame<FRAME>;
+    using Terms = typename Model::Terms;
+    const Model model{a.length, a.rear};
+    const int w = tid >> 1, half = tid & 1;
+    const bool mine = w < W && half == 0;  // the lane that stores trial w's states
+    const bool busy = warp * 16 < W;       // a warp without a trial only meets the barriers
+    const float alpha = a.alphas[w < W ? w : W - 1];  // lanes past W run a copy of the last trial
+    float x[NS];
 #pragma unroll
-    for (int i = 0; i < NS; ++i) x[i] = x0[i];
-  }
-
-  for (int c = 0; c <= nch; ++c) {
-    if (tid < 32) {
-      if (runner && c < nch) {
+    for (int i = 0; i < NS; ++i) x[i] = a.x0[i];
+    Terms tk = model.terms(x[3]);  // the steering terms at knot k, for f(x_k, u_k)
+    for (int s = 0; s <= nch; ++s) {
+      if (s < nch && busy) {
         int kbeg, cnt;
-        chunk_range(c, N, kbeg, cnt);
-        const float* in = inbuf[c & 1];
-        float* xs = outbuf[c & 1] + tid * CH * NS;
+        chunk_range(s, N, kbeg, cnt);
+        const float* in = smem + (s % 3) * Ly::IN;
+        float4* xs = reinterpret_cast<float4*>(xsbuf + (s & 1) * W * CH * NS + w * CH * NS);
+        Policy cur = load_policy<P>(in, 0);
+        float h = in[Ly::H];
         for (int j = 0; j < cnt; ++j) {
-          const float* xr = in + L.xref + j * NS;
-          const float* Kj = in + L.K + j * NI * NS;
           float u[NI];
-#pragma unroll
-          for (int a = 0; a < NI; ++a) {
-            float s = 0.0f;
-#pragma unroll
-            for (int i = 0; i < NS; ++i) s += Kj[a * NS + i] * (x[i] - xr[i]);
-            u[a] = in[L.uref + j * NI + a] + alpha * in[L.d + j * NI + a] - s;
+          policy(cur, x, alpha, u);
+          if (mine) xs[j] = make_float4(x[0], x[1], x[2], x[3]);
+          const int jn = j + 1 < cnt ? j + 1 : j;
+          const Policy nxt = load_policy<P>(in, jn);
+          const float hn = in[Ly::H + jn];
+          // the explicit midpoint x + h f(x + h/2 f(x, u), u): the steering
+          // angle moves by u_1 alone, so its midpoint and next values are
+          // known now; lane 1 of the pair takes the midpoint's steering
+          // terms, lane 0 the next knot's, at the same time
+          const float dm = __fmaf_rn(0.5f * h, u[1], x[3]);
+          const float dn = __fmaf_rn(h, u[1], x[3]);
+          const Terms own = model.terms(half ? dm : dn);
+          float fx[NS], fm[NS];
+          model.f(x, u, tk, fx);
+          const float xm[NS] = {x[0], x[1], x[2] + 0.5f * h * fx[2], dm};
+          Terms tm = own, tn = own;
+          tm.rate = __shfl_sync(FULL_MASK, own.rate, tid | 1);
+          tn.rate = __shfl_sync(FULL_MASK, own.rate, tid & ~1);
+          if (FRAME == 0) {
+            tm.cosb = __shfl_sync(FULL_MASK, own.cosb, tid | 1);
+            tm.sinb = __shfl_sync(FULL_MASK, own.sinb, tid | 1);
+            tn.cosb = __shfl_sync(FULL_MASK, own.cosb, tid & ~1);
+            tn.sinb = __shfl_sync(FULL_MASK, own.sinb, tid & ~1);
           }
+          model.f(xm, u, tm, fm);
+#pragma unroll
+          for (int i = 0; i < NS - 1; ++i) x[i] = x[i] + h * fm[i];
+          x[3] = dn;  // = x_3 + h fm_3, fm_3 = u_1
+          tk = tn;
+          cur = nxt;
+          h = hn;
+        }
+        if (s == nch - 1 && mine) {
+          reinterpret_cast<float4*>(xfinal)[w] = make_float4(x[0], x[1], x[2], x[3]);
+#pragma unroll
+          for (int i = 0; i < NS; ++i) a.xstack[((long)w * (N + 1) + N) * NS + i] = x[i];
+        }
+      }
+      __syncthreads();
+    }
+  } else if (warp == 2) {  // the merit of chunk s - 1, and its states out
+    const bool trial = lane < W;
+    const float alpha = trial ? a.alphas[lane] : 0.0f;
+    const float ri = P > 0 ? *a.rhoi : 0.0f;
+    const bool vec = aligned16(a.xstack);
+    float phi = 0.0f;
+    for (int s = 0; s <= nch; ++s) {
+      if (s >= 1 && trial) {
+        int kbeg, cnt;
+        chunk_range(s - 1, N, kbeg, cnt);
+        const float* in = smem + ((s - 1) % 3) * Ly::IN;
+        const float4* xs =
+            reinterpret_cast<const float4*>(xsbuf + ((s - 1) & 1) * W * CH * NS + lane * CH * NS);
+        float* xout = a.xstack + ((long)lane * (N + 1) + kbeg) * NS;
+        for (int j = 0; j < cnt; ++j) {
+          const float4 xv = xs[j];
+          const float x[NS] = {xv.x, xv.y, xv.z, xv.w};
+          float u[NI];
+          policy(load_policy<P>(in, j), x, alpha, u);
           float sq = 0.0f, sl = 0.0f, su = 0.0f, sr = 0.0f;
 #pragma unroll
           for (int i = 0; i < NS; ++i) {
-            sq += in[L.Q + j * NS + i] * x[i] * x[i];
-            sl += in[L.q + j * NS + i] * x[i];
+            sq += in[Ly::Q + j * NS + i] * x[i] * x[i];
+            sl += in[Ly::QL + j * NS + i] * x[i];
           }
 #pragma unroll
-          for (int a = 0; a < NI; ++a) {
-            su += in[L.R + j * NI + a] * u[a] * u[a];
-            sr += in[L.r + j * NI + a] * u[a];
+          for (int i = 0; i < NI; ++i) {
+            su += in[Ly::R + j * NI + i] * u[i] * u[i];
+            sr += in[Ly::RL + j * NI + i] * u[i];
           }
-          float ph = phi + 0.5f * sq + sl + 0.5f * su + sr + in[L.c + j];
+          float ph = phi + 0.5f * sq + sl + 0.5f * su + sr + in[Ly::C + j];
           if (P > 0) {
             float alc = 0.0f;
+#pragma unroll
             for (int e = 0; e < P; ++e) {
-              float we = in[L.wg + j * P + e];
+              float we = in[Ly::WG + j * P + e];
               float sa = 0.0f, sb = 0.0f;
 #pragma unroll
-              for (int i = 0; i < NS; ++i) sa += in[L.wa + (j * P + e) * NS + i] * x[i];
+              for (int i = 0; i < NS; ++i) sa += in[Ly::WA + (j * P + e) * NS + i] * x[i];
 #pragma unroll
-              for (int a = 0; a < NI; ++a) sb += in[L.wu + (j * P + e) * NI + a] * u[a];
+              for (int i = 0; i < NI; ++i) sb += in[Ly::WU + (j * P + e) * NI + i] * u[i];
               we = we - sa - sb;
               const float pw = neg_part(we);
               alc += pw * pw;
             }
             ph += ri * alc;
           }
-#pragma unroll
-          for (int i = 0; i < NS; ++i) xs[j * NS + i] = x[i];
-          model.step(x, u, in[L.h + j]);
           phi = ph;
+          if (vec) {
+            reinterpret_cast<float4*>(xout)[j] = xv;
+          } else {
+#pragma unroll
+            for (int i = 0; i < NS; ++i) xout[j * NS + i] = x[i];
+          }
         }
       }
-    } else {
-      if (c + 1 < nch) stage_in(inbuf[(c + 1) & 1], L, op, c + 1, N, NS, NI, P, tid - 32, STAGERS);
-      if (c >= 1) write_out(outbuf[(c - 1) & 1], xstack, c - 1, N, NS, W, tid - 32, STAGERS);
+      __syncthreads();
     }
-    __syncthreads();
-  }
-
-  if (runner) {
-    // terminal knot: state-only cost and constraint rows
-    float sq = 0.0f, sl = 0.0f;
+    if (trial) {  // terminal knot: state-only cost and constraint rows
+      const float4 xv = reinterpret_cast<const float4*>(xfinal)[lane];
+      const float x[NS] = {xv.x, xv.y, xv.z, xv.w};
+      float sq = 0.0f, sl = 0.0f;
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      sq += op.Q[(long)N * NS + i] * x[i] * x[i];
-      sl += op.q[(long)N * NS + i] * x[i];
-    }
-    float ph = phi + 0.5f * sq + sl + op.c[N];
-    if (P > 0) {
-      float alc = 0.0f;
-      for (int e = 0; e < P; ++e) {
-        float sa = 0.0f;
-#pragma unroll
-        for (int i = 0; i < NS; ++i) sa += op.wa[((long)N * P + e) * NS + i] * x[i];
-        const float pw = neg_part(op.wg[(long)N * P + e] - sa);
-        alc += pw * pw;
+      for (int i = 0; i < NS; ++i) {
+        sq += a.Q[(long)N * NS + i] * x[i] * x[i];
+        sl += a.q[(long)N * NS + i] * x[i];
       }
-      ph += ri * alc;
-    }
-    phi_out[tid] = ph;
+      float ph = phi + 0.5f * sq + sl + a.c[N];
+      if (P > 0) {
+        float alc = 0.0f;
 #pragma unroll
-    for (int i = 0; i < NS; ++i) xstack[((long)tid * (N + 1) + N) * NS + i] = x[i];
+        for (int e = 0; e < P; ++e) {
+          float sa = 0.0f;
+#pragma unroll
+          for (int i = 0; i < NS; ++i) sa += a.wa[((long)N * P + e) * NS + i] * x[i];
+          const float pw = neg_part(a.wg[(long)N * P + e] - sa);
+          alc += pw * pw;
+        }
+        ph += ri * alc;
+      }
+      a.phi[lane] = ph;
+    }
+  } else {  // the copies: chunk s + 1 in
+    for (int s = 0; s <= nch; ++s) {
+      if (s + 1 < nch) stage<P>(smem + ((s + 1) % 3) * Ly::IN, a, s + 1, tid - 96);
+      __syncthreads();
+    }
   }
+}
+
+template <int FRAME, int P>
+int launch(const Args& a, cudaStream_t s) {
+  auto kern = trial_rollout_kernel<FRAME, P>;
+  const size_t bytes = (size_t)Layout<P>::floats(a.W) * sizeof(float);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<1, THREADS, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int FRAME>
+int launch_p(const Args& a, int P, cudaStream_t s) {
+  if (P == 0) return launch<FRAME, 0>(a, s);
+  if (P == 2) return launch<FRAME, 2>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// wa, wu, wg and rhoi are null when P = 0; rhoi is one float on the
+// device. P is 0 or 2; frame 0, 1 or 2.
 extern "C" int trial_rollout_f32(
     const float* alphas, const float* x0, const float* xref, const float* uref,
     const float* K, const float* d, const float* Q, const float* q, const float* R,
     const float* r, const float* c, const float* h, const float* wa, const float* wu,
-    const float* wg, const float* rhoi, float* phi, float* xstack, int N, int W, int P,
-    int model, int integrator, int frame, float length, float rear, void* stream) {
-  if (N <= 0 || W <= 0 || W > MAX_W || P < 0) return (int)cudaErrorInvalidValue;
+    const float* wg, const float* rhoi, float* phi, float* xstack, int N,
+    int W, int P, int model, int integrator, int frame, float length, float rear,
+    void* stream) {
+  if (N <= 0 || W <= 0 || W > MAX_W) return (int)cudaErrorInvalidValue;
   if (!(model == 0 && integrator == 0)) return (int)cudaErrorInvalidValue;
-  const Layout L = make_layout(BicycleMidpoint::NS, BicycleMidpoint::NI, P, W);
-  const size_t bytes = 2 * (size_t)(L.in_size + L.out_size) * sizeof(float);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        trial_rollout_kernel<BicycleMidpoint>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const Operands op{xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg};
-  const BicycleMidpoint mdl{frame, length, rear};
+  const Args a{xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg, rhoi,
+               alphas, x0, phi, xstack, N, W, length, rear};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  trial_rollout_kernel<BicycleMidpoint><<<1, THREADS, bytes, s>>>(
-      op, alphas, x0, rhoi, phi, xstack, N, W, P, mdl);
-  return (int)cudaGetLastError();
+  if (frame == 0) return launch_p<0>(a, P, s);
+  if (frame == 1) return launch_p<1>(a, P, s);
+  if (frame == 2) return launch_p<2>(a, P, s);
+  return (int)cudaErrorInvalidValue;
 }

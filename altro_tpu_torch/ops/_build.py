@@ -15,8 +15,9 @@ The library lands in `altro_tpu_torch/_build/<hash>/`, keyed by a hash of
 the sources (`*.cu` and the shared headers `*.cuh`) and the commands, so
 an edited source or header rebuilds and an unchanged tree loads at once.
 A file lock keeps two processes from building at the same time. A failed build raises with nvcc's output;
-nothing falls back. `check_operand` is the wrappers' shared check of what
-every kernel takes (contiguous float32 CUDA tensors of the stated shape).
+nothing falls back. `check_operand` / `check_operands` are the wrappers'
+shared check of what every kernel takes (contiguous float32 CUDA tensors
+of the stated shape).
 """
 
 from __future__ import annotations
@@ -161,6 +162,17 @@ def check_operand(kernel: str, name: str, t, shape) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel} kernel: {name} must be contiguous")
+
+
+def check_operands(kernel: str, ops) -> None:
+    """`check_operand` over ops, a sequence of (name, tensor, shape): one
+    expression when every operand is fine, the first fault's raise when
+    not."""
+    if all(t.dtype is torch.float32 and t.is_cuda and t.shape == shape and t.is_contiguous()
+           for _, t, shape in ops):
+        return
+    for name, t, shape in ops:
+        check_operand(kernel, name, t, shape)
 
 
 def check(err: int, name: str) -> None:

@@ -5,8 +5,8 @@ Counterpart: altro_tpu/ops/pallas_packed.py::riccati_backward_pallas_packed
 The TPU kernel packed each knot's operands into one (8, 128) tile and ran
 the N-knot chain as a sequential grid; csrc/riccati_latency.cu runs it in
 one thread block: warps 1-3 stage chunks of knots through shared memory
-(double-buffered) while one thread carries (P, p) in registers down the
-chain.
+(double-buffered) while warp 0 computes each knot together, a lane per
+entry of the Q blocks and then of the new (P, p).
 
 Contract, for ONE lane (unbatched, the JAX layout): A [N, n, n],
 B [N, n, m]; lxx [N+1, n, n] or diagonals [N+1, n]; luu [N, m, m] or
@@ -28,7 +28,7 @@ from altro_tpu_torch.ops import _build
 from altro_tpu_torch.ops.riccati_backward import riccati_backward_ref
 from altro_tpu_torch.tvlqr import TVLQRGains
 
-__all__ = ["LAUNCHES", "KERNEL_SHAPES", "riccati_latency_ref", "riccati_latency"]
+__all__ = ["LAUNCHES", "KERNEL_SHAPES", "riccati_latency_ref", "output_views", "riccati_latency"]
 
 # Count of kernel launches (plain integer; the CPU path never adds to it).
 LAUNCHES = 0
@@ -51,12 +51,32 @@ def riccati_latency_ref(A, B, lxx, luu, lx, lu, reg=0.0, lux=None, f=None) -> TV
                       g.delta_V[..., 0], g.ok[0], g.fail_index[0])
 
 
+def output_views(N: int, n: int, m: int, device) -> TVLQRGains:
+    """The kernel's outputs as views of ONE float32 buffer: P [N+1, n, n],
+    K [N, m, n], p [N+1, n], d [N, m], delta_V [2] (in that order, so P,
+    K, p and d start 16-byte aligned), then fail_index (int32) and ok
+    (bool), each 0-dim, in the last two words."""
+    oK = (N + 1) * n * n
+    op = oK + N * m * n
+    od = op + (N + 1) * n
+    ov = od + N * m
+    buf = torch.empty(ov + 4, dtype=torch.float32, device=device)
+    flags = buf[ov + 2:].view(torch.int32)
+    return TVLQRGains(buf.as_strided((N, m, n), (m * n, n, 1), oK),
+                      buf.as_strided((N, m), (m, 1), od),
+                      buf.as_strided((N + 1, n, n), (n * n, n, 1), 0),
+                      buf.as_strided((N + 1, n), (n, 1), op),
+                      buf.as_strided((2,), (1,), ov), flags.view(torch.bool)[4], flags[0])
+
+
 def riccati_latency(A, B, lxx, luu, lx, lu, reg=0.0, lux=None, f=None,
                     symmetrize=False) -> TVLQRGains:
     """Single-lane backward pass: the plain version for CPU tensors, the
     CUDA kernel (csrc/riccati_latency.cu) for CUDA tensors, or a raise
     when the kernel does not take them (not float32, (n, m) not in
-    KERNEL_SHAPES, wrong shape, not contiguous)."""
+    KERNEL_SHAPES, wrong shape, not contiguous). The kernel reads `reg`
+    from the device: a one-element float32 CUDA tensor, as the solve
+    passes it, or a Python number, copied there first."""
     global LAUNCHES
     del symmetrize  # P is symmetric by construction (see module docstring)
     if not A.is_cuda:
@@ -65,39 +85,28 @@ def riccati_latency(A, B, lxx, luu, lx, lu, reg=0.0, lux=None, f=None,
     if (n, m) not in KERNEL_SHAPES:
         raise NotImplementedError(f"riccati_latency kernel: no instantiation for n={n}, m={m}")
     diag_x, diag_u = lxx.ndim == 2, luu.ndim == 2
+    ops = [("A", A, (N, n, n)), ("B", B, (N, n, m)),
+           ("lxx", lxx, (N + 1, n) if diag_x else (N + 1, n, n)),
+           ("luu", luu, (N, m) if diag_u else (N, m, m)),
+           ("lx", lx, (N + 1, n)), ("lu", lu, (N, m))]
+    if lux is not None:
+        ops.append(("lux", lux, (N, m, n)))
+    if f is not None:
+        ops.append(("f", f, (N, n)))
     if not torch.is_tensor(reg):
         reg = torch.tensor(float(reg), dtype=A.dtype, device=A.device)
-    reg_t = reg.reshape(1)
-    ops = {
-        "A": (A, (N, n, n)), "B": (B, (N, n, m)),
-        "lxx": (lxx, (N + 1, n) if diag_x else (N + 1, n, n)),
-        "luu": (luu, (N, m) if diag_u else (N, m, m)),
-        "lx": (lx, (N + 1, n)), "lu": (lu, (N, m)), "reg": (reg_t, (1,)),
-    }
-    if lux is not None:
-        ops["lux"] = (lux, (N, m, n))
-    if f is not None:
-        ops["f"] = (f, (N, n))
-    for name, (t, shape) in ops.items():
-        _build.check_operand("riccati_latency", name, t, shape)
+    ops.append(("reg", reg.reshape(-1), (1,)))
+    _build.check_operands("riccati_latency", ops)
 
     lib = _build.load()
-    kw = dict(dtype=A.dtype, device=A.device)
-    K = torch.empty((N, m, n), **kw)
-    d = torch.empty((N, m), **kw)
-    P = torch.empty((N + 1, n, n), **kw)
-    p = torch.empty((N + 1, n), **kw)
-    dV = torch.empty((2,), **kw)
-    ok = torch.empty((), dtype=torch.bool, device=A.device)
-    fail = torch.empty((), dtype=torch.int32, device=A.device)
-    stream = torch.cuda.current_stream(A.device).cuda_stream
+    g = output_views(N, n, m, A.device)
     err = lib.riccati_latency_f32(
         A.data_ptr(), B.data_ptr(), lxx.data_ptr(), luu.data_ptr(),
-        0 if lux is None else lux.data_ptr(), 0 if f is None else f.data_ptr(),
-        lx.data_ptr(), lu.data_ptr(), reg_t.data_ptr(),
-        K.data_ptr(), d.data_ptr(), P.data_ptr(), p.data_ptr(), dV.data_ptr(),
-        ok.data_ptr(), fail.data_ptr(),
-        N, n, m, int(diag_x), int(diag_u), stream)
+        None if lux is None else lux.data_ptr(), None if f is None else f.data_ptr(),
+        lx.data_ptr(), lu.data_ptr(), reg.data_ptr(),
+        g.K.data_ptr(), g.d.data_ptr(), g.P.data_ptr(), g.p.data_ptr(), g.delta_V.data_ptr(),
+        g.ok.data_ptr(), g.fail_index.data_ptr(),
+        N, n, m, int(diag_x), int(diag_u), torch.cuda.current_stream(A.device).cuda_stream)
     _build.check(err, "riccati_latency_f32")
     LAUNCHES += 1
-    return TVLQRGains(K, d, P, p, dV, ok, fail)
+    return g

@@ -18,7 +18,9 @@ phis [W] and xstack [W, N+1, n]; the stored state at knot k is the state
 before the step. `con` is the optional affine bundle (wa [N+1, P, n],
 wu [N+1, P, m], wg [N+1, P], rhoi scalar), active-masked and
 rho-premultiplied as the solver builds it. The kernel
-(csrc/trial_rollout.cu) runs one trial per thread of one block.
+(csrc/trial_rollout.cu) runs one block: two lanes per trial walk the
+state chain, splitting the model's steering-angle terms between them, and
+a lane of another warp per trial accumulates the merit behind them.
 """
 
 from __future__ import annotations
@@ -36,17 +38,23 @@ from altro_tpu_torch.problem import DiagonalCost
 __all__ = [
     "LAUNCHES",
     "KERNEL_MAX_W",
+    "KERNEL_P",
     "problem_ineligibility",
     "ineligibility",
     "trial_rollout_ref",
+    "output_views",
     "trial_rollout",
 ]
 
 # Count of kernel launches (plain integer; the CPU path never adds to it).
 LAUNCHES = 0
 
-# The kernel runs one trial per lane of one warp.
+# The kernel's merit warp holds one trial per lane.
 KERNEL_MAX_W = 32
+
+# Constraint-row counts the kernel is instantiated for (the steering
+# bound's two rows, or none).
+KERNEL_P = (0, 2)
 
 # (model, integrator) pairs the CUDA kernel has a __device__ step for.
 DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): "bicycle_midpoint"}
@@ -55,9 +63,10 @@ DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): "bicycle_midpoint"}
 def problem_ineligibility(problem) -> Optional[str]:
     """Why the single-lane solve cannot run this problem's grid through the
     trial rollout, or None when it can: it needs a block step, a diagonal
-    cost, and only affine NEGATIVE_ORTHANT groups (unconstrained problems
-    qualify). The JAX `rollout_constraints_eligible` with the solver's own
-    checks (altro_tpu/solver.py:924-930), as a reason."""
+    cost, only affine NEGATIVE_ORTHANT groups (unconstrained problems
+    qualify) and a row count the kernel is instantiated for (KERNEL_P).
+    The JAX `rollout_constraints_eligible` with the solver's own checks
+    (altro_tpu/solver.py:924-930), as a reason."""
     if problem.dynamics_tile is None:
         return "the problem has no block step (Problem.dynamics_tile)"
     if not isinstance(problem.cost, DiagonalCost):
@@ -66,11 +75,16 @@ def problem_ineligibility(problem) -> Optional[str]:
         if not (spec.affine and spec.cone is Cone.NEGATIVE_ORTHANT):
             return (f"constraint group {spec.label!r} is not an affine "
                     "NEGATIVE_ORTHANT group")
+    rows = sum(spec.dim for spec in problem.constraints)
+    if rows not in KERNEL_P:
+        return f"{rows} constraint rows (the kernel takes {KERNEL_P})"
     return None
 
 
-def ineligibility(step_tile, n: int, m: int) -> Optional[str]:
-    """Why the kernel cannot run this block step, or None when it can."""
+def ineligibility(step_tile, n: int, m: int, W: int = 1, P: int = 0) -> Optional[str]:
+    """Why the kernel cannot run this block step with W trials and P
+    constraint rows, or None when it can (an instantiation exists; every
+    bicycle frame has one)."""
     ds = getattr(step_tile, "device_step", None)
     if ds is None:
         return "the block step names no device step (models/tile_steps.py)"
@@ -78,6 +92,10 @@ def ineligibility(step_tile, n: int, m: int) -> Optional[str]:
         return f"no __device__ step for model {ds.model}, integrator {ds.integrator}"
     if (ds.n, ds.m) != (n, m):
         return f"device step is for n={ds.n}, m={ds.m}, operands have n={n}, m={m}"
+    if W > KERNEL_MAX_W:
+        return f"W={W} > {KERNEL_MAX_W} trials"
+    if P not in KERNEL_P:
+        return f"P={P} constraint rows (instantiated for {KERNEL_P})"
     return None
 
 
@@ -111,53 +129,55 @@ def trial_rollout_ref(step_tile, alphas, x0, xref, uref, K, d, Qd, ql, Rd, rl,
     return phi[:, 0], xs[..., 0]
 
 
+def output_views(W: int, N: int, n: int, device):
+    """The kernel's outputs as views of ONE float32 buffer: xstack
+    [W, N+1, n] first (16-byte aligned at its start), then phis [W]."""
+    size = W * (N + 1) * n
+    buf = torch.empty(size + W, dtype=torch.float32, device=device)
+    return buf.as_strided((W,), (1,), size), buf.as_strided((W, N + 1, n), ((N + 1) * n, n, 1), 0)
+
+
 def trial_rollout(step_tile, alphas, x0, xref, uref, K, d, Qd, ql, Rd, rl, cconst, h,
                   con=None):
     """W-trial rollout of one lane: the plain version for CPU tensors, the
     CUDA kernel for CUDA tensors, or a raise when the kernel does not take
-    them (no __device__ twin of the step, W > KERNEL_MAX_W, not float32,
-    wrong shape, not contiguous)."""
+    them (`ineligibility`: no __device__ twin of the step, W >
+    KERNEL_MAX_W, P not in KERNEL_P; not float32, wrong shape, not
+    contiguous). The kernel reads con's rhoi from the device: a
+    one-element float32 CUDA tensor, as the solve passes it, or a Python
+    number, copied there first."""
     global LAUNCHES
     if not x0.is_cuda:
         return trial_rollout_ref(step_tile, alphas, x0, xref, uref, K, d, Qd, ql, Rd, rl,
                                  cconst, h, con=con)
     N, m, n = K.shape
     W = alphas.shape[0]
-    why = ineligibility(step_tile, n, m)
+    P = 0 if con is None else con[2].shape[1]
+    why = ineligibility(step_tile, n, m, W, P)
     if why is not None:
         raise NotImplementedError(f"trial_rollout kernel: {why}")
-    if W > KERNEL_MAX_W:
-        raise NotImplementedError(f"trial_rollout kernel: W={W} > {KERNEL_MAX_W} trials")
-    ops = {
-        "alphas": (alphas, (W,)), "x0": (x0, (n,)), "xref": (xref, (N + 1, n)),
-        "uref": (uref, (N, m)), "K": (K, (N, m, n)), "d": (d, (N, m)),
-        "Q": (Qd, (N + 1, n)), "q": (ql, (N + 1, n)), "R": (Rd, (N + 1, m)),
-        "r": (rl, (N + 1, m)), "c": (cconst, (N + 1,)), "h": (h, (N,)),
-    }
-    P = 0
+    ops = [("alphas", alphas, (W,)), ("x0", x0, (n,)), ("xref", xref, (N + 1, n)),
+           ("uref", uref, (N, m)), ("K", K, (N, m, n)), ("d", d, (N, m)),
+           ("Q", Qd, (N + 1, n)), ("q", ql, (N + 1, n)), ("R", Rd, (N + 1, m)),
+           ("r", rl, (N + 1, m)), ("c", cconst, (N + 1,)), ("h", h, (N,))]
+    rows = (None,) * 4
     if con is not None:
         wa, wu, wg, rhoi = con
-        P = wg.shape[1]
         if not torch.is_tensor(rhoi):
             rhoi = torch.tensor(float(rhoi), dtype=x0.dtype, device=x0.device)
-        ops.update({"wa": (wa, (N + 1, P, n)), "wu": (wu, (N + 1, P, m)),
-                    "wg": (wg, (N + 1, P)), "rhoi": (rhoi.reshape(1), (1,))})
-    for name, (t, shape) in ops.items():
-        _build.check_operand("trial_rollout", name, t, shape)
-    ptr = {name: t.data_ptr() for name, (t, _) in ops.items()}
+        ops += [("wa", wa, (N + 1, P, n)), ("wu", wu, (N + 1, P, m)), ("wg", wg, (N + 1, P)),
+                ("rhoi", rhoi.reshape(-1), (1,))]
+        rows = tuple(t.data_ptr() for _, t, _ in ops[12:])
+    _build.check_operands("trial_rollout", ops)
     ds = step_tile.device_step
     frame, length, rear = ds.params
 
     lib = _build.load()
-    phi = torch.empty((W,), dtype=x0.dtype, device=x0.device)
-    xstack = torch.empty((W, N + 1, n), dtype=x0.dtype, device=x0.device)
-    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    phi, xstack = output_views(W, N, n, x0.device)
     err = lib.trial_rollout_f32(
-        *(ptr[k] for k in ("alphas", "x0", "xref", "uref", "K", "d", "Q", "q", "R", "r",
-                           "c", "h")),
-        *(ptr.get(k, 0) for k in ("wa", "wu", "wg", "rhoi")),
+        *(t.data_ptr() for _, t, _ in ops[:12]), *rows,
         phi.data_ptr(), xstack.data_ptr(), N, W, P, ds.model, ds.integrator, int(frame),
-        float(length), float(rear), stream)
+        float(length), float(rear), torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check(err, "trial_rollout_f32")
     LAUNCHES += 1
     return phi, xstack

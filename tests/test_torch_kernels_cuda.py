@@ -6,10 +6,12 @@ inside the fixture, never at import). On a machine with an H100 and nvcc:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -p no:randomly -n 0
 
 Small shapes with a ragged batch (B not a multiple of the block size)
-for the batched kernels, and a 150-knot horizon (three staged chunks,
-the last ragged) for the single-lane ones: the same comparisons as
-chip_smoke.py's parity phases.
+for the batched kernels, and horizons at the 64-knot chunk edges (up to
+the solve's 500) for the single-lane ones, every template instantiation
+of each: the same comparisons as chip_smoke.py's parity phases.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -76,18 +78,25 @@ def test_riccati_kernel_refuses_what_it_does_not_implement(dev):
         rb.riccati_backward(A.transpose(1, 2), Bm, lxx, luu, lx, lu, reg, diag_cost=True)
 
 
-def _rollout_inputs(dev, seed=1, Bsz=BR, Nk=NK, W=4, P=2):
-    """Scotty problem (steering bound for P=2, none for P=0) and rollout
-    operands of Bsz lanes, Nk knots and W trials."""
+def _rollout_inputs(dev, seed=1, Bsz=BR, Nk=NK, W=4, P=2, frame="cog"):
+    """Scotty problem (steering bound for P=2, none for P=0; the bicycle in
+    `frame`) and rollout operands of Bsz lanes, Nk knots and W trials."""
     import dataclasses
 
     from altro_tpu_torch import mpc
     from altro_tpu_torch.io.scotty import load_scotty
+    from altro_tpu_torch.models.bicycle import BicycleFrame, bicycle_continuous
+    from altro_tpu_torch.models.integrators import midpoint
+    from altro_tpu_torch.models.tile_steps import bicycle_cols, midpoint_cols
 
     ref = load_scotty()
     prob = mpc.scotty_problem(ref, N=Nk, dtype=torch.float32, device=dev)
     if P == 0:
         prob = dataclasses.replace(prob, constraints=())
+    if frame != "cog":
+        prob = dataclasses.replace(
+            prob, dynamics=midpoint(bicycle_continuous(BicycleFrame(frame))),
+            dynamics_cols=midpoint_cols(bicycle_cols(frame)))
     rng = np.random.default_rng(seed)
     xr = ref.x[: Nk + 1, :, None] + 0.2 * rng.standard_normal((Nk + 1, 4, Bsz))
     xr[:, 3] = np.sign(rng.standard_normal(Bsz)) * (1.07 + 0.02 * rng.standard_normal((Nk + 1, Bsz)))
@@ -102,15 +111,16 @@ def _rollout_inputs(dev, seed=1, Bsz=BR, Nk=NK, W=4, P=2):
     return prob, (t(xr), t(ur), t(K), t(d), zs, t(rho), t(0.5 ** np.arange(W)), t(x0))
 
 
+@pytest.mark.parametrize("frame", ["cog", "rear", "front"])
 @pytest.mark.parametrize("P", [0, 2])
 @pytest.mark.parametrize("Bsz, W", [(1, 4), (33, 12), (2000, 8)])
-def test_rollout_kernel_matches_plain(dev, Bsz, W, P):
-    """Ragged lane tiles (B = 1, 33, 2000 against 16-lane blocks), a trial
-    count past one block's 8 (W=12) and 20 knots (three staged chunks of
-    8, the first buffer reused)."""
+def test_rollout_kernel_matches_plain(dev, Bsz, W, P, frame):
+    """Every (frame, P) instantiation: ragged lane tiles (B = 1, 33, 2000
+    against 16-lane blocks), a trial count past one block's 8 (W=12) and
+    20 knots (three staged chunks of 8, the first buffer reused)."""
     from altro_tpu_torch.ops import rollout_grid as rg
 
-    prob, args = _rollout_inputs(dev, Bsz=Bsz, Nk=20, W=W, P=P)
+    prob, args = _rollout_inputs(dev, Bsz=Bsz, Nk=20, W=W, P=P, frame=frame)
     before = rg.LAUNCHES
     pk, xk = rg.rollout_grid(prob, *args)
     pr, xr = rg.rollout_grid_ref(prob, *args)
@@ -160,85 +170,148 @@ def test_solve_on_card_tracks_plain_path(dev, rti):
     assert float((a.x_true.double().cpu() - b.x_true).abs().max()) < 1e-2
 
 
-NL = 150  # single-lane horizon: three staged chunks of 64 knots, the last ragged
+# single-lane horizons at the 64-knot chunk edges (one knot, one chunk
+# short, full and one over, three chunks with the last ragged, the solve's)
+LATENCY_N = [1, 63, 64, 65, 150, 500]
+LATENCY_VARIANTS = list(itertools.product([True, False], repeat=4))  # diag_x, diag_u, lux, f
 
 
-def _latency_inputs(dev, dense, seed=2):
+def _latency_inputs(dev, Nk, diag_x, diag_u, with_lux, with_f, fail_at=None, seed=2):
+    """Single-lane backward operands: SPD dense or positive diagonal cost
+    blocks, lux and f when asked, knot fail_at made indefinite."""
     rng = np.random.default_rng(seed)
     n, m = 4, 2
-    A = np.eye(n)[None] + 0.05 * rng.standard_normal((NL, n, n))
-    Bm = 0.3 * rng.standard_normal((NL, n, m))
-    if dense:
-        Wm = rng.standard_normal((NL + 1, n, n))
-        lxx = np.einsum("kij,klj->kil", Wm, Wm) / n + np.eye(n)
-        Vm = rng.standard_normal((NL, m, m))
-        luu = np.einsum("kij,klj->kil", Vm, Vm) / m + np.eye(m)
-        luu[NL - 30] = -1e3 * np.eye(m)
-        extra = dict(lux=0.05 * rng.standard_normal((NL, m, n)),
-                     f=0.02 * rng.standard_normal((NL, n)))
+    A = np.eye(n)[None] + 0.05 * rng.standard_normal((Nk, n, n))
+    Bm = 0.3 * rng.standard_normal((Nk, n, m))
+    if diag_x:
+        lxx = np.abs(rng.standard_normal((Nk + 1, n))) + 0.1
     else:
-        lxx = np.abs(rng.standard_normal((NL + 1, n))) + 0.1
-        luu = np.abs(rng.standard_normal((NL, m))) + 0.1
-        luu[70] = -10.0
-        extra = {}
-    lx = rng.standard_normal((NL + 1, n))
-    lu = rng.standard_normal((NL, m))
+        Wm = rng.standard_normal((Nk + 1, n, n))
+        lxx = np.einsum("kij,klj->kil", Wm, Wm) / n + np.eye(n)
+    if diag_u:
+        luu = np.abs(rng.standard_normal((Nk, m))) + 0.1
+    else:
+        Vm = rng.standard_normal((Nk, m, m))
+        luu = np.einsum("kij,klj->kil", Vm, Vm) / m + np.eye(m)
+    if fail_at is not None:
+        luu[fail_at] = -10.0 if diag_u else -1e3 * np.eye(m)
+    extra = {}
+    if with_lux:
+        extra["lux"] = 0.05 * rng.standard_normal((Nk, m, n))
+    if with_f:
+        extra["f"] = 0.02 * rng.standard_normal((Nk, n))
+    lx = rng.standard_normal((Nk + 1, n))
+    lu = rng.standard_normal((Nk, m))
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
     return [t(a) for a in (A, Bm, lxx, luu, lx, lu)], {k: t(v) for k, v in extra.items()}
 
 
-@pytest.mark.parametrize("dense", [False, True])
-def test_riccati_latency_kernel_matches_plain(dev, dense):
+@pytest.mark.parametrize("diag_x, diag_u, with_lux, with_f", LATENCY_VARIANTS)
+@pytest.mark.parametrize("Nk", LATENCY_N)
+def test_riccati_latency_kernel_matches_plain(dev, diag_x, diag_u, with_lux, with_f, Nk):
+    """Every (diag_x, diag_u, lux, f) instantiation at every chunk edge:
+    no failing knot, and one at the first, a middle and the last knot,
+    with reg 0 and > 0 (a Python number and a CUDA tensor)."""
     from altro_tpu_torch.ops import riccati_latency as rl
 
-    args, extra = _latency_inputs(dev, dense)
-    before = rl.LAUNCHES
-    gk = rl.riccati_latency(*args, 0.01, **extra)
-    gr = rl.riccati_latency_ref(*args, 0.01, **extra)
-    torch.cuda.synchronize()
-    assert rl.LAUNCHES == before + 1
-    assert float((gk.K - gr.K).abs().max()) < 1e-4
-    assert float((gk.d - gr.d).abs().max()) < 1e-4
-    assert float(((gk.P - gr.P).abs() / (1 + gr.P.abs())).max()) < 1e-5
-    assert bool(gk.ok) == bool(gr.ok) is False
-    assert int(gk.fail_index) == int(gr.fail_index)
-    with pytest.raises(TypeError):
+    for fail_at, reg in ((None, 0.0), (0, 0.01), (Nk // 2, 0.0),
+                         (Nk - 1, torch.tensor(0.01, device=dev))):
+        args, extra = _latency_inputs(dev, Nk, diag_x, diag_u, with_lux, with_f, fail_at)
+        before = rl.LAUNCHES
+        gk = rl.riccati_latency(*args, reg, **extra)
+        gr = rl.riccati_latency_ref(*args, reg, **extra)
+        torch.cuda.synchronize()
+        assert rl.LAUNCHES == before + 1
+        assert float((gk.K - gr.K).abs().max()) < 1e-4
+        assert float((gk.d - gr.d).abs().max()) < 1e-4
+        assert float(((gk.P - gr.P).abs() / (1 + gr.P.abs())).max()) < 1e-5
+        assert float(((gk.p - gr.p).abs() / (1 + gr.p.abs())).max()) < 1e-5
+        assert float(((gk.delta_V - gr.delta_V).abs() / (1 + gr.delta_V.abs())).max()) < 1e-5
+        assert bool(gk.ok) == bool(gr.ok) == (fail_at is None)
+        assert int(gk.fail_index) == int(gr.fail_index)
+        if fail_at is not None:
+            assert int(gk.fail_index) <= fail_at
+            assert float(gk.K[fail_at].abs().max()) == 0.0 == float(gk.d[fail_at].abs().max())
+
+
+def test_riccati_latency_kernel_refuses_what_it_does_not_implement(dev):
+    from altro_tpu_torch.ops import riccati_latency as rl
+
+    args, _ = _latency_inputs(dev, 20, True, True, False, False)
+    with pytest.raises(TypeError, match="float32"):
         rl.riccati_latency(*(a.double() for a in args), 0.01)
+    with pytest.raises(ValueError, match="contiguous"):
+        rl.riccati_latency(args[0].transpose(1, 2), *args[1:], 0.01)
+    with pytest.raises(ValueError, match=r"reg has shape \(2,\), expected \(1,\)"):
+        rl.riccati_latency(*args, torch.zeros(2, device=dev))
+    with pytest.raises(NotImplementedError, match="n=4, m=1"):
+        rl.riccati_latency(args[0], args[1][:, :, :1], args[2], args[3][:, :1], args[4],
+                           args[5][:, :1], 0.01)
 
 
-@pytest.mark.parametrize("P", [0, 2])
-def test_trial_rollout_kernel_matches_plain(dev, P):
+def _trial_inputs(dev, Nk, W, P, frame, seed=3):
+    """Trial-rollout operands of one lane around the Scotty path (steering
+    angle near the bound), the block step in `frame`, and (P=2) the rows
+    the solve builds from positive duals."""
     from altro_tpu_torch import mpc
     from altro_tpu_torch.io.scotty import load_scotty
-    from altro_tpu_torch.ops import trial_rollout as tr
+    from altro_tpu_torch.models.tile_steps import bicycle_tile, midpoint_tile
     from altro_tpu_torch.ops.rollout_grid import affine_constraint_stacks
 
     ref = load_scotty()
-    prob = mpc.scotty_problem(ref, N=NL, dtype=torch.float32, device=dev)
-    rng = np.random.default_rng(3)
-    xr = ref.x[: NL + 1] + 0.1 * rng.standard_normal((NL + 1, 4))
-    xr[:, 3] = 1.0 + 0.05 * rng.standard_normal(NL + 1)
-    ur = ref.u[:NL] + 0.02 * rng.standard_normal((NL, 2))
+    prob = mpc.scotty_problem(ref, N=Nk, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(seed)
+    xr = ref.x[: Nk + 1] + 0.1 * rng.standard_normal((Nk + 1, 4))
+    xr[:, 3] = 1.0 + 0.05 * rng.standard_normal(Nk + 1)
+    ur = ref.u[:Nk] + 0.02 * rng.standard_normal((Nk, 2))
     ur[:, 1] *= 0.1
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
     c = prob.cost
-    args = (t(0.5 ** np.arange(8)), t(xr[0]), t(xr), t(ur),
-            t(0.002 * rng.standard_normal((NL, 2, 4))), t(0.05 * rng.standard_normal((NL, 2))),
+    args = (t(0.5 ** np.arange(W)), t(xr[0]), t(xr), t(ur),
+            t(0.002 * rng.standard_normal((Nk, 2, 4))), t(0.05 * rng.standard_normal((Nk, 2))),
             c.Q, c.q, c.R, c.r, c.c, prob.h)
     con = None
     if P:
         ax, au, g, act = affine_constraint_stacks(prob)
         rho = torch.tensor(3.0, device=dev)
-        z = t(np.abs(rng.standard_normal((NL + 1, 2))))
+        z = t(np.abs(rng.standard_normal((Nk + 1, 2))))
         con = (rho * ax * act[..., None], rho * au * act[..., None], (z - rho * g) * act,
                1.0 / (2.0 * rho))
+    step = midpoint_tile(bicycle_tile(("cog", "rear", "front")[frame]))
+    return step, args, con
+
+
+@pytest.mark.parametrize("frame", [0, 1, 2])
+@pytest.mark.parametrize("P", [0, 2])
+@pytest.mark.parametrize("W", [1, 8, 12, 32])
+@pytest.mark.parametrize("Nk", [1, 63, 64, 65, 150])
+def test_trial_rollout_kernel_matches_plain(dev, frame, P, W, Nk):
+    """Every (frame, P) instantiation, W up to a full warp, N at the
+    64-knot chunk edges (the merit warp trails the chain warp by one
+    chunk, so the ragged last chunk and the terminal knot both count)."""
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    step, args, con = _trial_inputs(dev, Nk, W, P, frame)
     before = tr.LAUNCHES
-    pk, xk = tr.trial_rollout(prob.dynamics_tile, *args, con=con)
-    pr, xs = tr.trial_rollout_ref(prob.dynamics_tile, *args, con=con)
+    pk, xk = tr.trial_rollout(step, *args, con=con)
+    pr, xs = tr.trial_rollout_ref(step, *args, con=con)
     torch.cuda.synchronize()
     assert tr.LAUNCHES == before + 1
+    assert pk.shape == (W,) and xk.shape == (W, Nk + 1, 4)
     assert float(((pk - pr).abs() / pr.abs().clamp(min=1.0)).max()) < 1e-4
     assert float((xk - xs).abs().max()) < 1e-4 * max(1.0, float(xs.abs().max()))
+
+
+def test_trial_rollout_kernel_refuses_what_it_does_not_implement(dev):
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    step, args, con = _trial_inputs(dev, 20, 8, 2, 0)
+    with pytest.raises(NotImplementedError, match="P=1"):
+        tr.trial_rollout(step, *args, con=(con[0][:, :1], con[1][:, :1], con[2][:, :1], con[3]))
+    with pytest.raises(NotImplementedError, match="W=33"):
+        tr.trial_rollout(step, torch.ones(33, device=dev), *args[1:], con=con)
+    with pytest.raises(TypeError, match="float32"):
+        tr.trial_rollout(step, *(a.double() for a in args), con=con)
 
 
 def _dense_inputs(dev, n, m, seed=4, Bsz=BR):

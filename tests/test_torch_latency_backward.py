@@ -129,3 +129,49 @@ def test_plain_is_the_batched_plain_backward_with_one_lane():
                              torch.zeros(1, dtype=torch.float64))
     assert torch.equal(one.K, g.K[..., 0]) and torch.equal(one.P, g.P[..., 0])
     assert int(one.fail_index) == int(g.fail_index[0]) == 5
+
+
+@pytest.mark.parametrize("N", [1, 7, 64, 500])
+def test_kernel_outputs_are_views_of_one_aligned_buffer(N):
+    """The wrapper's outputs: the TVLQRGains shapes and dtypes, views of
+    ONE allocation that do not overlap, P, K, p and d 16-byte aligned (the
+    kernel's copy warps store them 16 bytes a copy)."""
+    g = rl.output_views(N, n, m, "cpu")
+    shapes = {"K": (N, m, n), "d": (N, m), "P": (N + 1, n, n), "p": (N + 1, n),
+              "delta_V": (2,), "ok": (), "fail_index": ()}
+    for name, shape in shapes.items():
+        assert tuple(getattr(g, name).shape) == shape
+    assert g.ok.dtype == torch.bool and g.fail_index.dtype == torch.int32
+    assert all(t.dtype == torch.float32 for t in g[:5])
+    base = g.P.untyped_storage().data_ptr()
+    spans = []
+    for t in g:
+        assert t.untyped_storage().data_ptr() == base and t.is_contiguous()
+        spans.append((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()))
+    spans.sort()
+    assert all(a_end <= b_start for (_, a_end), (b_start, _) in zip(spans, spans[1:]))
+    for t in (g.P, g.K, g.p, g.d):
+        assert (t.data_ptr() - base) % 16 == 0
+    # the flags do not alias the floats: writing them leaves d and dV as set
+    g.d.zero_()
+    g.delta_V.zero_()
+    g.fail_index.fill_(-1)
+    g.ok.fill_(True)
+    assert int(g.fail_index) == -1 and bool(g.ok)
+    assert float(g.d.abs().sum()) == 0.0 == float(g.delta_V.abs().sum())
+
+
+def test_operand_checks_name_the_operand():
+    """_build's shared check: one expression for good operands, a raise
+    naming the first bad one (the wrappers check reg / rhoi the same way,
+    as a one-element operand the kernel reads from the device)."""
+    from altro_tpu_torch.ops import _build
+
+    A = torch.zeros((3, n, n))
+    with pytest.raises(ValueError, match="riccati_latency kernel: A is not on a CUDA device"):
+        _build.check_operands("riccati_latency", [("A", A, (3, n, n))])
+    with pytest.raises(TypeError, match="lx must be float32"):
+        _build.check_operands("riccati_latency", [("lx", A.double(), (3, n, n))])
+    with pytest.raises(TypeError, match="reg must be float32"):
+        _build.check_operands("riccati_latency", [("reg", torch.zeros(1, dtype=torch.int32), (1,))])
+    assert not hasattr(_build, "scalar_operand")  # one contract: scalars by device pointer

@@ -20,6 +20,7 @@ falls back to its best decrease.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -129,20 +130,27 @@ def test_solve_refuses_unported_options():
 
 
 @pytest.mark.parametrize("case,word", [("no_block_step", "no block step"),
-                                       ("non_affine_group", "steering bound.*not an affine")])
+                                       ("non_affine_group", "steering bound.*not an affine"),
+                                       ("four_rows", r"4 constraint rows \(the kernel takes")])
 def test_solve_refuses_ineligible_trial_grid(case, word):
-    """pallas_rollout needs the block step and affine NEGATIVE_ORTHANT
-    groups on every device: the refusal names what is missing, and
-    pallas_rollout=False runs the problem's own grid instead."""
+    """pallas_rollout needs the block step, affine NEGATIVE_ORTHANT groups
+    and a row count the trial-rollout kernel is instantiated for, on every
+    device: `single_lane_refusal` names what is missing before the solve
+    starts, and pallas_rollout=False runs the problem's own grid instead."""
     ref = load_scotty()
     prob = mpc.scotty_problem(ref, N=6, dtype=torch.float64, device="cpu")
+    steering = prob.constraints[0]
     if case == "no_block_step":
         prob = dataclasses.replace(prob, dynamics_tile=None)
-    else:
+    elif case == "non_affine_group":
         prob = dataclasses.replace(
-            prob, constraints=(dataclasses.replace(prob.constraints[0], affine=False),))
+            prob, constraints=(dataclasses.replace(steering, affine=False),))
+    else:  # the steering bound twice: two affine groups, four rows
+        prob = dataclasses.replace(
+            prob, constraints=(steering, dataclasses.replace(steering, label="again")))
     st = mpc.long_horizon_state(prob, ref)
     opts = T_OPTS.replace(iterations_max=2)
+    assert re.search("pallas_rollout.*" + word, solver.single_lane_refusal(prob, opts))
     with pytest.raises(NotImplementedError, match="pallas_rollout.*" + word):
         solver.solve(prob, st, opts)
     _, stats = solver.solve(prob, st, opts.replace(pallas_rollout=False))

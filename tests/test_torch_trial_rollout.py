@@ -167,3 +167,33 @@ def test_solver_rows_reproduce_plain_al_merit():
                                              rho, t("alphas"), prob.x0)
     np.testing.assert_allclose(phi.numpy(), phi_p.numpy(), rtol=1e-10)
     np.testing.assert_allclose(xs.numpy(), xs_p.numpy(), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("W, N_", [(1, 1), (8, 500), (32, 64)])
+def test_kernel_outputs_are_views_of_one_aligned_buffer(W, N_):
+    """phis [W] and xstack [W, N+1, n] share one float32 allocation, do not
+    overlap, and xstack starts 16-byte aligned (the merit warp stores a
+    state 16 bytes at a time)."""
+    phi, xs = tr.output_views(W, N_, n, "cpu")
+    assert phi.shape == (W,) and xs.shape == (W, N_ + 1, n)
+    assert phi.dtype == xs.dtype == torch.float32 and xs.is_contiguous()
+    assert phi.untyped_storage().data_ptr() == xs.untyped_storage().data_ptr()
+    assert (xs.data_ptr() - xs.untyped_storage().data_ptr()) % 16 == 0
+    assert phi.data_ptr() >= xs.data_ptr() + xs.numel() * 4
+    xs.fill_(1.0)
+    phi.zero_()
+    assert float(xs.sum()) == xs.numel()
+
+
+@pytest.mark.parametrize("frame", ["cog", "rear", "front"])
+@pytest.mark.parametrize("W, P, why", [(1, 0, None), (32, 2, None), (33, 0, "W=33 > 32"),
+                                       (8, 1, "P=1 constraint rows"),
+                                       (8, 3, "P=3 constraint rows")])
+def test_kernel_instantiations_cover_the_eligible_grids(frame, W, P, why):
+    """`ineligibility` admits exactly what csrc/trial_rollout.cu has an
+    instantiation for: every bicycle frame, W <= 32, P in (0, 2); the
+    wrapper raises its reason on the card."""
+    step = midpoint_tile(bicycle_tile(frame))
+    got = tr.ineligibility(step, n, m, W, P)
+    assert got is None if why is None else why in got
+    assert tr.KERNEL_P == (0, 2) and tr.KERNEL_MAX_W == 32
