@@ -1,25 +1,34 @@
-// Batched dense Riccati backward pass for Hopper (sm_90a): a tile of lanes
-// per block, a group of threads per lane, and two warps that copy.
+// Batched Riccati backward pass for Hopper (sm_90a): a tile of lanes per
+// block, a group of threads per lane, and two warps that copy.
 //
-// Replaces: altro_tpu/ops/pallas_riccati.py::riccati_backward_pallas (the
-// Pallas `_kernel` run by `_run` with diag_cost=False, with_f, with_lux),
-// the batch-fused backward pass of the vmapped solve with
-// pallas_backward=True. Here the operands are lane-minor ([N, entry..., B]);
-// the batch-major wrapper transposes at its edges as `_run` did.
+// Replaces both entries of the one Pallas `_kernel` of
+// altro_tpu/ops/pallas_riccati.py, on lane-minor operands ([N, entry...,
+// B]):
+//   * riccati_backward_pallas (run by `_run`, pallas_call at :387): dense
+//     lxx/luu, f and lux optional, the batch-fused backward pass of the
+//     vmapped solve with pallas_backward=True (the batch-major wrapper
+//     transposes at its edges as `_run` did);
+//   * riccati_backward_pallas_tiled (run by `_run_tiled`, pallas_call at
+//     :521): diagonal or dense lxx/luu (DIAG streams n and m entries a knot
+//     as `_run_tiled`'s knot_spec(n), knot_spec(m)), lux optional, f zero,
+//     the backward pass of the natively batched solve.
 //
 // What bounds it on this card: per lane and knot it moves
 // (n*n + n*m + n + n*n + m*m + m*n + n + m) * 4 bytes in and
 // (m*n + m + n*n + n) * 4 out, about 2.5 KB at n=12, m=4: 78 MB at
-// B=1024, N=30, or 0.023 ms at 3.35 TB/s. The work is about 2 n^3 + 4 n^2 m
-// multiply-adds per knot, 0.25 GFLOP in all, far below the f32 peak. Each
-// lane is a chain of N dependent knots: with 1024 lanes the card holds
-// about one warp per scheduler, so what bounds a knot is the latency of
-// its dependent steps and the instructions one warp issues, not bytes.
+// B=1024, N=30, or 0.023 ms at 3.35 TB/s; the diagonal form at (4, 2)
+// moves 36 floats in and 30 out a knot, 16 MB at B=2048, N=30, 0.0049 ms.
+// The work is about 2 n^3 + 4 n^2 m multiply-adds per knot, far below the
+// f32 peak. Each lane is a chain of N dependent knots: with 1024-2048
+// lanes the card holds about one warp per scheduler, so what bounds a knot
+// is the latency of its dependent steps and the instructions one warp
+// issues, not bytes.
 //
 // What the design does about it: a block holds LANES lanes (threadIdx.x,
 // the fastest axis: 8 at (12, 4), 16 at (4, 2), so the compute threads
 // fill whole warps) and G = n + m compute threads per lane (threadIdx.y =
-// r < G), 128 blocks of 128 compute threads at B=1024, (12, 4). Thread t
+// r < G), 128 blocks of 128 compute threads at B=1024, (12, 4), and 128
+// blocks of 96 at B=2048, (4, 2). Thread t
 // owns a strided tile of M = [A B]' P' and of H = l_hess + M [A B]: rows
 // t / GC + GR i, columns t % GC + GC j, so the GC threads of a warp that
 // share rows read one row value (a broadcast) and GC distinct columns (GC
@@ -39,9 +48,12 @@
 // second buffer with cp.async and store knot k+1's K, d, P and p from
 // shared memory, 16 bytes (4 lanes of one entry) a copy where B allows;
 // each copy's source, destination and knot stride are resolved once. H and
-// Qg overwrite the buffer's l_hess and l_grad in place. Lanes past B (a
-// ragged last tile) compute copies of lanes that exist and store nothing;
-// every barrier is reached by every thread it counts.
+// Qg overwrite the buffer's l_hess and l_grad in place; the diagonal form
+// stages only the diagonal slots of l_hess and reads no other slot of it
+// (an off-diagonal entry of H starts from 0 at compile time), so the H
+// left there two knots before is never read. Lanes past B (a ragged last
+// tile) compute copies of lanes that exist and store nothing; every
+// barrier is reached by every thread it counts.
 //
 // Semantics carried over exactly from the Pallas kernel:
 //   * Qx = lx + A'(P'f + p'), Qu = lu + B'(P'f + p'), Qux = lux + B'P'A;
@@ -52,7 +64,8 @@
 //   * fail_index is the smallest failing knot, N when none fails;
 //   * P = Qxx - Qux'K - reg K'K (upper triangle, mirrored),
 //     p = Qx + Qux'd + reg K'd, dV = (sum d.Qu, -sum (d.Qu + reg d.d)/2);
-//   * the terminal rows P_N = lxx_N, p_N = lx_N.
+//   * the terminal rows P_N = lxx_N (diag(lxx_N) in the diagonal form),
+//     p_N = lx_N.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -127,8 +140,9 @@ constexpr int BAR_ALL = 0, BAR_COMPUTE = 1, BAR_CARRY_READ = 2;
 
 // Entry e (of Layout::ENTRIES, in the order A, B, f, lxx, lux, luu, lx, lu)
 // of a knot: its array at entry e, its entries per knot and its offset in
-// a buffer.
-template <int NS, int NI, bool WITH_F, bool WITH_LUX>
+// a buffer. With DIAG, lxx and luu hold their diagonals (n and m entries),
+// staged to the diagonal slots of l_hess.
+template <int NS, int NI, bool WITH_F, bool WITH_LUX, bool DIAG>
 __device__ __forceinline__ bool in_entry(const Args& a, int e, const float*& src, int& per_knot,
                                          int& off) {
   using Ly = Layout<NS, NI>;
@@ -146,9 +160,11 @@ __device__ __forceinline__ bool in_entry(const Args& a, int e, const float*& src
   if (take(a.A, NS * NS, true)) off = Ly::AB + (e / NS) * NT + e % NS;
   else if (take(a.Bm, NS * NI, true)) off = Ly::AB + (e / NI) * NT + NS + e % NI;
   else if (take(a.f, NS, WITH_F)) off = Ly::F + e;
-  else if (take(a.lxx, NS * NS, true)) off = Ly::LH + (e / NS) * HS + e % NS;
+  else if (take(a.lxx, DIAG ? NS : NS * NS, true))
+    off = Ly::LH + (DIAG ? e * (HS + 1) : (e / NS) * HS + e % NS);
   else if (take(a.lux, NI * NS, WITH_LUX)) off = Ly::LH + (NS + e / NS) * HS + e % NS;
-  else if (take(a.luu, NI * NI, true)) off = Ly::LH + (NS + e / NI) * HS + NS + e % NI;
+  else if (take(a.luu, DIAG ? NI : NI * NI, true))
+    off = Ly::LH + (DIAG ? (NS + e) * (HS + 1) : (NS + e / NI) * HS + NS + e % NI);
   else if (take(a.lx, NS, true)) off = Ly::LG + e;
   else if (take(a.lu, NI, true)) off = Ly::LG + NS + e;
   else return false;
@@ -182,7 +198,7 @@ __device__ __forceinline__ bool out_entry(const Args& a, int e, float*& dst, int
 // knot's outputs out. With a.vec, 16-byte copies resolved once; otherwise
 // (a B that is not a multiple of 4) one float a copy, a lane past B
 // reading lane B-1 and storing nothing.
-template <int NS, int NI, bool WITH_F, bool WITH_LUX>
+template <int NS, int NI, bool WITH_F, bool WITH_LUX, bool DIAG>
 __device__ void copy_warps(float* smem, const Args& a, int t) {
   using Ly = Layout<NS, NI>;
   const int N = a.N, b0 = blockIdx.x * Ly::LANES;
@@ -196,7 +212,7 @@ __device__ void copy_warps(float* smem, const Args& a, int t) {
     const int c = t + Ly::COPY * q, l = 4 * (c % (Ly::LANES / 4));
     in_off[q] = -1;
     if (a.vec &&
-        in_entry<NS, NI, WITH_F, WITH_LUX>(a, c / (Ly::LANES / 4), in_src[q], in_knot[q], in_off[q])) {
+        in_entry<NS, NI, WITH_F, WITH_LUX, DIAG>(a, c / (Ly::LANES / 4), in_src[q], in_knot[q], in_off[q])) {
       in_src[q] += (b0 + l < a.Bsz) ? b0 + l : b0;
       in_off[q] = in_off[q] * Ly::LANES + l;
     }
@@ -225,7 +241,7 @@ __device__ void copy_warps(float* smem, const Args& a, int t) {
         const float* src;
         int per_knot, off;
         const int l = c % Ly::LANES;
-        if (in_entry<NS, NI, WITH_F, WITH_LUX>(a, c / Ly::LANES, src, per_knot, off))
+        if (in_entry<NS, NI, WITH_F, WITH_LUX, DIAG>(a, c / Ly::LANES, src, per_knot, off))
           __pipeline_memcpy_async(buf + off * Ly::LANES + l,
                                   src + kS * per_knot + min(b0 + l, a.Bsz - 1), sizeof(float));
       }
@@ -265,14 +281,14 @@ __device__ void copy_warps(float* smem, const Args& a, int t) {
 
 // One block per SM is all a launch fills (128 blocks at B=1024); saying so
 // lets ptxas keep every variant free of spills.
-template <int NS, int NI, bool WITH_F, bool WITH_LUX>
+template <int NS, int NI, bool WITH_F, bool WITH_LUX, bool DIAG>
 __global__ void __launch_bounds__(Layout<NS, NI>::THREADS, 1) riccati_dense_kernel(const Args a) {
   using Ly = Layout<NS, NI>;
   constexpr int NT = Ly::NT, G = Ly::G, PS = Ly::PS, HS = Ly::HS, KS = Ly::KS;
   extern __shared__ float smem[];
   const int lane = threadIdx.x;
   const int r = threadIdx.y;
-  if (r >= G) return copy_warps<NS, NI, WITH_F, WITH_LUX>(smem, a, (r - G) * Ly::LANES + lane);
+  if (r >= G) return copy_warps<NS, NI, WITH_F, WITH_LUX, DIAG>(smem, a, (r - G) * Ly::LANES + lane);
 
   const int N = a.N;
   const long S = a.Bsz;
@@ -284,8 +300,11 @@ __global__ void __launch_bounds__(Layout<NS, NI>::THREADS, 1) riccati_dense_kern
   float* const buf1 = buf0 + Ly::BUF * Ly::LANES;
 
   for (int e = r; e < NS * NS; e += G) {
-    const float v = a.lxx[((long)N * NS * NS + e) * S + bl];
-    AT(C, Ly::P + (e / NS) * PS + e % NS) = v;
+    const int i = e / NS, j = e % NS;
+    const float v = !DIAG    ? a.lxx[((long)N * NS * NS + e) * S + bl]
+                    : i == j ? a.lxx[((long)N * NS + i) * S + bl]
+                             : 0.0f;
+    AT(C, Ly::P + i * PS + j) = v;
     if (valid) a.P[((long)N * NS * NS + e) * S + b] = v;
   }
   for (int e = r; e < NS; e += G) {
@@ -363,7 +382,9 @@ __global__ void __launch_bounds__(Layout<NS, NI>::THREADS, 1) riccati_dense_kern
 #pragma unroll
         for (int j = 0; j < HC; ++j) {
           const int row = tr + Ly::GR * i, col = tc + Ly::GC * j;
-          acc[i][j] = (row >= NS && col < NS && !WITH_LUX) ? 0.0f : AT(cur, Ly::LH + row * HS + col);
+          // staged: lux in the cross block, the diagonal alone in the diagonal form
+          const bool staged = (row >= NS && col < NS) ? WITH_LUX : (!DIAG || row == col);
+          acc[i][j] = staged ? AT(cur, Ly::LH + row * HS + col) : 0.0f;
         }
 #pragma unroll
       for (int l = 0; l < NS; ++l) {
@@ -488,10 +509,10 @@ __global__ void __launch_bounds__(Layout<NS, NI>::THREADS, 1) riccati_dense_kern
 
 #undef AT
 
-template <int NS, int NI, bool WITH_F, bool WITH_LUX>
+template <int NS, int NI, bool WITH_F, bool WITH_LUX, bool DIAG>
 int launch_one(const Args& a, cudaStream_t s) {
   using Ly = Layout<NS, NI>;
-  auto kern = riccati_dense_kernel<NS, NI, WITH_F, WITH_LUX>;
+  auto kern = riccati_dense_kernel<NS, NI, WITH_F, WITH_LUX, DIAG>;
   const size_t bytes = (size_t)Ly::FLOATS * Ly::LANES * sizeof(float);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -504,22 +525,31 @@ int launch_one(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// The diagonal form is instantiated without f (the batched solve's
+// affine term is zero, as `_run_tiled` has it).
 template <int NS, int NI>
-int launch(const Args& a, cudaStream_t s) {
-  if (a.f && a.lux) return launch_one<NS, NI, true, true>(a, s);
-  if (a.f) return launch_one<NS, NI, true, false>(a, s);
-  if (a.lux) return launch_one<NS, NI, false, true>(a, s);
-  return launch_one<NS, NI, false, false>(a, s);
+int launch(const Args& a, bool diag, cudaStream_t s) {
+  if (diag) {
+    if (a.f) return (int)cudaErrorInvalidValue;
+    if (a.lux) return launch_one<NS, NI, false, true, true>(a, s);
+    return launch_one<NS, NI, false, false, true>(a, s);
+  }
+  if (a.f && a.lux) return launch_one<NS, NI, true, true, false>(a, s);
+  if (a.f) return launch_one<NS, NI, true, false, false>(a, s);
+  if (a.lux) return launch_one<NS, NI, false, true, false>(a, s);
+  return launch_one<NS, NI, false, false, false>(a, s);
 }
 
 }  // namespace
 
-// f and lux may be null (a zero affine term, a zero cross Hessian).
+// f and lux may be null (a zero affine term, a zero cross Hessian). diag:
+// lxx [N+1, n, B] and luu [N, m, B] hold diagonals (f must be null), else
+// lxx [N+1, n, n, B] and luu [N, m, m, B].
 extern "C" int riccati_dense_f32(
     const float* A, const float* Bm, const float* f, const float* lxx, const float* luu,
     const float* lux, const float* lx, const float* lu, const float* reg,
     float* K, float* d, float* P, float* p, float* dV, bool* ok, int* fail,
-    int N, int n, int m, int Bsz, void* stream) {
+    int N, int n, int m, int Bsz, int diag, void* stream) {
   if (N <= 0 || Bsz <= 0) return (int)cudaErrorInvalidValue;
   bool vec = Bsz % 4 == 0;
   for (const float* t : {A, Bm, f, lxx, luu, lux, lx, lu, (const float*)K, (const float*)d,
@@ -527,7 +557,7 @@ extern "C" int riccati_dense_f32(
     vec = vec && (size_t)t % 16 == 0;
   const Args a{A, Bm, f, lxx, luu, lux, lx, lu, reg, K, d, P, p, dV, ok, fail, N, Bsz, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n == 4 && m == 2) return launch<4, 2>(a, s);
-  if (n == 12 && m == 4) return launch<12, 4>(a, s);
+  if (n == 4 && m == 2) return launch<4, 2>(a, diag != 0, s);
+  if (n == 12 && m == 4) return launch<12, 4>(a, diag != 0, s);
   return (int)cudaErrorInvalidValue;
 }

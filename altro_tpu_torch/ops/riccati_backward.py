@@ -1,10 +1,14 @@
 """Batched Riccati backward pass: the CUDA kernel and its plain twin.
 
 Counterpart: altro_tpu/ops/pallas_riccati.py::riccati_backward_pallas_tiled
-(the Pallas kernel `_kernel` run by `_run_tiled`). The TPU kernel held
-every matrix entry as an (8, 128) tile of 1024 lanes; the port's layout
-is lane-minor, `[N(+1), entry..., B]`, and csrc/riccati_backward.cu runs
-one thread per lane with the cost-to-go carry in registers.
+(the Pallas kernel `_kernel` run by `_run_tiled`, pallas_call at :521).
+The TPU kernel held every matrix entry as an (8, 128) tile of 1024 lanes;
+the port's layout is lane-minor, `[N(+1), entry..., B]`. JAX ran one
+Pallas `_kernel` for this entry and for the batch-major one at :387, and
+so does the port: `launch_kernel` launches csrc/riccati_dense.cu (blocks
+of 16 lanes at (4, 2), 8 at (12, 4), n + m compute threads per lane and
+two copy warps) for both `riccati_backward` here and
+ops/riccati_dense.py, with diagonal lxx/luu streamed as diagonals.
 
 Both versions compute, per lane, for k = N-1 .. 0:
 
@@ -29,13 +33,15 @@ import torch
 
 from altro_tpu_torch.ops import _build
 
-__all__ = ["Gains", "riccati_backward", "riccati_backward_ref", "LAUNCHES"]
+__all__ = ["Gains", "KERNEL_SHAPES", "LAUNCHES", "launch_kernel", "riccati_backward",
+           "riccati_backward_ref"]
 
-# Count of kernel launches (plain integer; the CPU path never adds to it).
+# Count of this wrapper's kernel launches (plain integer; the CPU path
+# never adds to it).
 LAUNCHES = 0
 
-# (n, m) pairs the CUDA kernel is instantiated for.
-KERNEL_SHAPES = ((4, 2),)
+# (n, m) pairs csrc/riccati_dense.cu is instantiated for.
+KERNEL_SHAPES = ((4, 2), (12, 4))
 
 
 class Gains(NamedTuple):
@@ -150,15 +156,57 @@ def riccati_backward_ref(A, B, lxx, luu, lx, lu, reg, lux=None, f=None) -> Gains
                  fail == N, fail)
 
 
+def launch_kernel(kernel, A, B, f, lxx, luu, lux, lx, lu, reg, diag) -> Gains:
+    """One launch of csrc/riccati_dense.cu on lane-minor CUDA operands.
+
+    A [N, n, n, B], B [N, n, m, B], f [N, n, B] or None (zero); with
+    `diag` lxx [N+1, n, B] and luu [N, m, B] hold diagonals (f must be
+    None), else lxx [N+1, n, n, B] and luu [N, m, m, B]; lux [N, m, n, B]
+    or None (zero); lx [N+1, n, B], lu [N, m, B]; reg a scalar or [B].
+    Raises, naming `kernel`, on what the kernel does not take: (n, m)
+    outside KERNEL_SHAPES, an operand that is not a contiguous float32
+    CUDA tensor of its shape. The caller counts the launch.
+    """
+    N, n, m, Bsz = A.shape[0], A.shape[1], B.shape[2], A.shape[-1]
+    if (n, m) not in KERNEL_SHAPES:
+        raise NotImplementedError(f"{kernel} kernel: no instantiation for n={n}, m={m}")
+    if not torch.is_tensor(reg) or reg.ndim == 0:
+        reg = torch.full((Bsz,), float(reg), dtype=A.dtype, device=A.device)
+    cost_x, cost_u = ((N + 1, n, Bsz), (N, m, Bsz)) if diag else \
+        ((N + 1, n, n, Bsz), (N, m, m, Bsz))
+    shapes = {"A": (A, (N, n, n, Bsz)), "B": (B, (N, n, m, Bsz)), "f": (f, (N, n, Bsz)),
+              "lxx": (lxx, cost_x), "luu": (luu, cost_u), "lux": (lux, (N, m, n, Bsz)),
+              "lx": (lx, (N + 1, n, Bsz)), "lu": (lu, (N, m, Bsz)), "reg": (reg, (Bsz,))}
+    _build.check_operands(kernel, [(name, t, shape) for name, (t, shape) in shapes.items()
+                                   if t is not None])
+
+    lib = _build.load()
+    kw = dict(dtype=A.dtype, device=A.device)
+    K = torch.empty((N, m, n, Bsz), **kw)
+    d = torch.empty((N, m, Bsz), **kw)
+    P = torch.empty((N + 1, n, n, Bsz), **kw)
+    p = torch.empty((N + 1, n, Bsz), **kw)
+    dV = torch.empty((2, Bsz), **kw)
+    ok = torch.empty((Bsz,), dtype=torch.bool, device=A.device)
+    fail = torch.empty((Bsz,), dtype=torch.int32, device=A.device)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    err = lib.riccati_dense_f32(
+        *(None if t is None else t.data_ptr() for t, _ in shapes.values()),
+        K.data_ptr(), d.data_ptr(), P.data_ptr(), p.data_ptr(), dV.data_ptr(),
+        ok.data_ptr(), fail.data_ptr(), N, n, m, Bsz, int(diag), stream)
+    _build.check(err, "riccati_dense_f32")
+    return Gains(K, d, P, p, dV, ok, fail)
+
+
 def riccati_backward(A, B, lxx, luu, lx, lu, reg, lux=None, diag_cost=False,
                      symmetrize=False) -> Gains:
-    """Batched Riccati backward pass on lane-minor operands.
+    """Batched Riccati backward pass on lane-minor operands (f = 0).
 
     A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/riccati_backward.cu or raises. The kernel takes the main path's
-    form: diagonal lxx [N+1, n, B] and luu [N, m, B], no cross Hessian,
-    float32, (n, m) in KERNEL_SHAPES. `symmetrize` is refused: P is
-    symmetric by construction (upper triangle mirrored).
+    csrc/riccati_dense.cu (`launch_kernel`) or raises. diag_cost: lxx
+    [N+1, n, B] and luu [N, m, B] are diagonals, else dense; lux is the
+    cross Hessian or None. `symmetrize` is refused: P is symmetric by
+    construction (upper triangle mirrored).
     """
     global LAUNCHES
     if symmetrize:
@@ -166,35 +214,6 @@ def riccati_backward(A, B, lxx, luu, lx, lu, reg, lux=None, diag_cost=False,
                          "symmetrize_ctg is not supported")
     if not A.is_cuda:
         return riccati_backward_ref(A, B, lxx, luu, lx, lu, reg, lux=lux)
-    if not diag_cost or lux is not None:
-        raise NotImplementedError(
-            "riccati_backward kernel: only the diagonal-cost form without a cross "
-            "Hessian (diag_cost=True, lux=None) is implemented")
-    N, n, m, Bsz = A.shape[0], A.shape[1], B.shape[2], A.shape[-1]
-    if (n, m) not in KERNEL_SHAPES:
-        raise NotImplementedError(
-            f"riccati_backward kernel: no instantiation for n={n}, m={m}")
-    for name, t, shape in (("A", A, (N, n, n, Bsz)), ("B", B, (N, n, m, Bsz)),
-                           ("lxx", lxx, (N + 1, n, Bsz)), ("luu", luu, (N, m, Bsz)),
-                           ("lx", lx, (N + 1, n, Bsz)), ("lu", lu, (N, m, Bsz)),
-                           ("reg", reg, (Bsz,))):
-        _build.check_operand("riccati_backward", name, t, shape)
-
-    lib = _build.load()
-    K = torch.empty((N, m, n, Bsz), dtype=A.dtype, device=A.device)
-    d = torch.empty((N, m, Bsz), dtype=A.dtype, device=A.device)
-    P = torch.empty((N + 1, n, n, Bsz), dtype=A.dtype, device=A.device)
-    p = torch.empty((N + 1, n, Bsz), dtype=A.dtype, device=A.device)
-    dV = torch.empty((2, Bsz), dtype=A.dtype, device=A.device)
-    ok = torch.empty((Bsz,), dtype=torch.bool, device=A.device)
-    fail = torch.empty((Bsz,), dtype=torch.int32, device=A.device)
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = lib.riccati_backward_diag_f32(
-        A.data_ptr(), B.data_ptr(), lxx.data_ptr(), luu.data_ptr(),
-        lx.data_ptr(), lu.data_ptr(), reg.data_ptr(),
-        K.data_ptr(), d.data_ptr(), P.data_ptr(), p.data_ptr(),
-        dV.data_ptr(), ok.data_ptr(), fail.data_ptr(),
-        N, n, m, Bsz, stream)
-    _build.check(err, "riccati_backward_diag_f32")
+    g = launch_kernel("riccati_backward", A, B, None, lxx, luu, lux, lx, lu, reg, diag_cost)
     LAUNCHES += 1
-    return Gains(K, d, P, p, dV, ok, fail)
+    return g

@@ -8,7 +8,9 @@ csrc/riccati_dense.cu runs blocks of 8 lanes (16 at (4, 2)) with n + m
 compute threads per lane, each a tile of [A B]'P' and of the Q blocks,
 and two warps that copy operands in and gains out, on lane-minor operands,
 `[N(+1), entry..., B]`, with dense lxx/luu, the cross block lux and the
-affine term f, both optional, and a per-lane reg. The plain version is
+affine term f, both optional, and a per-lane reg. The same kernel serves
+ops/riccati_backward.py (the :521 entry), whose `launch_kernel` both
+wrappers call; each counts its own launches. The plain version is
 ops/riccati_backward.py::riccati_backward_ref, the same recursion (see
 that module's docstring for the equations and the failure contract).
 
@@ -24,18 +26,20 @@ from __future__ import annotations
 
 import torch
 
-from altro_tpu_torch.ops import _build
-from altro_tpu_torch.ops.riccati_backward import Gains, riccati_backward_ref
+from altro_tpu_torch.ops.riccati_backward import (
+    KERNEL_SHAPES,
+    Gains,
+    launch_kernel,
+    riccati_backward_ref,
+)
 from altro_tpu_torch.tvlqr import TVLQRGains
 
 __all__ = ["LAUNCHES", "KERNEL_SHAPES", "riccati_backward_dense",
            "riccati_backward_batch_major"]
 
-# Count of kernel launches (plain integer; the CPU path never adds to it).
+# Count of this wrapper's kernel launches (plain integer; the CPU path
+# never adds to it).
 LAUNCHES = 0
-
-# (n, m) pairs the CUDA kernel is instantiated for.
-KERNEL_SHAPES = ((4, 2), (12, 4))
 
 
 def riccati_backward_dense(A, B, f, lxx, luu, lux, lx, lu, reg) -> Gains:
@@ -50,36 +54,9 @@ def riccati_backward_dense(A, B, f, lxx, luu, lux, lx, lu, reg) -> Gains:
     global LAUNCHES
     if not A.is_cuda:
         return riccati_backward_ref(A, B, lxx, luu, lx, lu, reg, lux=lux, f=f)
-    N, n, m, Bsz = A.shape[0], A.shape[1], B.shape[2], A.shape[-1]
-    if (n, m) not in KERNEL_SHAPES:
-        raise NotImplementedError(f"riccati_dense kernel: no instantiation for n={n}, m={m}")
-    if not torch.is_tensor(reg) or reg.ndim == 0:
-        reg = torch.full((Bsz,), float(reg), dtype=A.dtype, device=A.device)
-    shapes = {"A": (A, (N, n, n, Bsz)), "B": (B, (N, n, m, Bsz)), "f": (f, (N, n, Bsz)),
-              "lxx": (lxx, (N + 1, n, n, Bsz)), "luu": (luu, (N, m, m, Bsz)),
-              "lux": (lux, (N, m, n, Bsz)), "lx": (lx, (N + 1, n, Bsz)),
-              "lu": (lu, (N, m, Bsz)), "reg": (reg, (Bsz,))}
-    for name, (t, shape) in shapes.items():
-        if t is not None:
-            _build.check_operand("riccati_dense", name, t, shape)
-
-    lib = _build.load()
-    kw = dict(dtype=A.dtype, device=A.device)
-    K = torch.empty((N, m, n, Bsz), **kw)
-    d = torch.empty((N, m, Bsz), **kw)
-    P = torch.empty((N + 1, n, n, Bsz), **kw)
-    p = torch.empty((N + 1, n, Bsz), **kw)
-    dV = torch.empty((2, Bsz), **kw)
-    ok = torch.empty((Bsz,), dtype=torch.bool, device=A.device)
-    fail = torch.empty((Bsz,), dtype=torch.int32, device=A.device)
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = lib.riccati_dense_f32(
-        *(None if t is None else t.data_ptr() for t, _ in shapes.values()),
-        K.data_ptr(), d.data_ptr(), P.data_ptr(), p.data_ptr(), dV.data_ptr(),
-        ok.data_ptr(), fail.data_ptr(), N, n, m, Bsz, stream)
-    _build.check(err, "riccati_dense_f32")
+    g = launch_kernel("riccati_dense", A, B, f, lxx, luu, lux, lx, lu, reg, False)
     LAUNCHES += 1
-    return Gains(K, d, P, p, dV, ok, fail)
+    return g
 
 
 def riccati_backward_batch_major(A, B, f, lxx, luu, lux, lx, lu, reg=0.0) -> TVLQRGains:

@@ -27,7 +27,7 @@ def batch_init_state(problem: Problem, batch: int) -> SolverState:
     return s.map(lambda a: a.expand((batch,) + a.shape).contiguous())
 
 
-def _check(opts: SolverOptions) -> None:
+def _check(who: str, opts: SolverOptions) -> None:
     if opts.pallas_backward and (opts.parallel_riccati or opts.symmetrize_ctg):
         raise ValueError(
             "pallas_backward is mutually exclusive with parallel_riccati and "
@@ -35,7 +35,7 @@ def _check(opts: SolverOptions) -> None:
             "recursion); disable one of them")
     why = grid_search_refusal(opts)
     if why is not None:
-        raise NotImplementedError(f"vmap_solve: {why}")
+        raise NotImplementedError(f"{who}: {why}")
 
 
 def solve_lanes(problem: Problem, state: SolverState, opts: SolverOptions = SolverOptions(),
@@ -44,7 +44,8 @@ def solve_lanes(problem: Problem, state: SolverState, opts: SolverOptions = Solv
     lane-minor; returns (state lane-minor, stats [B]). Closed loops call
     this to keep their lanes lane-minor across ticks. layer_seconds: see
     `tile_solver.lane_loop`."""
-    _check(opts)
+    _check("solve_lanes", opts)
+    tsv.refuse_on_card("solve_lanes", problem, opts, vmapped=True)
     return tsv.lane_loop(problem, state, opts, vmapped=True, layer_seconds=layer_seconds)
 
 
@@ -60,11 +61,14 @@ def vmap_solve(problem: Problem, opts: SolverOptions = SolverOptions()):
     read, since it selects the single-lane trial-rollout kernel, which
     JAX's vmapped solve never runs either (altro_tpu/ops/pallas_rollout.py
     falls back to the scan under vmap). Options the port does not
-    implement raise NotImplementedError naming the option.
+    implement raise NotImplementedError naming the option; on CUDA a
+    problem the dense kernel cannot take raises with its reason
+    (`tile_solver.kernel_refusal`) when called, before anything runs.
     """
-    _check(opts)
+    _check("vmap_solve", opts)
 
     def run(x0, state: SolverState):
+        tsv.refuse_on_card("vmap_solve", dataclasses.replace(problem, x0=x0), opts, vmapped=True)
         prob = dataclasses.replace(problem, x0=tsv.batch_to_lanes(x0))
         st, stats = tsv.lane_loop(prob, tsv.state_to_lanes(state), opts, vmapped=True)
         return tsv.state_from_lanes(st), stats

@@ -48,8 +48,12 @@ def solve_tiled_with_rescue(
 
     Same layout contract as `solve_tiled`. Rescued lanes take the rescue's
     state and stats, with iterations summed over both tiers. When `info`
-    is a dict, info["rescued"] records whether the rescue ran.
+    is a dict, info["rescued"] records whether the rescue ran. On CUDA
+    tensors both tiers' options are checked against the kernels' reach
+    (`tile_solver.kernel_refusal`) before either tier runs.
     """
+    for o in (opts, opts_rescue):
+        tsv.refuse_on_card("solve_tiled_with_rescue", problem, o, vmapped=False)
     st, stats = tsv.solve_tiled(problem, state, opts)
     failed = stats.status != 0
     rescued = bool(torch.any(failed))

@@ -19,6 +19,9 @@ The iteration itself is `lane_loop`, shared with the vmapped solve of
 parallel/batch.py (`vmap_solve`), which adds what `jax.vmap(solve)` has
 and `solve_tiled` lacks: dense expansions, the dense backward kernel
 (`pallas_backward`) and the strong-Wolfe test on the grid's first trial.
+On CUDA tensors the loop runs kernels or is refused before it starts:
+`kernel_refusal` names every kernel it would launch that cannot take the
+problem, and the entry points raise with that reason.
 
 The JAX `lax.while_loop`s become Python `while` loops on a device-side
 `any(...)`: one host sync per solver trip (and one per retry or extra
@@ -37,10 +40,15 @@ import torch
 
 from altro_tpu_torch import al
 from altro_tpu_torch.ops import tile_iter as ti
-from altro_tpu_torch.ops.riccati_backward import riccati_backward, riccati_backward_ref
+from altro_tpu_torch.ops.riccati_backward import (
+    KERNEL_SHAPES,
+    riccati_backward,
+    riccati_backward_ref,
+)
 from altro_tpu_torch.ops.riccati_dense import riccati_backward_dense
 from altro_tpu_torch.ops.rollout_grid import (
     affine_constraint_stacks,
+    ineligibility,
     rollout_grid,
     rollout_grid_ref,
 )
@@ -65,6 +73,7 @@ __all__ = [
     "state_from_lanes",
     "shift_trajectory_tiled",
     "supported_options",
+    "kernel_refusal",
 ]
 
 _UNSOLVED = int(SolveStatus.UNSOLVED)
@@ -113,6 +122,53 @@ def supported_options(opts: SolverOptions) -> bool:
         and not opts.exact_al_hessian
         and opts.iteration_callback is None
     )
+
+
+def kernel_refusal(problem: Problem, opts: SolverOptions, *, vmapped: bool) -> Optional[str]:
+    """Why the lane loop's CUDA kernels cannot take this problem with these
+    options, or None. One message names every kernel the loop would launch
+    (vmapped=False: `solve_tiled`; True: the vmapped solve) and what that
+    kernel cannot take:
+
+    * the backward pass (`riccati_backward`, or `riccati_dense` for the
+      vmapped solve with `pallas_backward`; without it the vmapped solve
+      runs the plain recursion): (n, m) outside KERNEL_SHAPES, a dtype
+      other than float32;
+    * the trial grid of `solve_tiled` when `pallas_rollout_tiled` (the
+      vmapped solve always runs the plain grid):
+      `rollout_grid.ineligibility`, a dtype other than float32.
+
+    Shapes and options only, so it runs before anything launches.
+    """
+    shape = (problem.n, problem.m)
+    dtype = problem.dtype
+    f32 = dtype == torch.float32
+    why = []
+    if not vmapped or opts.pallas_backward:
+        bad = []
+        if shape not in KERNEL_SHAPES:
+            bad.append(f"no instantiation for n={shape[0]}, m={shape[1]} (it has "
+                       f"{', '.join(map(str, KERNEL_SHAPES))})")
+        if not f32:
+            bad.append(f"{dtype} (it takes float32)")
+        if bad:
+            name = "riccati_dense" if vmapped else "riccati_backward"
+            why.append(f"the backward kernel ({name}): {', '.join(bad)}")
+    if not vmapped and opts.pallas_rollout_tiled:
+        grid_why = ineligibility(problem) or (None if f32 else f"{dtype} (it takes float32)")
+        if grid_why is not None:
+            why.append(f"the trial-grid kernel (rollout_grid): {grid_why}; "
+                       "pallas_rollout_tiled=False selects the plain grid")
+    return "; ".join(why) or None
+
+
+def refuse_on_card(who: str, problem: Problem, opts: SolverOptions, *, vmapped: bool) -> None:
+    """Raise NotImplementedError(f"{who}: ...") when the problem lies on a
+    CUDA device and `kernel_refusal` names a reason."""
+    if problem.x0.is_cuda:
+        why = kernel_refusal(problem, opts, vmapped=vmapped)
+        if why is not None:
+            raise NotImplementedError(f"{who}: {why}")
 
 
 def open_loop_rollout_tiled(problem: Problem, u, x0):
@@ -171,15 +227,18 @@ def solve_tiled(problem: Problem, state: SolverState,
     state lane-minor and the stats [B] per lane.
 
     problem.x0 is [n, B]; the cost, the constraints and h are shared by
-    all lanes. On CUDA tensors the backward pass and the line-search
-    rollout run the CUDA kernels (or raise); on CPU tensors their plain
-    versions. `pallas_backward` is not read (as in JAX) and stats.dphi
-    is NaN.
+    all lanes. On CUDA tensors the backward pass runs its kernel and the
+    line-search rollout its kernel when `pallas_rollout_tiled` (the plain
+    grid otherwise, on any device); a problem they cannot take is refused
+    before anything runs (`kernel_refusal`). On CPU tensors the plain
+    versions run. `pallas_backward` is not read (as in JAX) and
+    stats.dphi is NaN.
     """
     if not supported_options(opts):
         raise ValueError(
             "solve_tiled supports the phase-split x-only armijo-only grid "
             "line search or rti_mode; other configurations are not ported")
+    refuse_on_card("solve_tiled", problem, opts, vmapped=False)
     return lane_loop(problem, state, opts, vmapped=False)
 
 
@@ -196,7 +255,10 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
     recursion on any device; the plain trial grid through the problem's
     own dynamics; trial 0 held to the strong-Wolfe test unless
     `ls_armijo_only` (altro_tpu/linesearch.py:749-771); stats.dphi from
-    the accepted payload. The caller checks the options.
+    the accepted payload. vmapped=False runs the trial-grid kernel
+    (`rollout_grid`) when `pallas_rollout_tiled`, else the plain grid, as
+    altro_tpu/tile_solver.py:329-342 does. The caller checks the options
+    and the kernels' reach (`kernel_refusal`).
 
     layer_seconds: a dict to accumulate host seconds into, by layer, each
     exclusive of the others: open_loop_rollout, expansions, backward
@@ -235,7 +297,8 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
     c2 = opts.ls_c2
     slack = opts.ls_armijo_slack
     fallback = opts.ls_best_decrease_fallback
-    stacks = affine_constraint_stacks(problem) if x0.is_cuda and not vmapped else None
+    kernel_grid = not vmapped and opts.pallas_rollout_tiled
+    stacks = affine_constraint_stacks(problem) if x0.is_cuda and kernel_grid else None
 
     c = dict(
         x=x_init, u=state.u, y=state.y, z=state.z, rho=rho0, K=state.K,
@@ -252,7 +315,7 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
         return torch.logical_and(~c["stop"], c["iter"] < opts.iterations_max)
 
     def grid(alphas, c, g):
-        if vmapped:  # jax.vmap(solve) runs the scan grid, never a rollout kernel
+        if not kernel_grid:  # as jax.vmap(solve) and pallas_rollout_tiled=False: the scan grid
             return rollout_grid_ref(problem, c["x"], c["u"], g.K, g.d, c["z"], c["rho"],
                                     alphas, x0)
         # the kernels take contiguous operands (a no-op copy when they are)

@@ -49,8 +49,8 @@ def test_nvcc_command_targets_hopper():
 
     srcs = _build.sources()
     names = {os.path.basename(s) for s in srcs}
-    assert names >= {"riccati_backward.cu", "rollout_grid.cu", "riccati_latency.cu",
-                     "trial_rollout.cu", "riccati_dense.cu", "device_steps.cuh"}
+    assert names >= {"rollout_grid.cu", "riccati_latency.cu", "trial_rollout.cu",
+                     "riccati_dense.cu", "device_steps.cuh"}
     for src in (s for s in srcs if s.endswith(".cu")):
         cmd = _build.compile_command("out.o", src)
         assert "arch=compute_90a,code=sm_90a" in cmd
@@ -60,9 +60,8 @@ def test_nvcc_command_targets_hopper():
     link = _build.link_command("out.so", ["a.o", "b.o"])
     assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
     # every C entry point the wrappers call has declared argument types
-    assert set(_build.SIGNATURES) == {"riccati_backward_diag_f32", "rollout_grid_f32",
-                                      "riccati_latency_f32", "trial_rollout_f32",
-                                      "riccati_dense_f32"}
+    assert set(_build.SIGNATURES) == {"rollout_grid_f32", "riccati_latency_f32",
+                                      "trial_rollout_f32", "riccati_dense_f32"}
 
 
 def test_build_key_follows_shared_headers(tmp_path):

@@ -1,0 +1,172 @@
+"""The batched solves' kernel refusal and the `pallas_rollout_tiled` switch.
+
+Counterpart: altro_tpu/tile_solver.py:329-342, where the batched solve
+runs the trial-rollout kernel only under `pallas_rollout_tiled` and
+otherwise the scan grid. The port runs its CUDA kernels on CUDA tensors
+or refuses the problem before anything runs
+(`tile_solver.kernel_refusal`, one message naming every kernel and what
+it cannot take); `pallas_rollout_tiled=False` selects the plain grid on
+any device. Shapes and options only: no solve runs on the card here, and
+a stand-in x0 that claims to lie on one shows that each entry point
+refuses before it touches anything else.
+"""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from altro_tpu_torch import mpc, rescue  # noqa: E402
+from altro_tpu_torch import tile_solver as tsv  # noqa: E402
+from altro_tpu_torch.io.scotty import load_scotty  # noqa: E402
+from altro_tpu_torch.parallel import batch  # noqa: E402
+from altro_tpu_torch.problem import Problem, lqr_cost_from_reference  # noqa: E402
+
+OPTS, OPTS_R = mpc.bench_options(iterations_max=3)
+
+
+def _linear_problem(dtype=torch.float32, N=4):
+    """A (2, 1) double integrator written here (no column-form step)."""
+    kw = dict(dtype=dtype, device="cpu")
+
+    def step(x, u, h, k):
+        return torch.stack([x[0] + h * x[1], x[1] + h * u[0]])
+
+    cost = lqr_cost_from_reference(torch.ones((N + 1, 2), **kw), torch.full((N + 1, 1), 0.1, **kw),
+                                   torch.zeros((N + 1, 2), **kw), torch.zeros((N + 1, 1), **kw))
+    return Problem(N=N, n=2, m=1, dynamics=step, dynamics_jac=None, constraints=(), cost=cost,
+                   h=torch.full((N,), 0.1, **kw), x0=torch.zeros(2, **kw))
+
+
+def _bicycle(rows, dtype=torch.float32, N=4):
+    """The Scotty problem with `rows` affine steering rows: 2 is the main
+    path's bound; 1 keeps its upper row; 3 adds a second group of one."""
+    prob = mpc.scotty_problem(load_scotty(), N=N, dtype=dtype, device="cpu")
+    bound = prob.constraints[0]
+    if rows == 2:
+        return prob
+    upper = dataclasses.replace(bound, fn=lambda x, u, k: x[3:4] - mpc.DELTA_MAX, dim=1,
+                                jac=None, label="upper steering bound")
+    groups = (upper,) if rows == 1 else (bound, upper)
+    return dataclasses.replace(prob, constraints=groups)
+
+
+def _problem(name):
+    if name == "linear_2x1":
+        return _linear_problem()
+    if name == "quadrotor":
+        return mpc.quadrotor_waypoint_problem(N=4, device="cpu")
+    if name == "main_path_f64":
+        return _bicycle(2, dtype=torch.float64)
+    return _bicycle({"bicycle_1_row": 1, "main_path": 2, "bicycle_3_rows": 3}[name])
+
+
+# (problem, words the refusal names with pallas_rollout_tiled, words it
+# names without it); () means no refusal
+CASES = [
+    ("linear_2x1", ("riccati_backward", "n=2, m=1", "rollout_grid", "column-form",
+                    "pallas_rollout_tiled=False"),
+     ("riccati_backward", "n=2, m=1")),
+    ("quadrotor", ("rollout_grid", "column-form", "pallas_rollout_tiled=False"), ()),
+    ("bicycle_1_row", ("rollout_grid", "1 constraint rows in 1 groups"), ()),
+    ("bicycle_3_rows", ("rollout_grid", "3 constraint rows in 2 groups"), ()),
+    ("main_path_f64", ("riccati_backward", "rollout_grid", "float32"),
+     ("riccati_backward", "float32")),
+    ("main_path", (), ()),
+]
+
+
+@pytest.mark.parametrize("name, words, words_plain_grid", CASES, ids=[c[0] for c in CASES])
+def test_kernel_refusal_names_each_kernel(name, words, words_plain_grid):
+    """One message names every kernel `solve_tiled` would launch and what
+    it cannot take; `pallas_rollout_tiled=False` drops the rollout's."""
+    prob = _problem(name)
+    for opts, expect in ((OPTS, words), (OPTS.replace(pallas_rollout_tiled=False),
+                                         words_plain_grid)):
+        why = tsv.kernel_refusal(prob, opts, vmapped=False)
+        if not expect:
+            assert why is None, why
+            continue
+        for word in expect:
+            assert word in why, (word, why)
+        if not opts.pallas_rollout_tiled:
+            assert "rollout_grid" not in why
+
+
+@pytest.mark.parametrize("name", ["linear_2x1", "quadrotor", "main_path"])
+def test_vmapped_refusal_reads_only_the_dense_kernel(name):
+    """The vmapped solve runs the plain grid always and a kernel only for
+    the backward pass under `pallas_backward`."""
+    prob = _problem(name)
+    fused = OPTS.replace(pallas_backward=True)
+    why = tsv.kernel_refusal(prob, fused, vmapped=True)
+    if name == "linear_2x1":
+        assert "riccati_dense" in why and "n=2, m=1" in why and "rollout_grid" not in why
+    else:
+        assert why is None, why
+    assert tsv.kernel_refusal(prob, OPTS, vmapped=True) is None
+
+
+class _OnCard:
+    """Stands in for an x0 on a CUDA device: anything past the refusal
+    that touched it would fail with another error."""
+
+    is_cuda = True
+    dtype = torch.float32
+
+
+@pytest.mark.parametrize("entry", ["solve_tiled", "solve_tiled_with_rescue", "solve_lanes",
+                                   "vmap_solve"])
+def test_entry_points_refuse_before_anything_runs(entry):
+    prob = dataclasses.replace(_linear_problem(), x0=_OnCard())
+    fused = OPTS.replace(pallas_backward=True)
+    calls = {
+        "solve_tiled": lambda: tsv.solve_tiled(prob, None, OPTS),
+        "solve_tiled_with_rescue": lambda: rescue.solve_tiled_with_rescue(prob, None, OPTS,
+                                                                          OPTS_R),
+        "solve_lanes": lambda: batch.solve_lanes(prob, None, fused),
+        "vmap_solve": lambda: batch.vmap_solve(_linear_problem(), fused)(_OnCard(), None),
+    }
+    with pytest.raises(NotImplementedError, match=f"{entry}: .*n=2, m=1"):
+        calls[entry]()
+
+
+def test_rescue_checks_both_tiers_up_front():
+    """The main path passes its primary options; a rescue tier that asks
+    for the trial-grid kernel on a 3-row problem is refused before the
+    primary tier runs."""
+    prob = dataclasses.replace(_bicycle(3), x0=_OnCard())
+    with pytest.raises(NotImplementedError, match="3 constraint rows"):
+        rescue.solve_tiled_with_rescue(prob, None, OPTS.replace(pallas_rollout_tiled=False),
+                                       OPTS_R)
+
+
+def test_plain_grid_option_never_calls_the_kernel_wrapper(monkeypatch):
+    """With pallas_rollout_tiled=False the lane loop runs rollout_grid_ref
+    and never the kernel's wrapper; on the CPU both give the same solve."""
+    prob = mpc.scotty_problem(load_scotty(), N=6, dtype=torch.float64, device="cpu")
+    x0 = mpc.perturbed_initial_states(load_scotty(), 3, seed=1, dtype=torch.float64,
+                                      device="cpu")
+    state = tsv.state_to_lanes(batch.batch_init_state(prob, 3))
+    prob = dataclasses.replace(prob, x0=tsv.batch_to_lanes(x0))
+    calls = []
+    wrapper = tsv.rollout_grid
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return wrapper(*args, **kw)
+
+    monkeypatch.setattr(tsv, "rollout_grid", counting)
+    st_k, stats_k = tsv.solve_tiled(prob, state, OPTS)
+    assert calls
+
+    def refuse(*args, **kw):
+        raise AssertionError("the kernel's wrapper ran under pallas_rollout_tiled=False")
+
+    monkeypatch.setattr(tsv, "rollout_grid", refuse)
+    st_p, stats_p = tsv.solve_tiled(prob, state, OPTS.replace(pallas_rollout_tiled=False))
+    assert torch.equal(stats_k.status, stats_p.status)
+    assert torch.equal(stats_k.iterations, stats_p.iterations)
+    assert torch.equal(st_k.x, st_p.x) and torch.equal(st_k.u, st_p.u)

@@ -32,49 +32,79 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _backward_inputs(dev, seed=0):
+def _backward_inputs(dev, n=4, m=2, Bsz=BR, Nk=NK, diag=True, with_lux=False, seed=0):
+    """Lane-minor operands of the batched backward: positive diagonal or
+    SPD dense cost blocks, lux when asked, a per-lane reg; lane min(5, B-1)
+    broken at knots 2 and 5 (knot 0 when N < 3) and lane B-1 at the last
+    knot."""
     rng = np.random.default_rng(seed)
-    n, m = 4, 2
-    A = np.eye(n)[None, :, :, None] + 0.05 * rng.standard_normal((NK, n, n, BR))
-    Bm = 0.3 * rng.standard_normal((NK, n, m, BR))
-    lxx = np.abs(rng.standard_normal((NK + 1, n, BR))) + 0.1
-    luu = np.abs(rng.standard_normal((NK, m, BR))) + 0.1
-    lx = rng.standard_normal((NK + 1, n, BR))
-    lu = rng.standard_normal((NK, m, BR))
-    reg = 0.01 * rng.random(BR)
-    luu[2, :, 5] = -10.0
-    luu[5, :, 5] = -10.0
-    luu[NK - 1, 1, 299] = -10.0
-    return [torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
-            for a in (A, Bm, lxx, luu, lx, lu, reg)]
+    A = np.eye(n)[None, :, :, None] + 0.05 * rng.standard_normal((Nk, n, n, Bsz))
+    Bm = 0.3 * rng.standard_normal((Nk, n, m, Bsz))
+    if diag:
+        lxx = np.abs(rng.standard_normal((Nk + 1, n, Bsz))) + 0.1
+        luu = np.abs(rng.standard_normal((Nk, m, Bsz))) + 0.1
+        bad = -10.0
+    else:
+        Wx = rng.standard_normal((Nk + 1, n, n, Bsz))
+        lxx = np.einsum("kijb,kljb->kilb", Wx, Wx) / n + np.eye(n)[None, :, :, None]
+        Wu = rng.standard_normal((Nk, m, m, Bsz))
+        luu = np.einsum("kijb,kljb->kilb", Wu, Wu) / m + np.eye(m)[None, :, :, None]
+        bad = -10.0 * np.eye(m)
+    lx = rng.standard_normal((Nk + 1, n, Bsz))
+    lu = rng.standard_normal((Nk, m, Bsz))
+    reg = 0.01 * rng.random(Bsz)
+    for k in [k for k in (2, 5) if k < Nk] or [0]:
+        luu[k, ..., min(5, Bsz - 1)] = bad
+    luu[Nk - 1, ..., Bsz - 1] = bad
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
+    lux = t(0.02 * rng.standard_normal((Nk, m, n, Bsz))) if with_lux else None
+    return [t(a) for a in (A, Bm, lxx, luu, lx, lu, reg)], lux
 
 
-def test_riccati_kernel_matches_plain(dev):
+@pytest.mark.parametrize("n, m", [(4, 2), (12, 4)])
+@pytest.mark.parametrize("diag, with_lux", [(True, False), (True, True), (False, False),
+                                            (False, True)])
+@pytest.mark.parametrize("Bsz", [1, 33, BR, 2048])
+@pytest.mark.parametrize("Nk", [1, NK, 30])
+def test_riccati_kernel_matches_plain(dev, n, m, diag, with_lux, Bsz, Nk):
+    """Every form the batched solve launches (diagonal or dense cost, with
+    and without lux) at both (n, m), ragged lane tiles (B = 1, 33, 300
+    against blocks of 16 and 8 lanes; B = 1 and 33 take the one-float
+    copies), one knot up to the main path's 30, with failing lanes."""
     from altro_tpu_torch.ops import riccati_backward as rb
 
-    args = _backward_inputs(dev)
+    args, lux = _backward_inputs(dev, n, m, Bsz, Nk, diag, with_lux)
     before = rb.LAUNCHES
-    gk = rb.riccati_backward(*args, diag_cost=True)
-    gr = rb.riccati_backward_ref(*args)
+    gk = rb.riccati_backward(*args, lux=lux, diag_cost=diag)
+    gr = rb.riccati_backward_ref(*args, lux=lux)
     torch.cuda.synchronize()
     assert rb.LAUNCHES == before + 1
     assert float((gk.K - gr.K).abs().max()) < 1e-4
     assert float((gk.d - gr.d).abs().max()) < 1e-4
     assert float(((gk.P - gr.P).abs() / (1 + gr.P.abs())).max()) < 1e-5
+    assert float(((gk.p - gr.p).abs() / (1 + gr.p.abs())).max()) < 1e-5
+    assert float(((gk.delta_V - gr.delta_V).abs() / (1 + gr.delta_V.abs())).max()) < 1e-5
     assert torch.equal(gk.ok, gr.ok) and torch.equal(gk.fail_index, gr.fail_index)
-    assert int(gk.fail_index[5]) == 2 and int(gk.fail_index[299]) == NK - 1
-    assert int((~gk.ok).sum()) == 2
+    first = 2 if Nk > 2 else 0
+    assert int(gk.fail_index[min(5, Bsz - 1)]) == first
+    if Bsz > 6:
+        assert int(gk.fail_index[Bsz - 1]) == Nk - 1
+    assert int((~gk.ok).sum()) == (2 if Bsz > 6 else 1)
+    failed = ~gk.ok
+    assert float(gk.K[gk.fail_index[failed].long(), :, :, failed.nonzero()[:, 0]].abs().max()) == 0
 
 
 def test_riccati_kernel_refuses_what_it_does_not_implement(dev):
     from altro_tpu_torch.ops import riccati_backward as rb
 
-    A, Bm, lxx, luu, lx, lu, reg = _backward_inputs(dev)
-    with pytest.raises(NotImplementedError):
+    (A, Bm, lxx, luu, lx, lu, reg), _ = _backward_inputs(dev)
+    with pytest.raises(NotImplementedError, match="n=4, m=1"):
+        rb.riccati_backward(A, Bm[:, :, :1], lxx, luu[:, :1], lx, lu[:, :1], reg, diag_cost=True)
+    with pytest.raises(ValueError, match="lxx has shape"):
         rb.riccati_backward(A, Bm, lxx, luu, lx, lu, reg, diag_cost=False)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match="float32"):
         rb.riccati_backward(A.double(), Bm, lxx, luu, lx, lu, reg, diag_cost=True)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="contiguous"):
         rb.riccati_backward(A.transpose(1, 2), Bm, lxx, luu, lx, lu, reg, diag_cost=True)
 
 
@@ -378,6 +408,77 @@ def test_riccati_dense_kernel_refuses_what_it_does_not_implement(dev):
     with pytest.raises(NotImplementedError, match="n=4, m=1"):
         rd.riccati_backward_dense(A, Bm[:, :, :1], f, lxx, luu[:, :1, :1], lux[:, :1], lx,
                                   lu[:, :1], reg)
+
+
+def _kernel_launches():
+    from altro_tpu_torch.ops import riccati_backward as rb
+    from altro_tpu_torch.ops import riccati_dense as rd
+    from altro_tpu_torch.ops import riccati_latency as rl
+    from altro_tpu_torch.ops import rollout_grid as rg
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    return {m.__name__: m.LAUNCHES for m in (rb, rd, rl, rg, tr)}
+
+
+def test_solve_tiled_plain_grid_on_card_tracks_plain_path(dev):
+    """solve_tiled of a small quadrotor batch with pallas_rollout_tiled=False:
+    the backward kernel (diagonal (12, 4)) launches and the trial-grid
+    kernel does not; the f32 solve agrees with the plain CPU path (f64) on
+    every lane's status, and its inputs to 1e-2 (each solve stops at
+    stationarity 1e-3)."""
+    import dataclasses
+
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch import tile_solver as tsv
+    from altro_tpu_torch.parallel.batch import batch_init_state
+
+    opts = mpc.quadrotor_options().replace(ls_armijo_only=True, pallas_backward=False,
+                                           pallas_rollout_tiled=False)
+    out = []
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        prob = mpc.quadrotor_waypoint_problem(N=12, dtype=dtype, device=device)
+        x0 = mpc.quadrotor_initial_states(16, seed=2, dtype=dtype, device=device)
+        st = dataclasses.replace(batch_init_state(prob, 16),
+                                 u=torch.full((16, 12, 4), mpc.QUAD_HOVER, dtype=dtype,
+                                              device=device))
+        prob = dataclasses.replace(prob, x0=tsv.batch_to_lanes(x0))
+        before = _kernel_launches()
+        out.append(tsv.solve_tiled(prob, tsv.state_to_lanes(st), opts))
+        after = _kernel_launches()
+        launched = {k for k in after if after[k] > before[k]}
+        assert launched == ({"altro_tpu_torch.ops.riccati_backward"} if device == dev else set())
+    (sa, a), (sb, b) = out
+    assert torch.equal(a.status.cpu(), b.status)
+    assert float((sa.u.double().cpu() - sb.u).abs().max()) < 1e-2
+
+
+def test_refused_problem_launches_nothing(dev):
+    """A (2, 1) problem on the card is refused by solve_tiled before the
+    open-loop rollout, with every kernel's reason, and launches nothing."""
+    import dataclasses
+
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch import tile_solver as tsv
+    from altro_tpu_torch.parallel.batch import batch_init_state
+    from altro_tpu_torch.problem import Problem, lqr_cost_from_reference
+
+    N, Bsz = 6, 4
+    kw = dict(dtype=torch.float32, device=dev)
+
+    def step(x, u, h, k):
+        return torch.stack([x[0] + h * x[1], x[1] + h * u[0]])
+
+    cost = lqr_cost_from_reference(torch.ones((N + 1, 2), **kw), torch.ones((N + 1, 1), **kw),
+                                   torch.zeros((N + 1, 2), **kw), torch.zeros((N + 1, 1), **kw))
+    prob = Problem(N=N, n=2, m=1, dynamics=step, dynamics_jac=None, constraints=(), cost=cost,
+                   h=torch.full((N,), 0.1, **kw), x0=torch.zeros(2, **kw))
+    st = tsv.state_to_lanes(batch_init_state(prob, Bsz))
+    prob = dataclasses.replace(prob, x0=torch.zeros((2, Bsz), **kw))
+    before = _kernel_launches()
+    with pytest.raises(NotImplementedError, match="riccati_backward.*n=2, m=1.*rollout_grid"):
+        tsv.solve_tiled(prob, st, mpc.bench_options()[0])
+    torch.cuda.synchronize()
+    assert _kernel_launches() == before
 
 
 def test_vmap_solve_on_card_tracks_plain_path(dev):
