@@ -6,7 +6,11 @@ imports jax. Its first slice is the batched, warm-started receding-horizon
 MPC path of bench.py: `mpc.run_closed_loop` over `tile_solver.solve_tiled`
 with the failed-lane rescue, whose Riccati backward pass and W-trial
 line-search rollout are hand-written CUDA kernels (csrc/, built by
-ops/_build.py on first use).
+ops/_build.py on first use). Later slices added the single-lane
+`solver.solve` (the N=500 latency path, and under default SolverOptions()
+the strong-Wolfe search on the reference's own test problems,
+`reference_problems`, with `mpc`'s functional MPC API) and the vmapped
+solve (`parallel.batch`).
 
 Internal layout is lane-minor, [N(+1), entry..., B]; public functions
 keep the JAX batch-major layout [B, ...].

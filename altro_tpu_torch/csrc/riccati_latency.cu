@@ -19,22 +19,25 @@
 // What the design does about it: one block of 128 threads, launched once.
 // Warp 0 computes each knot in two phases, with the carry (P', p'), the
 // Q blocks and the gradient exchanged through shared memory and a
-// __syncwarp() between the phases:
+// __syncwarp() between the phases (counts at (n, m) = (4, 2); at (2, 1):
+// 6 Q entries and 3 gradient rows, then 3 entries of P and 2 of p):
 //   A. lane t owns one of the 21 distinct entries of the Q blocks
 //      (Qxx upper triangle, Qux, Quu lower triangle) or one of the 6 rows
 //      of the gradient: it forms its column of P'[A B] (or P'f + p') in
 //      registers from the broadcast carry and takes the dot product with
 //      its column of [A B], so no entry of M = P'[A B] is exchanged;
-//   B. every lane factors Quu + reg I (2x2, redundantly: shorter than a
+//   B. every lane factors Quu + reg I (m x m, redundantly: shorter than a
 //      broadcast) with one rsqrtf per pivot, solves the two columns of
 //      [Qux | -Qu] its item needs with multiply-adds only, and writes one
 //      of the 10 distinct entries of the new P (mirrored) or one of the 4
 //      of p, and of K, d and dV.
 // Each lane's operands of the next knot (its two columns of [A B] or f,
 // and its cost term) are read from the staged chunk into registers while
-// phase B runs. diag_x, diag_u, lux and f are template parameters (16
-// instantiations, chosen once on the host) and every layout offset is a
-// compile-time constant. Warps 1-3 stage the operands in chunks of CH
+// phase B runs. (n, m), diag_x, diag_u, lux and f are template parameters
+// (16 instantiations per shape, chosen once on the host; shapes (4, 2) and
+// (2, 1)) and every layout offset is a compile-time constant. Every
+// per-chunk array of shared memory holds CH = 64 knots, so each starts on
+// a 16-byte boundary at any (n, m). Warps 1-3 stage the operands in chunks of CH
 // knots, double-buffered, with 16-byte cp.async where a slice is 16-byte
 // aligned (one float a copy where not), and write the outputs of the
 // chunk before back from their staging. Chunks are handed over by named
@@ -486,30 +489,33 @@ int launch(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <bool DX, bool DU, bool LUX>
+template <int NS, int NI, bool DX, bool DU, bool LUX>
 int launch_f(const Args& a, cudaStream_t s) {
-  return a.f ? launch<4, 2, DX, DU, LUX, true>(a, s) : launch<4, 2, DX, DU, LUX, false>(a, s);
+  return a.f ? launch<NS, NI, DX, DU, LUX, true>(a, s) : launch<NS, NI, DX, DU, LUX, false>(a, s);
 }
-template <bool DX, bool DU>
+template <int NS, int NI, bool DX, bool DU>
 int launch_lux(const Args& a, cudaStream_t s) {
-  return a.lux ? launch_f<DX, DU, true>(a, s) : launch_f<DX, DU, false>(a, s);
+  return a.lux ? launch_f<NS, NI, DX, DU, true>(a, s) : launch_f<NS, NI, DX, DU, false>(a, s);
 }
-template <bool DX>
-int launch_du(const Args& a, cudaStream_t s, bool du) {
-  return du ? launch_lux<DX, true>(a, s) : launch_lux<DX, false>(a, s);
+template <int NS, int NI>
+int launch_shape(const Args& a, cudaStream_t s, bool dx, bool du) {
+  if (dx) return du ? launch_lux<NS, NI, true, true>(a, s) : launch_lux<NS, NI, true, false>(a, s);
+  return du ? launch_lux<NS, NI, false, true>(a, s) : launch_lux<NS, NI, false, false>(a, s);
 }
 
 }  // namespace
 
-// lux and f may be null (a zero cross term, the affine term elided); reg
-// is one float on the device.
+// (n, m) is (4, 2) or (2, 1); lux and f may be null (a zero cross term, the
+// affine term elided); reg is one float on the device.
 extern "C" int riccati_latency_f32(
     const float* A, const float* Bm, const float* lxx, const float* luu,
     const float* lux, const float* f, const float* lx, const float* lu,
     const float* reg, float* K, float* d, float* P, float* p, float* dV,
     bool* ok, int* fail, int N, int n, int m, int diag_x, int diag_u, void* stream) {
-  if (N <= 0 || !(n == 4 && m == 2)) return (int)cudaErrorInvalidValue;
+  if (N <= 0) return (int)cudaErrorInvalidValue;
   const Args a{A, Bm, lxx, luu, lux, f, lx, lu, reg, K, d, P, p, dV, ok, fail, N};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return diag_x ? launch_du<true>(a, s, diag_u != 0) : launch_du<false>(a, s, diag_u != 0);
+  if (n == 4 && m == 2) return launch_shape<4, 2>(a, s, diag_x != 0, diag_u != 0);
+  if (n == 2 && m == 1) return launch_shape<2, 1>(a, s, diag_x != 0, diag_u != 0);
+  return (int)cudaErrorInvalidValue;
 }

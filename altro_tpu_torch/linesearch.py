@@ -1,18 +1,30 @@
-"""Phase-split parallel backtracking line search (PyTorch port, one lane).
+"""Line searches of the single-lane solve (PyTorch port, one lane).
 
 Counterpart: altro_tpu/linesearch.py (`LineSearchOptions`,
-`LineSearchResult`, `parallel_backtracking_search_split`). The JAX
-`lax.while_loop` over grid blocks becomes a Python loop with one host
-sync per block beyond the first (on `found`). Scalars are 0-dim tensors
-on the solve's device and dtype; a payload is a tensor, a (named) tuple
-of payloads, or None. The strong-Wolfe search and the non-split grid are
-not ported.
+`LineSearchResult`, `cubic_fit`, `cubic_argmin`, `wolfe_line_search`,
+`parallel_backtracking_search`, `parallel_backtracking_search_split`).
+
+* `wolfe_line_search`: the JAX `lax.while_loop` over the `_State` machine
+  (bracket, one-shot cubic, zoom with the small-window midpoint, the
+  sequential backtracking mode) becomes a Python loop with one host read
+  per trial (phi and dphi of the merit evaluation). The decisions run on
+  host scalars of the merit's dtype (numpy), in JAX's order, every
+  constant cast to that dtype first, so an f64 search takes JAX's path
+  trial for trial and an f32 one rounds as JAX's f32 search does.
+* The grid searches: the JAX `lax.while_loop` over grid blocks becomes a
+  Python loop with one host sync per block beyond the first (on
+  `found`).
+
+Scalars returned are 0-dim tensors on the merit's device and dtype; a
+payload is a tensor, a (named) tuple of payloads, or None.
 """
 
 from __future__ import annotations
 
+import types
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from altro_tpu_torch.status import LineSearchCode
@@ -20,9 +32,15 @@ from altro_tpu_torch.status import LineSearchCode
 __all__ = [
     "LineSearchOptions",
     "LineSearchResult",
+    "cubic_fit",
+    "cubic_argmin",
+    "wolfe_line_search",
+    "parallel_backtracking_search",
     "parallel_backtracking_search_split",
     "tree_map",
 ]
+
+_TOL = 1e-6  # cubicspline.c LINESEARCH_TOL, as in the JAX module
 
 
 class LineSearchOptions(NamedTuple):
@@ -65,6 +83,368 @@ def _stack(trees):
 
 def _where(cond, a, b):
     return tree_map(lambda x, y: torch.where(cond, x, y), a, b)
+
+
+# ---------------------------------------------------------------------------
+# Host scalars and the cubic spline
+# ---------------------------------------------------------------------------
+
+_NP_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
+_TORCH_FLOAT = {np.float32: torch.float32, np.float64: torch.float64}
+
+
+def _host_type(v):
+    """numpy float type of a value: a tensor's or a numpy scalar's dtype,
+    float64 for a Python number (JAX's x64 default)."""
+    if torch.is_tensor(v):
+        return _NP_FLOAT.get(v.dtype, np.float64)
+    if isinstance(v, np.generic) and np.issubdtype(v.dtype, np.floating):
+        return v.dtype.type
+    return np.float64
+
+
+def _host(v, dt):
+    return dt(v.item() if torch.is_tensor(v) else float(v))
+
+
+def _scalars(*vals):
+    """(dt, the values as host scalars of dt): dt promotes the dtypes of
+    the typed values (tensors, numpy scalars); Python numbers are weak."""
+    typed = [_host_type(v) for v in vals if torch.is_tensor(v) or isinstance(v, np.generic)]
+    dt = np.result_type(*typed).type if typed else np.float64
+    return dt, [_host(v, dt) for v in vals]
+
+
+def _fit(dt, x1, y1, d1, x2, y2, d2):
+    delta = x2 - x1
+    same = bool(abs(delta) < dt(_TOL))
+    ds = dt(1.0) if same else delta
+    c = dt(3.0) * (y2 - y1) / (ds * ds) - (d2 + dt(2.0) * d1) / ds
+    d = (d2 + d1) / (ds * ds) - dt(2.0) * (y2 - y1) / (ds * ds * ds)
+    return (x1, y1, d1, c, d), not same
+
+
+def _argmin(dt, spline):
+    x0, _, b, c, d = spline
+    tol = dt(_TOL)
+    is_quadratic = bool(abs(d) < tol)
+    is_linear = is_quadratic and bool(abs(c) < tol)
+
+    # quadratic path
+    c_safe = dt(1.0) if abs(c) < tol else c
+    quad_min = -b / (dt(2.0) * c_safe) + x0
+    quad_found = is_quadratic and not is_linear and bool(c > 0)
+
+    # cubic path: roots of 3d t^2 + 2c t + b = 0
+    qa, qb, qc = dt(3.0) * d, dt(2.0) * c, b
+    qa_safe = dt(1.0) if abs(qa) < tol else qa
+    s2 = qb * qb - dt(4.0) * qa * qc
+    s2_zero = bool(abs(s2) < tol)
+    s = dt(0.0) if s2_zero else np.sqrt(np.maximum(s2, dt(0.0)))
+    roots_ok = s2_zero or bool(s2 >= 0)
+    t1 = (-qb + s) / (dt(2.0) * qa_safe)
+    t2 = (-qb - s) / (dt(2.0) * qa_safe)
+    curv1 = dt(2.0) * c + dt(6.0) * d * t1
+    curv2 = dt(2.0) * c + dt(6.0) * d * t2
+    pick1 = bool(curv1 > 0) and bool(curv2 < 0)
+    pick2 = bool(curv1 < 0) and bool(curv2 > 0)
+    cubic_min = (t1 if pick1 else t2) + x0
+    cubic_found = not is_quadratic and roots_ok and (pick1 or pick2)
+    return (quad_min if is_quadratic else cubic_min), quad_found or cubic_found
+
+
+def cubic_fit(x1, y1, d1, x2, y2, d2):
+    """Fit y = a + b t + c t^2 + d t^3, t = x - x1, from two points and
+    their slopes. Returns ((x0, a, b, c, d), valid) as host scalars;
+    valid is False when the two points coincide (|x2 - x1| < 1e-6)."""
+    dt, v = _scalars(x1, y1, d1, x2, y2, d2)
+    with np.errstate(all="ignore"):
+        return _fit(dt, *v)
+
+
+def cubic_argmin(spline):
+    """Closed-form argmin of a `cubic_fit` spline. Returns (x_min, found);
+    found is False for every case without a minimum (constant, linear,
+    concave quadratic, saddle, no real root)."""
+    dt, v = _scalars(*spline)
+    with np.errstate(all="ignore"):
+        return _argmin(dt, v)
+
+
+# ---------------------------------------------------------------------------
+# Strong-Wolfe cubic line search
+# ---------------------------------------------------------------------------
+
+_BRACKET, _CUBIC, _ZOOM, _BACKTRACK, _DONE = range(5)
+
+
+def _read(phi, dphi, dt):
+    """Host values of one merit evaluation: one device read for both."""
+    if torch.is_tensor(phi) and torch.is_tensor(dphi):
+        pair = torch.stack([phi.reshape(()), dphi.reshape(()).to(phi.dtype)]).tolist()
+    else:
+        pair = [v.item() if torch.is_tensor(v) else float(v) for v in (phi, dphi)]
+    return dt(pair[0]), dt(pair[1])
+
+
+def wolfe_line_search(
+    merit_full: Callable,
+    merit_value: Optional[Callable],
+    phi0,
+    dphi0,
+    alpha0=1.0,
+    opts: LineSearchOptions = LineSearchOptions(),
+    aux0=None,
+    *,
+    merit_light: Optional[Callable] = None,
+    complete: Optional[Callable] = None,
+) -> LineSearchResult:
+    """Run the strong-Wolfe line search on the merit function phi(alpha).
+
+    merit_full(alpha) -> (phi, dphi) or (phi, dphi, aux), alpha a 0-dim
+    tensor of the merit's dtype on its device; merit_value is accepted
+    and not called (as in JAX, every mode evaluates merit_full, which
+    keeps the payload valid in the backtracking mode too). With aux0 the
+    payload of the LAST evaluation is carried and returned (`aux`, valid
+    at `aux_alpha`), so the caller reuses the accepted step's trajectory
+    instead of evaluating it again. One host read per trial.
+
+    merit_light(alpha) -> (phi, light) and complete(light) -> (dphi, aux),
+    together: the backtracking mode, whose test reads phi alone, then
+    evaluates each trial with merit_light and completes only the trial it
+    accepts, or its last when it gives up (the reference's value-only
+    backtracking, linesearch.cpp:385-412). Every value the search returns
+    is the one merit_full would give.
+    """
+    del merit_value
+    dt = _host_type(phi0)
+    dev = phi0.device if torch.is_tensor(phi0) else torch.device("cpu")
+    tdt = _TORCH_FLOAT[dt]
+    phi0, dphi0 = _read(phi0, dphi0, dt)
+    alpha0 = _host(alpha0, dt)
+    c1, c2, slack = dt(opts.c1), dt(opts.c2), dt(opts.armijo_slack)
+    beta_inc, beta_dec = dt(opts.beta_increase), dt(opts.beta_decrease)
+    alpha_max, min_interval = dt(opts.alpha_max), dt(opts.min_interval_size)
+    zero, half = dt(0.0), dt(0.5)
+    has_aux = aux0 is not None
+
+    s = types.SimpleNamespace(
+        mode=_BRACKET, alpha_next=alpha0, aux=aux0 if has_aux else (), aux_alpha=dt(np.nan),
+        small_window=False, n_iters=0, iter=0, zoom_iter=0, btr_iter=0,
+        alpha=alpha0, phi=phi0, dphi=dphi0, fnd=False,
+        alpha_prev=zero, phi_prev=phi0, dphi_prev=dphi0,
+        alo=zero, ahi=zero, phi_lo=phi0, phi_hi=phi0, dphi_lo=dphi0, dphi_hi=dphi0,
+        hit_max_alpha=False, code=int(LineSearchCode.NO_ERROR),
+        res_alpha=zero, res_phi=phi0, res_dphi=dphi0)
+
+    def done(code, alpha, phi, dphi):
+        s.mode, s.code = _DONE, int(code)
+        s.res_alpha, s.res_phi, s.res_dphi = alpha, phi, dphi
+
+    def armijo(alpha, phi):
+        return bool(phi <= phi0 + c1 * alpha * dphi0 + slack * abs(phi0))
+
+    def wolfe(dphi):
+        return bool(abs(dphi) <= -c2 * dphi0)
+
+    def zoom_trial(alo, phi_lo, dphi_lo, ahi, phi_hi, dphi_hi):
+        """Next zoom trial: cubic argmin, else midpoint; tiny window -> midpoint."""
+        small = bool(abs(alo - ahi) < min_interval)
+        spline, fit_ok = _fit(dt, alo, phi_lo, dphi_lo, ahi, phi_hi, dphi_hi)
+        amin, found = _argmin(dt, spline)
+        mid = half * (alo + ahi)
+        use_cubic = fit_ok and found and bool(np.isfinite(amin))
+        return (mid if small or not use_cubic else amin), small
+
+    def enter_zoom(alo, phi_lo, dphi_lo, ahi, phi_hi, dphi_hi):
+        """Transition into the zoom stage (linesearch.cpp:233-303)."""
+        nonfinite = not (np.isfinite(alo) and np.isfinite(ahi))
+        s.zoom_iter = s.n_iters + 1
+        s.alpha_next, s.small_window = zoom_trial(alo, phi_lo, dphi_lo, ahi, phi_hi, dphi_hi)
+        s.mode = _ZOOM
+        s.alo, s.ahi, s.phi_lo, s.phi_hi, s.dphi_lo, s.dphi_hi = (
+            alo, ahi, phi_lo, phi_hi, dphi_lo, dphi_hi)
+        if s.zoom_iter >= opts.max_iters:
+            done(LineSearchCode.MAX_ITERATIONS, alo, phi_lo, dphi_lo)
+        if nonfinite:
+            done(LineSearchCode.GOT_NONFINITE_STEP_SIZE, zero, s.phi, s.dphi)
+
+    def post_check(alpha, phi, dphi, fnd):
+        """Bracket-stage logic after the Wolfe test fails (linesearch.cpp:
+        137-213): the backtracking fallback, the two zoom entries, or the
+        interval expansion with its alpha_max handling."""
+        if opts.use_backtracking:
+            s.mode, s.alpha_next, s.btr_iter = _BACKTRACK, alpha0 * beta_dec, 1
+            return
+        if not armijo(alpha, phi) or (s.iter > 0 and fnd):
+            enter_zoom(s.alpha_prev, s.phi_prev, s.dphi_prev, alpha, phi, dphi)
+        elif dphi >= 0:  # the "bowl": alo = current, ahi = previous
+            enter_zoom(alpha, phi, dphi, s.alpha_prev, s.phi_prev, s.dphi_prev)
+        else:
+            new_alpha = alpha * beta_inc
+            over = bool(new_alpha > alpha_max)
+            new_alpha = np.minimum(new_alpha, alpha_max)
+            stop = over and s.hit_max_alpha
+            s.alpha_prev, s.phi_prev, s.dphi_prev = alpha, phi, dphi
+            s.alpha_next, s.hit_max_alpha, s.iter = new_alpha, s.hit_max_alpha or over, s.iter + 1
+            if stop:
+                done(LineSearchCode.HIT_MAX_STEPSIZE, new_alpha, phi, dphi)
+            if s.iter >= opts.max_iters:  # bracket loop exhausted
+                done(s.code, new_alpha, phi, dphi)
+
+    def bracket_step(phi_t, dphi_t):
+        alpha = s.alpha_next
+        s.n_iters += 1
+        fnd = bool(phi_t >= s.phi_prev)
+        s.alpha, s.phi, s.dphi, s.fnd = alpha, phi_t, dphi_t, fnd
+        if armijo(alpha, phi_t) and wolfe(dphi_t):
+            return done(LineSearchCode.MINIMUM_FOUND, alpha, phi_t, dphi_t)
+        # one-shot cubic interpolation on the first interval
+        spline, fit_ok = _fit(dt, zero, phi0, dphi0, alpha, phi_t, dphi_t)
+        amin, found = _argmin(dt, spline)
+        if (opts.try_cubic_first and s.iter == 0 and fit_ok and found
+                and bool(np.isfinite(amin))):
+            s.mode, s.alpha_next, s.iter = _CUBIC, amin, s.iter + 1
+        else:
+            post_check(alpha, phi_t, dphi_t, fnd)
+
+    def cubic_step(phi_t, dphi_t):
+        alpha_c = s.alpha_next
+        s.n_iters += 1
+        if armijo(alpha_c, phi_t) and wolfe(dphi_t):
+            return done(LineSearchCode.MINIMUM_FOUND, alpha_c, phi_t, dphi_t)
+        post_check(s.alpha, s.phi, s.dphi, s.fnd)  # back to the saved first trial
+
+    def zoom_step(phi_t, dphi_t):
+        alpha = s.alpha_next
+        s.n_iters += 1
+        suff, curv = armijo(alpha, phi_t), wolfe(dphi_t)
+        if s.small_window:
+            code = LineSearchCode.MINIMUM_FOUND if suff and curv else (
+                LineSearchCode.WINDOW_TOO_SMALL)
+            return done(code, alpha, phi_t, dphi_t)
+        if suff and curv:
+            return done(LineSearchCode.MINIMUM_FOUND, alpha, phi_t, dphi_t)
+        if not suff or bool(phi_t > s.phi_lo):
+            s.ahi, s.phi_hi, s.dphi_hi = alpha, phi_t, dphi_t
+        else:
+            if bool(dphi_t * (s.ahi - s.alo) <= 0):
+                s.ahi, s.phi_hi, s.dphi_hi = s.alo, s.phi_lo, s.dphi_lo
+            s.alo, s.phi_lo, s.dphi_lo = alpha, phi_t, dphi_t
+        s.zoom_iter += 1
+        s.alpha_next, s.small_window = zoom_trial(s.alo, s.phi_lo, s.dphi_lo, s.ahi,
+                                                  s.phi_hi, s.dphi_hi)
+        if s.zoom_iter >= opts.max_iters:
+            done(LineSearchCode.MAX_ITERATIONS, alpha, phi_t, dphi_t)
+
+    def backtrack_step(phi_t, dphi_t, finish=None):
+        """finish() -> (dphi, aux): the completion of a light trial, run
+        for the trial that ends the search."""
+        alpha = s.alpha_next
+        s.n_iters += 1
+        accept = armijo(alpha, phi_t)
+        if finish is not None and (accept or s.btr_iter + 1 >= opts.max_iters):
+            dphi_t, s.aux = finish()
+            s.aux_alpha = alpha
+        if accept:
+            return done(LineSearchCode.MINIMUM_FOUND, alpha, phi_t, dphi_t)
+        new_alpha = alpha * beta_dec
+        s.alpha_next, s.btr_iter = new_alpha, s.btr_iter + 1
+        if s.btr_iter >= opts.max_iters:
+            done(s.code, new_alpha, phi_t, s.res_dphi)
+
+    steps = (bracket_step, cubic_step, zoom_step, backtrack_step)
+    if dphi0 >= 0:  # not a descent direction: alpha = 0 (linesearch.cpp:49-52)
+        done(LineSearchCode.NOT_DESCENT_DIRECTION, zero, phi0, dphi0)
+    lazy = merit_light is not None and complete is not None
+
+    def finisher(light):
+        def finish():
+            dphi_t, aux_t = complete(light)
+            return _read(dphi_t, dphi_t, dt)[0], aux_t
+        return finish
+
+    with np.errstate(all="ignore"):
+        while s.mode != _DONE:
+            a_t = s.alpha_next
+            alpha_t = torch.tensor(float(a_t), dtype=tdt, device=dev)
+            if lazy and s.mode == _BACKTRACK:
+                phi_t, light = merit_light(alpha_t)
+                backtrack_step(_read(phi_t, phi_t, dt)[0], None, finisher(light))
+                continue
+            out = merit_full(alpha_t)
+            if has_aux:
+                phi_t, dphi_t, aux_t = out
+            else:
+                (phi_t, dphi_t), aux_t = out[:2], ()
+            phi_t, dphi_t = _read(phi_t, dphi_t, dt)
+            s.aux, s.aux_alpha = aux_t, a_t
+            steps[s.mode](phi_t, dphi_t)
+
+    vals = torch.tensor([float(v) for v in (s.res_alpha, s.res_phi, s.res_dphi, s.aux_alpha)],
+                        dtype=tdt, device=dev)
+    ints = torch.tensor([s.code, s.n_iters], dtype=torch.int32, device=dev)
+    return LineSearchResult(alpha=vals[0], phi=vals[1], dphi=vals[2], code=ints[0],
+                            n_iters=ints[1], aux=s.aux, aux_alpha=vals[3])
+
+
+# ---------------------------------------------------------------------------
+# Grid searches
+# ---------------------------------------------------------------------------
+
+
+def parallel_backtracking_search(
+    merit_full: Optional[Callable],
+    phi0,
+    dphi0,
+    alpha0=1.0,
+    opts: LineSearchOptions = LineSearchOptions(),
+    aux0=None,
+    width: int = 8,
+    *,
+    merit_grid: Optional[Callable] = None,
+    reconstruct: Optional[Callable] = None,
+    complete: Optional[Callable] = None,
+) -> LineSearchResult:
+    """Backtracking with the trials alpha0 * beta^k evaluated a block of
+    `width` at a time (the non-split grid): trial 0 passes on Armijo plus
+    strong Wolfe, later trials on Armijo; the first passing trial wins; up
+    to opts.max_iters trials. n_iters is the count the sequential search
+    would make (1 + k). When no trial passes the code is NO_ERROR and
+    alpha the first trial of the last block, as in JAX.
+
+    The JAX search evaluates the full merit (payload and dphi) of every
+    trial. Each trial's values are a function of its alpha alone, so here
+    only the values the selection reads are formed: phi of every trial,
+    dphi of trial 0 and the payload of the selected trial. Either
+    merit_full(alpha) -> (phi, dphi[, aux]) (called again for trial 0
+    and the selected trial), or the solve's hooks: merit_grid(alphas) ->
+    (phis [W], carriers), reconstruct(carrier, alpha, phi) -> light
+    payload, complete(light) -> (dphi, payload), as
+    `parallel_backtracking_search_split` takes them.
+    """
+    merit_value = None
+    if merit_grid is None:
+        has_aux = aux0 is not None
+
+        def merit_value(a):
+            return merit_full(a)[0], a  # the carrier: the trial's alpha
+
+        def complete(a, with_dphi=True):
+            out = merit_full(a)
+            return out[1], (out[2] if has_aux else ())
+
+        reconstruct = None
+    res = parallel_backtracking_search_split(
+        merit_value, complete, phi0, dphi0, alpha0, opts, width=width, armijo_only=False,
+        reconstruct=reconstruct, merit_grid=merit_grid)
+    scal = dict(dtype=res.alpha.dtype, device=res.alpha.device)
+    n_blocks = max(1, -(-int(opts.max_iters) // width))
+    k_last = torch.tensor((n_blocks - 1) * width, device=scal["device"]).to(scal["dtype"])
+    alpha_last = torch.as_tensor(alpha0, **scal) * torch.as_tensor(opts.beta_decrease,
+                                                                   **scal) ** k_last
+    return res._replace(alpha=torch.where(res.code == int(LineSearchCode.NO_ERROR),
+                                          alpha_last, res.alpha))
 
 
 def parallel_backtracking_search_split(

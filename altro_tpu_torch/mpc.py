@@ -1,6 +1,10 @@
-"""Batched receding-horizon MPC: the port's entry points.
+"""Receding-horizon MPC: the functional MPC API and the port's entry points.
 
-Counterparts: altro_tpu/mpc.py (the MPC layer), the tiled branch of
+Counterparts: altro_tpu/mpc.py (the MPC layer: `shift_trajectory`,
+`set_initial_state`, `update_linear_costs`, `update_tracking_window`,
+`mpc_step`, each a pure function on (Problem, SolverState) of one lane,
+the reference's UpdateLinearCosts / SetInitialState / ShiftTrajectory
+followed by a warm-started solve), the tiled branch of
 bench.py's closed loop (`child_main`, its problem, options, rescue and
 `tick_tiled`) and the quadrotor waypoint row of scripts/bench_all.py
 (:322-512, its non-tiled branch), here as library functions:
@@ -13,6 +17,13 @@ bench.py's closed loop (`child_main`, its problem, options, rescue and
   The same function builds the N=30 window and the N=500 long horizon
   (scripts/bench_all.py `scotty_long_horizon_N500`, whose unconstrained
   row is `dataclasses.replace(problem, constraints=())`).
+* `scotty_reference_problem`, `reference_mpc_options` and
+  `run_reference_mpc`: the C++ reference's own Scotty MPC test
+  (tests/test_bicycle.py:84-165, bicycle_test.cpp:140-360): one lane,
+  N=30, the steering bound as a plain constraint function (dense
+  expansions), the default strong-Wolfe search or sequential
+  backtracking, 200 warm-started resolves driven by
+  `update_linear_costs`, `set_initial_state` and `shift_trajectory`.
 * `bench_options` returns the bench's solver and rescue options;
   `long_horizon_options` the single-solve options of the N=500 rows, and
   `long_horizon_state` their warm start.
@@ -51,14 +62,28 @@ from altro_tpu_torch.models.tile_steps import (
 )
 from altro_tpu_torch.options import SolverOptions
 from altro_tpu_torch.parallel.batch import batch_init_state, solve_lanes
-from altro_tpu_torch.problem import ConstraintSpec, Problem, lqr_cost_from_reference
-from altro_tpu_torch.solver import SolverState, init_state
+from altro_tpu_torch.problem import (
+    ConstraintSpec,
+    DiagonalCost,
+    Problem,
+    lqr_cost_from_reference,
+)
+from altro_tpu_torch.solver import SolverState, init_state, solve
 
 __all__ = [
+    "shift_trajectory",
+    "set_initial_state",
+    "update_linear_costs",
+    "update_tracking_window",
+    "mpc_step",
     "Q_DIAG",
     "R_DIAG",
     "DELTA_MAX",
     "scotty_problem",
+    "scotty_reference_problem",
+    "reference_mpc_options",
+    "ReferenceMPCResult",
+    "run_reference_mpc",
     "bench_options",
     "long_horizon_options",
     "long_horizon_state",
@@ -77,6 +102,62 @@ __all__ = [
 Q_DIAG = 1e-2
 R_DIAG = 1e-3
 DELTA_MAX = 60 * math.pi / 180.0
+
+
+# ---------------------------------------------------------------------------
+# The functional MPC API (one lane; altro_tpu/mpc.py:33-114)
+# ---------------------------------------------------------------------------
+
+
+def shift_trajectory(state: SolverState) -> SolverState:
+    """Shift x, u one step forward (the warm start of the next resolve):
+    x[k] = x[k+1] for k < N, u[k] = u[k+1] for k < N-1, the last entries
+    kept (altro_solver.cpp:283-293). Duals and gains are not shifted."""
+    x = torch.cat([state.x[1:], state.x[-1:]], dim=0)
+    u = torch.cat([state.u[1:], state.u[-1:]], dim=0)
+    return dataclasses.replace(state, x=x, u=u)
+
+
+def set_initial_state(problem: Problem, x0) -> Problem:
+    """Functional SetInitialState (altro_solver.cpp:177-190)."""
+    return dataclasses.replace(
+        problem, x0=torch.as_tensor(x0, dtype=problem.dtype, device=problem.device))
+
+
+def update_linear_costs(problem: Problem, q=None, r=None, c=None) -> Problem:
+    """Replace the linear cost terms (UpdateLinearCosts, altro_solver.cpp:
+    266-281): Q and R stay, q [N+1, n], r [N+1, m] and c [N+1] slide with
+    the reference. Arrays or tensors; each is cast to the cost's dtype and
+    device."""
+    cost = problem.cost
+    kw = {name: torch.as_tensor(v, dtype=cost.q.dtype, device=cost.q.device)
+          for name, v in (("q", q), ("r", r), ("c", c)) if v is not None}
+    return dataclasses.replace(problem, cost=dataclasses.replace(cost, **kw))
+
+
+def update_tracking_window(problem: Problem, x_ref_window, u_ref_window=None) -> Problem:
+    """Point the diagonal tracking cost at a new reference window, (q, r, c)
+    rebuilt from Q and R as SetLQRCost does (altro_solver.cpp:138-172).
+    x_ref_window [N+1, n]; u_ref_window [N+1, m] (zeros when None)."""
+    cost = problem.cost
+    if not isinstance(cost, DiagonalCost):
+        raise TypeError("update_tracking_window requires a DiagonalCost")
+    kw = dict(dtype=cost.Q.dtype, device=cost.Q.device)
+    u_ref = (torch.zeros_like(cost.r) if u_ref_window is None
+             else torch.as_tensor(u_ref_window, **kw))
+    new = lqr_cost_from_reference(cost.Q, cost.R, torch.as_tensor(x_ref_window, **kw), u_ref)
+    return dataclasses.replace(problem, cost=new)
+
+
+def mpc_step(problem: Problem, state: SolverState, x_measured, x_ref_window,
+             u_ref_window=None, opts: SolverOptions = SolverOptions()):
+    """One warm-started MPC tick: slide the tracking window, set the measured
+    initial state, shift the warm start and solve. Returns (u_0, the new
+    state, the solve's stats)."""
+    problem = update_tracking_window(problem, x_ref_window, u_ref_window)
+    problem = set_initial_state(problem, x_measured)
+    new_state, stats = solve(problem, shift_trajectory(state), opts)
+    return new_state.u[0], new_state, stats
 
 
 def _steering_fn(x, u, k):
@@ -123,6 +204,91 @@ def scotty_problem(ref, N: int = 30, *, dtype=torch.float32, device="cuda") -> P
         dynamics_cols=midpoint_cols(bicycle_cols()),
         dynamics_tile=midpoint_tile(bicycle_tile()),
     )
+
+
+def scotty_reference_problem(ref, N: int = 30, *, dtype=torch.float32, device="cuda"):
+    """The reference's Scotty tracking problem and warm start
+    (tests/test_bicycle.py::make_scotty_problem, bicycle_test.cpp:140-245):
+    the bench's model, cost and horizon, the steering bound with its
+    constant Jacobian given (the rows +-e_3, what forward mode gives
+    exactly) but no diagonal-Hessian declaration, so the AL Hessian is
+    dense, as the JAX test runs it; the state at the reference window and
+    u = (u_ref[0][0], 0). Returns (problem, state), one lane."""
+    n, m = 4, 2
+    kw = dict(dtype=dtype, device=device)
+    cost = lqr_cost_from_reference(
+        torch.full((N + 1, n), Q_DIAG, **kw), torch.full((N + 1, m), R_DIAG, **kw),
+        torch.as_tensor(ref.x[: N + 1], **kw), torch.as_tensor(ref.u[: N + 1], **kw))
+    J = torch.zeros((2, n + m), **kw)
+    J[0, 3], J[1, 3] = 1.0, -1.0
+    steering = ConstraintSpec(
+        fn=_steering_fn, cone=Cone.NEGATIVE_ORTHANT, dim=2,
+        active=torch.ones(N + 1, dtype=torch.bool, device=device),
+        jac=_constant_jacobian(J), label="steering bound")
+    problem = Problem(
+        N=N, n=n, m=m, dynamics=midpoint(bicycle_continuous()), dynamics_jac=None,
+        constraints=(steering,), cost=cost,
+        h=torch.full((N,), float(np.float32(ref.tf / ref.N)), **kw),
+        x0=torch.as_tensor(ref.x[0], **kw))
+    st = init_state(problem)
+    u0 = torch.tensor([ref.u[0][0], 0.0], **kw)
+    return problem, dataclasses.replace(st, u=u0.expand(N, m).contiguous(),
+                                        x=torch.as_tensor(ref.x[: N + 1], **kw))
+
+
+def reference_mpc_options() -> SolverOptions:
+    """The reference MPC test's options: 80 iterations, the sequential
+    backtracking search, every other option at its default."""
+    return SolverOptions(iterations_max=80, use_backtracking_linesearch=True)
+
+
+@dataclasses.dataclass
+class ReferenceMPCResult:
+    iterations: list  # [T] iterations per resolve
+    status: list  # [T] SolveStatus per resolve
+    tracking_error: np.ndarray  # [T] |x_sim - x_ref| after each tick, float64
+    state: SolverState  # the final solver state
+    seconds: float  # wall time of the loop (synchronized on CUDA)
+
+
+def run_reference_mpc(problem: Problem, state: SolverState, ref, *, ticks: int = 200,
+                      opts: Optional[SolverOptions] = None) -> ReferenceMPCResult:
+    """The reference's closed loop (tests/test_bicycle.py:119-165): each
+    tick solves, applies u_0 to the plant (the problem's dynamics, in its
+    dtype), slides the tracking terms (q, c) one knot along the path with
+    `update_linear_costs`, sets the measured state with
+    `set_initial_state` and shifts the warm start with `shift_trajectory`.
+    problem, state: from `scotty_reference_problem`; opts default
+    `reference_mpc_options()`."""
+    opts = reference_mpc_options() if opts is None else opts
+    N, n = problem.N, problem.n
+    h = problem.h[0]
+    Qd = np.full(n, Q_DIAG)
+    u0 = np.asarray([ref.u[0][0], 0.0])
+    c_u = 0.5 * float(u0 @ (np.full(problem.m, R_DIAG) * u0))
+    x_sim = problem.x0
+    iters, statuses, x_sims = [], [], []
+    if problem.device.type == "cuda":
+        torch.cuda.synchronize(problem.device)
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        state, stats = solve(problem, state, opts)
+        iters.append(stats.iterations)
+        statuses.append(stats.status)
+        x_sim = problem.dynamics(x_sim, state.u[0], h, 0)
+        x_sims.append(x_sim)
+        window = ref.x[t + 1: t + N + 2]
+        c_new = 0.5 * np.sum(Qd[None, :] * window * window, axis=1)
+        c_new[:N] += c_u
+        problem = update_linear_costs(problem, q=-(Qd[None, :] * window), c=c_new)
+        problem = set_initial_state(problem, x_sim)
+        state = shift_trajectory(state)
+    iters = torch.stack(iters).tolist()
+    statuses = torch.stack(statuses).tolist()
+    xs = torch.stack(x_sims).double().cpu().numpy()
+    seconds = time.perf_counter() - t0
+    errs = np.linalg.norm(xs - ref.x[1: ticks + 1], axis=1)
+    return ReferenceMPCResult(iters, statuses, errs, state, seconds)
 
 
 def bench_options(iterations_max: int = 10, rescue_iterations: int = 10,

@@ -33,8 +33,9 @@ __all__ = ["LAUNCHES", "KERNEL_SHAPES", "riccati_latency_ref", "output_views", "
 # Count of kernel launches (plain integer; the CPU path never adds to it).
 LAUNCHES = 0
 
-# (n, m) pairs the CUDA kernel is instantiated for.
-KERNEL_SHAPES = ((4, 2),)
+# (n, m) pairs the CUDA kernel is instantiated for (csrc/riccati_latency.cu's
+# entry guard and dispatch).
+KERNEL_SHAPES = ((4, 2), (2, 1))
 
 
 def _lane(t):
@@ -51,15 +52,21 @@ def riccati_latency_ref(A, B, lxx, luu, lx, lu, reg=0.0, lux=None, f=None) -> TV
                       g.delta_V[..., 0], g.ok[0], g.fail_index[0])
 
 
+def _pad4(count: int) -> int:
+    """count floats rounded up to whole 16-byte rows."""
+    return -(-count // 4) * 4
+
+
 def output_views(N: int, n: int, m: int, device) -> TVLQRGains:
     """The kernel's outputs as views of ONE float32 buffer: P [N+1, n, n],
-    K [N, m, n], p [N+1, n], d [N, m], delta_V [2] (in that order, so P,
-    K, p and d start 16-byte aligned), then fail_index (int32) and ok
-    (bool), each 0-dim, in the last two words."""
-    oK = (N + 1) * n * n
-    op = oK + N * m * n
-    od = op + (N + 1) * n
-    ov = od + N * m
+    K [N, m, n], p [N+1, n], d [N, m], delta_V [2] (in that order, each
+    starting on a 16-byte boundary: every array is padded to whole
+    16-byte rows), then fail_index (int32) and ok (bool), each 0-dim, in
+    the last two words."""
+    oK = _pad4((N + 1) * n * n)
+    op = oK + _pad4(N * m * n)
+    od = op + _pad4((N + 1) * n)
+    ov = od + _pad4(N * m)
     buf = torch.empty(ov + 4, dtype=torch.float32, device=device)
     flags = buf[ov + 2:].view(torch.int32)
     return TVLQRGains(buf.as_strided((N, m, n), (m * n, n, 1), oK),

@@ -3,11 +3,12 @@
 Counterpart: altro_tpu/solver.py (`SolverState`, `SolveStats`,
 `init_state`, `stationarity`, `feasibility`, `complementarity`,
 `total_cost`, and the single-lane `solve` with its helpers:
-`open_loop_rollout`, `merit_rollout_phi_x`, `light_from_xstack`,
-`al_gradients`, `complete_merit_payload`, `merit0_derivative`,
-`dynamics_expansions`, `_cost_expansions_and_cost_diag`, `_retry_loop`,
-`backward_adaptive`, `_alpha0_merit_out`, `_trajectory_convals`). The
-batched solve is tile_solver.solve_tiled.
+`open_loop_rollout`, `merit_function`, `merit_rollout_phi_x`,
+`light_from_xstack`, `al_gradients`, `complete_merit_payload`,
+`merit0_derivative`, `dynamics_expansions`, `_cost_expansions_and_cost`,
+`_cost_expansions_and_cost_diag`, `_retry_loop`, `backward_adaptive`,
+`_alpha0_merit_out`, `_trajectory_convals`). The batched solve is
+tile_solver.solve_tiled.
 
 `SolverState` and `SolveStats` hold tensors in either layout: one lane
 (the JAX layout, `x [N+1, n]`, scalars 0-dim), batch-major ([B, ...])
@@ -16,17 +17,26 @@ or lane-minor ([..., B], inside the batched solve). The measures
 value per lane, [B]; the single-lane helpers take the one-lane layout and
 run the lane-minor blocks of ops/tile_iter.py and al.py with B = 1.
 
-`solve` ports the phase-split x-only grid branch of the JAX solve
-(solver.py:900-981) on a diagonal-expansion problem: the single-lane
-backward pass (ops/packed_backward.py, the kernel on the card) with the
-adaptive-regularization retry, the grid line search
-(linesearch.parallel_backtracking_search_split) through the single-lane
-trial rollout (ops/trial_rollout.py) when `pallas_rollout`, else through
-the problem's own dynamics and AL cost; the status chain, the dual/penalty
-update and ls_failure_recovery. The JAX `lax.while_loop` becomes a Python loop with
-one host sync per iteration on `stop` (plus one per backward retry and
-per extra grid block). Options it does not implement raise
-NotImplementedError naming the option (`single_lane_refusal`).
+`solve` ports the JAX solve's line-search branches (solver.py:900-1007)
+with diagonal or dense expansions (:745-752): the single-lane backward
+pass (ops/packed_backward.py, the kernel on the card) with the
+adaptive-regularization retry; then one of
+  * the strong-Wolfe cubic search or, with use_backtracking_linesearch,
+    the sequential backtracking (linesearch.wolfe_line_search, the
+    default options) over `merit_function`;
+  * the non-split grid (parallel_linesearch without ls_phase_split,
+    linesearch.parallel_backtracking_search) through the problem's own
+    dynamics and AL cost;
+  * the phase-split x-only grid (linesearch.
+    parallel_backtracking_search_split) through the single-lane trial
+    rollout (ops/trial_rollout.py) when `pallas_rollout`, else through
+    the problem's own dynamics and AL cost;
+and the status chain, the dual/penalty update and ls_failure_recovery.
+The JAX `lax.while_loop` becomes a Python loop with one host sync per
+iteration on `stop` (plus one per backward retry, per extra grid block
+and per strong-Wolfe trial). Options it does not implement raise
+NotImplementedError naming the option (`single_lane_refusal`), as does a
+CUDA problem the kernels cannot take.
 """
 
 from __future__ import annotations
@@ -41,13 +51,16 @@ import torch
 from altro_tpu_torch import al, cones
 from altro_tpu_torch.linesearch import (
     LineSearchOptions,
+    parallel_backtracking_search,
     parallel_backtracking_search_split,
     tree_map,
+    wolfe_line_search,
 )
 from altro_tpu_torch.ops import tile_iter as ti
 from altro_tpu_torch.ops.packed_backward import tvlqr_backward_latency
+from altro_tpu_torch.ops import riccati_latency as rl
 from altro_tpu_torch.ops.riccati_latency import riccati_latency_ref
-from altro_tpu_torch.ops.rollout_grid import affine_constraint_stacks, rollout_grid_ref
+from altro_tpu_torch.ops.rollout_grid import affine_constraint_stacks
 from altro_tpu_torch.ops.trial_rollout import problem_ineligibility, trial_rollout
 from altro_tpu_torch.options import SolverOptions, Verbosity
 from altro_tpu_torch.problem import Problem
@@ -61,6 +74,8 @@ __all__ = [
     "single_lane_refusal",
     "grid_search_refusal",
     "open_loop_rollout",
+    "MeritOut",
+    "merit_function",
     "merit_rollout_phi_x",
     "light_from_xstack",
     "complete_merit_payload",
@@ -262,10 +277,34 @@ def open_loop_rollout(problem: Problem, u, x0=None):
 def merit_rollout_phi_x(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0):
     """Trial rollouts through the problem's own dynamics and AL cost, for
     every alpha of alphas [W] at once (the JAX function vmapped over
-    alpha). Returns (phi [W], xstack [W, N+1, n])."""
-    phi, xs = rollout_grid_ref(problem, _l(ref_x), _l(ref_u), _l(K), _l(d), _lz(z),
-                               rho.reshape(1), alphas, _l(x0))
-    return _u(phi), _u(xs)
+    alpha). Returns (phi [W], xstack [W, N+1, n]).
+
+    The JAX scan adds each knot's AL cost inside the sequential step; the
+    cost needs only that knot's (x, u), so here the states roll out with
+    the dynamics alone (the trials on the lane axis, a few launches a
+    knot), the AL costs follow in one knot-parallel call, and phi sums
+    them knot by knot in the scan's order."""
+    N, W = problem.N, alphas.shape[0]
+    a = alphas.to(x0.dtype)
+    x = x0[:, None].expand(-1, W)
+    xs, us = [x], []
+    for k in range(N):
+        u = ref_u[k, :, None] - K[k] @ (x - ref_x[k, :, None]) + a * d[k, :, None]
+        x = problem.dyn_step(k, x, u)
+        xs.append(x)
+        us.append(u)
+    ks, kN = _knots(problem, x0.device)
+    rho_w = rho.reshape(1).expand(W)
+    cost, _, _ = al.al_cost(problem, ks, torch.stack(xs[:N]), torch.stack(us),
+                            tuple(zj[:N, :, None].expand(-1, -1, W) for zj in z), rho_w,
+                            terminal=False)
+    cost_N, _, _ = al.al_cost(problem, kN, x[None], None,
+                              tuple(zj[N:, :, None].expand(-1, -1, W) for zj in z), rho_w,
+                              terminal=True)
+    phi = torch.zeros_like(a)
+    for k in range(N):
+        phi = phi + cost[k]
+    return phi + cost_N[0], torch.stack(xs).permute(2, 0, 1)
 
 
 def light_from_xstack(problem: Problem, phi, x, ref_x, ref_u, K, d, P, p, z, rho,
@@ -322,6 +361,48 @@ def complete_merit_payload(problem: Problem, light: MeritOutLight, K, d, z, rho,
         dphi = torch.full((), math.nan, dtype=light.phi.dtype, device=light.phi.device)
     return dphi, MeritOut(light.phi, dphi, light.x, light.u, light.y, A, B, lx, lu,
                           light.convals, light.zproj)
+
+
+def merit_function(problem: Problem, ref_x, ref_u, K, d, P, p, z, rho, alpha, x0,
+                   with_derivative: bool, layer_seconds: Optional[dict] = None) -> MeritOut:
+    """Closed-loop rollout + AL cost + analytic dphi/dalpha at one alpha
+    (the reference's MeritFunction, solver.cpp:273-355): the policy
+    u = u_ref - K (x - x_ref) + alpha d, the dual estimate
+    y = P (x - x_ref) + p, and the directional derivative by the forward
+    sensitivity recurrence du/da = -K dx/da + d, dx'/da = A dx/da + B du/da,
+    dphi = sum lx.dx/da + lu.du/da.
+
+    The JAX function steps one knot at a time and takes the Jacobians
+    inside that scan. Here the states roll out with the dynamics alone
+    (`merit_rollout_phi_x`, one trial); u, y, the constraint values and
+    the projected duals follow knot-parallel (`light_from_xstack`); the
+    N Jacobians and AL gradients in one knot-parallel call each, then the
+    recurrence over them (`complete_merit_payload`). The same values, to
+    roundoff. with_derivative=False returns zeros for A, B, lx, lu and
+    dphi, as JAX does. layer_seconds: a dict that gains the host seconds
+    of the rollout (`grid`) and of the rest (`completion`)."""
+    alpha = torch.as_tensor(alpha, dtype=x0.dtype, device=x0.device)
+    with _Span(layer_seconds, "grid"):
+        phi, xs = merit_rollout_phi_x(problem, ref_x, ref_u, K, d, z, rho, alpha.reshape(1), x0)
+    with _Span(layer_seconds, "completion"):
+        light = light_from_xstack(problem, phi[0], xs[0], ref_x, ref_u, K, d, P, p, z, rho,
+                                  alpha)
+        if with_derivative:
+            return complete_merit_payload(problem, light, K, d, z, rho)[1]
+    N, n, m = problem.N, problem.n, problem.m
+    zeros = light.x.new_zeros
+    return MeritOut(light.phi, zeros(()), light.x, light.u, light.y, zeros((N, n, n)),
+                    zeros((N, n, m)), zeros((N + 1, n)), zeros((N, m)), light.convals,
+                    light.zproj)
+
+
+def _cost_expansions_and_cost(problem: Problem, x, u, z, rho):
+    """Dense Gauss-Newton AL cost expansions and the total AL cost at a
+    trajectory: (lx, lu, lxx [N+1, n, n], luu [N, m, m], lux [N, m, n],
+    al_cost)."""
+    lx, lu, lxx, luu, lux, phi0 = ti.cost_expansions_tiled(
+        problem, _l(x), _l(u), _lz(z), rho.reshape(1), diag=False)
+    return _u(lx), _u(lu), _u(lxx), _u(luu), _u(lux), phi0[0]
 
 
 def _cost_expansions_and_cost_diag(problem: Problem, x, u, z, rho):
@@ -383,15 +464,17 @@ def _alpha0_merit_out(problem: Problem, x, u, z, rho, convals, A, B, lx, lu, gai
 
 
 def grid_search_refusal(opts: SolverOptions) -> Optional[str]:
-    """Why the port's solves (this module's `solve` and the vmapped solve
-    of parallel/batch.py) cannot run these options, or None: both search
-    the phase-split x-only grid and report nothing along the way."""
+    """Why the batched solves (the vmapped solve of parallel/batch.py) cannot
+    run these options, or None: they search the phase-split x-only grid
+    in lockstep and report nothing along the way."""
     checks = (
         (not opts.parallel_linesearch, "parallel_linesearch=False (the sequential "
-                                       "strong-Wolfe search) is not ported"),
+                                       "strong-Wolfe search) is not ported for the batched "
+                                       "solves (the single-lane solve runs it)"),
         (not opts.use_backtracking_linesearch, "use_backtracking_linesearch=False is not "
                                                "ported (the grid search backtracks)"),
-        (not opts.ls_phase_split, "ls_phase_split=False (the non-split grid) is not ported"),
+        (not opts.ls_phase_split, "ls_phase_split=False (the non-split grid) is not ported "
+                                  "for the batched solves (the single-lane solve runs it)"),
         (not opts.ls_grid_x_only, "ls_grid_x_only=False (the light-payload grid) is not "
                                   "ported"),
         (opts.parallel_riccati, "parallel_riccati is not ported"),
@@ -402,24 +485,55 @@ def grid_search_refusal(opts: SolverOptions) -> Optional[str]:
     return next((why for bad, why in checks if bad), None)
 
 
+def _phase_split(opts: SolverOptions) -> bool:
+    """True when the solve searches the phase-split x-only grid."""
+    return opts.parallel_linesearch and opts.ls_phase_split
+
+
 def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
-    """Why `solve` does not implement this configuration, or None."""
+    """Why `solve` does not run this configuration, or None: an option it
+    does not implement, or, on a CUDA problem, a kernel that cannot take
+    it (checked before anything launches; the plain paths are selected by
+    pallas_latency_backward=False and pallas_rollout=False)."""
     checks = (
         (opts.rti_mode, "rti_mode (the real-time iteration) is not ported for the "
                         "single-lane solve"),
         (opts.pallas_backward, "pallas_backward (the batch-major fused backward) is not "
                                "ported for the single-lane solve"),
-        (not opts.diag_expansion, "diag_expansion=False (dense expansions) is not ported"),
-        (not al.diag_expansion_eligible(problem),
-         "dense expansions are not ported: the cost is not a DiagonalCost or a "
-         "constraint group lacks diag_hessian"),
+        (opts.parallel_riccati, "parallel_riccati is not ported"),
+        (opts.exact_al_hessian, "exact_al_hessian is not ported"),
+        (opts.iteration_callback is not None, "iteration_callback is not ported"),
+        (opts.verbose != Verbosity.SILENT, "verbose output is not ported"),
+        (_phase_split(opts) and not opts.ls_grid_x_only,
+         "ls_grid_x_only=False (the light-payload grid) is not ported"),
     )
-    why = next((why for bad, why in checks if bad), None) or grid_search_refusal(opts)
-    grid_why = problem_ineligibility(problem) if opts.pallas_rollout else None
-    if why is None and grid_why is not None:
-        why = (f"pallas_rollout (the trial-rollout grid) cannot take this problem: "
-               f"{grid_why}; pallas_rollout=False selects the problem's own grid")
-    return why
+    why = next((why for bad, why in checks if bad), None)
+    if why is not None:
+        return why
+    kernel_grid = _phase_split(opts) and opts.pallas_rollout
+    if kernel_grid:
+        grid_why = problem_ineligibility(problem)
+        if grid_why is not None:
+            return (f"pallas_rollout (the trial-rollout grid) cannot take this problem: "
+                    f"{grid_why}; pallas_rollout=False selects the problem's own grid")
+    if problem.device.type != "cuda":
+        return None
+    f32 = problem.dtype == torch.float32
+    if opts.pallas_latency_backward:
+        bad = []
+        if (problem.n, problem.m) not in rl.KERNEL_SHAPES:
+            bad.append(f"no instantiation for n={problem.n}, m={problem.m} (it has "
+                       f"{', '.join(map(str, rl.KERNEL_SHAPES))})")
+        if not f32:
+            bad.append(f"{problem.dtype} (it takes float32)")
+        if bad:
+            return (f"pallas_latency_backward: the backward kernel (riccati_latency): "
+                    f"{', '.join(bad)}; pallas_latency_backward=False selects the plain "
+                    f"backward")
+    if kernel_grid and not f32:
+        return (f"pallas_rollout: the trial-rollout kernel takes float32, not "
+                f"{problem.dtype}; pallas_rollout=False selects the problem's own grid")
+    return None
 
 
 def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOptions(),
@@ -428,19 +542,31 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
     the one-lane layout (problem.x0 [n], state.x [N+1, n], scalars 0-dim).
 
     On CUDA tensors the backward pass and the trial rollout run their
-    kernels (float32) or raise; on CPU tensors their plain versions run.
-    `pallas_rollout` needs a problem with a block step, a diagonal cost
-    and only affine NEGATIVE_ORTHANT groups on every device (the JAX solve
-    falls back to the plain grid instead; here that is refused with its
-    reason). `pallas_latency_backward=False` and `pallas_rollout=False`
-    select the plain paths on any device.
+    kernels (float32) or the solve is refused before it starts
+    (`single_lane_refusal`); on CPU tensors their plain versions run.
+    The phase-split grid with `pallas_rollout` needs a problem with a
+    block step, a diagonal cost and only affine NEGATIVE_ORTHANT groups on
+    every device (the JAX solve falls back to the plain grid instead; here
+    that is refused with its reason). `pallas_latency_backward=False` and
+    `pallas_rollout=False` select the plain paths on any device. The
+    strong-Wolfe search and the non-split grid evaluate the merit through
+    the problem's own dynamics and AL cost (`merit_function`), as JAX's do.
 
     layer_seconds: a dict to accumulate host seconds per layer into:
     open_loop_rollout, expansions, backward (with its retry syncs),
-    line_search (inclusive of grid and completion, and of its per-block
-    syncs), grid, completion, update (criteria, duals, status) and sync
-    (the iteration's wait on `stop`).
+    line_search (inclusive of what follows, and of its syncs: one per
+    grid block beyond the first, one per strong-Wolfe trial), grid (the
+    trial rollouts: the grid's, or each strong-Wolfe trial's), completion
+    (payload and dphi of a trial), update (criteria, duals, status) and
+    sync (the iteration's wait on `stop`).
     """
+    if opts.ls_armijo_only and not (opts.rti_mode or opts.ls_phase_split):
+        raise ValueError(
+            "ls_armijo_only requires ls_phase_split (or rti_mode): without the phase-split "
+            "line search the directional derivative is computed inside the merit rollout "
+            "and cannot be skipped")
+    if opts.parallel_linesearch and not opts.use_backtracking_linesearch:
+        raise ValueError("parallel_linesearch requires use_backtracking_linesearch")
     why = single_lane_refusal(problem, opts)
     if why is not None:
         raise NotImplementedError(f"solve: {why}")
@@ -472,11 +598,17 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
         convals = _trajectory_convals(problem, x, u)
         A, B = dynamics_expansions(problem, x, u)
 
+    # dense expansions unless the AL Hessian is diagonal (altro_tpu/
+    # solver.py:745-752; pallas_backward, parallel_riccati and
+    # exact_al_hessian are refused)
+    diag_mode = opts.diag_expansion and al.diag_expansion_eligible(problem)
+    expand = _cost_expansions_and_cost_diag if diag_mode else _cost_expansions_and_cost
+
     # the trial-rollout grid (single_lane_refusal checked that the problem
     # has its block step, diagonal cost and affine NEGATIVE_ORTHANT groups;
     # their rows are extracted once)
     cost = problem.cost
-    kernel_grid = opts.pallas_rollout
+    kernel_grid = _phase_split(opts) and opts.pallas_rollout
     rollout_con = None
     if kernel_grid and problem.constraints:
         ax, au, g_raw, act = affine_constraint_stacks(problem)
@@ -504,8 +636,7 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
     while it < opts.iterations_max and not stop:
         # 1-2. expansions at the reference trajectory + backward with retry
         with span("expansions"):
-            lx, lu, lxx, luu, lux, phi0 = _cost_expansions_and_cost_diag(
-                problem, x, u, z, rho)
+            lx, lu, lxx, luu, lux, phi0 = expand(problem, x, u, z, rho)
         with span("backward"):
             gains, reg_used = backward_adaptive(opts, A, B, lxx, luu, lux, lx, lu, reg)
         bp_failed = ~gains.ok
@@ -517,12 +648,17 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
             aux0 = _alpha0_merit_out(problem, x, u, z, rho, convals, A, B, lx, lu, gains,
                                      phi0, dphi0)
 
-        # 4. phase-split x-only grid line search (the closures run inside
-        #    this iteration's search, on this iteration's values)
+        # 4. line search (the closures run inside this iteration's search,
+        #    on this iteration's values)
         def reconstruct(xstack, a, ph):
             with span("completion"):
                 return light_from_xstack(problem, ph, xstack, x, u, gains.K, gains.d,
                                          gains.P, gains.p, z, rho, a)
+
+        def complete(light, with_dphi=True):
+            with span("completion"):
+                return complete_merit_payload(problem, light, gains.K, gains.d, z, rho,
+                                              with_dphi=with_dphi)
 
         if kernel_grid:
             con = None
@@ -542,17 +678,30 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
                     return merit_rollout_phi_x(problem, x, u, gains.K, gains.d, z, rho,
                                                alphas, x0)
 
-        def complete(light, with_dphi=True):
-            with span("completion"):
-                return complete_merit_payload(problem, light, gains.K, gains.d, z, rho,
-                                              with_dphi=with_dphi)
-
         with span("line_search"):
-            ls = parallel_backtracking_search_split(
-                None, complete, phi0, dphi0, 1.0, ls_opts, width=opts.ls_parallel_width,
-                armijo_only=opts.ls_armijo_only, reconstruct=reconstruct,
-                merit_grid=merit_grid,
-                best_decrease_fallback=opts.ls_best_decrease_fallback)
+            if _phase_split(opts):
+                ls = parallel_backtracking_search_split(
+                    None, complete, phi0, dphi0, 1.0, ls_opts, width=opts.ls_parallel_width,
+                    armijo_only=opts.ls_armijo_only, reconstruct=reconstruct,
+                    merit_grid=merit_grid,
+                    best_decrease_fallback=opts.ls_best_decrease_fallback)
+            elif opts.parallel_linesearch:
+                ls = parallel_backtracking_search(
+                    None, phi0, dphi0, 1.0, ls_opts, width=opts.ls_parallel_width,
+                    merit_grid=merit_grid, reconstruct=reconstruct, complete=complete)
+            else:
+                def merit_full(alpha):
+                    out = merit_function(problem, x, u, gains.K, gains.d, gains.P, gains.p,
+                                         z, rho, alpha, x0, True, layer_seconds)
+                    return out.phi, out.dphi, out
+
+                def merit_light(alpha):  # a backtracking trial: phi and its states
+                    phi_a, xs = merit_grid(alpha.reshape(1))
+                    return phi_a[0], (xs[0], alpha, phi_a[0])
+
+                ls = wolfe_line_search(merit_full, None, phi0, dphi0, 1.0, ls_opts, aux0=aux0,
+                                       merit_light=merit_light,
+                                       complete=lambda light: complete(reconstruct(*light)))
         with span("update"):
             alpha = torch.where(grad_small, zero, ls.alpha)
             ls_ok = (ls.code == int(LineSearchCode.MINIMUM_FOUND)) | (

@@ -206,11 +206,12 @@ LATENCY_N = [1, 63, 64, 65, 150, 500]
 LATENCY_VARIANTS = list(itertools.product([True, False], repeat=4))  # diag_x, diag_u, lux, f
 
 
-def _latency_inputs(dev, Nk, diag_x, diag_u, with_lux, with_f, fail_at=None, seed=2):
-    """Single-lane backward operands: SPD dense or positive diagonal cost
-    blocks, lux and f when asked, knot fail_at made indefinite."""
+def _latency_inputs(dev, Nk, diag_x, diag_u, with_lux, with_f, fail_at=None, seed=2, n=4,
+                    m=2):
+    """Single-lane backward operands at (n, m): SPD dense or positive
+    diagonal cost blocks, lux and f when asked, knot fail_at made
+    indefinite."""
     rng = np.random.default_rng(seed)
-    n, m = 4, 2
     A = np.eye(n)[None] + 0.05 * rng.standard_normal((Nk, n, n))
     Bm = 0.3 * rng.standard_normal((Nk, n, m))
     if diag_x:
@@ -242,11 +243,19 @@ def test_riccati_latency_kernel_matches_plain(dev, diag_x, diag_u, with_lux, wit
     """Every (diag_x, diag_u, lux, f) instantiation at every chunk edge:
     no failing knot, and one at the first, a middle and the last knot,
     with reg 0 and > 0 (a Python number and a CUDA tensor)."""
+    _check_latency(dev, Nk, diag_x, diag_u, with_lux, with_f, 4, 2)
+
+
+def _check_latency(dev, Nk, diag_x, diag_u, with_lux, with_f, n, m):
+    """The kernel against its plain version at (n, m): no failing knot, and
+    one at the first, a middle and the last knot, with reg 0 and > 0 (a
+    Python number and a CUDA tensor)."""
     from altro_tpu_torch.ops import riccati_latency as rl
 
     for fail_at, reg in ((None, 0.0), (0, 0.01), (Nk // 2, 0.0),
                          (Nk - 1, torch.tensor(0.01, device=dev))):
-        args, extra = _latency_inputs(dev, Nk, diag_x, diag_u, with_lux, with_f, fail_at)
+        args, extra = _latency_inputs(dev, Nk, diag_x, diag_u, with_lux, with_f, fail_at,
+                                      n=n, m=m)
         before = rl.LAUNCHES
         gk = rl.riccati_latency(*args, reg, **extra)
         gr = rl.riccati_latency_ref(*args, reg, **extra)
@@ -262,6 +271,69 @@ def test_riccati_latency_kernel_matches_plain(dev, diag_x, diag_u, with_lux, wit
         if fail_at is not None:
             assert int(gk.fail_index) <= fail_at
             assert float(gk.K[fail_at].abs().max()) == 0.0 == float(gk.d[fail_at].abs().max())
+
+
+@pytest.mark.parametrize("diag_x, diag_u, with_lux, with_f", LATENCY_VARIANTS)
+@pytest.mark.parametrize("Nk", [1, 10, 30, 500])
+@pytest.mark.parametrize("n, m", [(2, 1), (4, 2)])
+def test_riccati_latency_kernel_shapes_match_plain(dev, n, m, diag_x, diag_u, with_lux, with_f,
+                                                   Nk):
+    """Both instantiated shapes, the pendulum's (2, 1) and the bicycle's
+    (4, 2), at the horizons the default-options solves run (the double
+    integrator's N=10 below one 64-knot chunk, the Scotty window's 30)
+    and the long horizon, every (diag_x, diag_u, lux, f) variant, with a
+    planted failing knot."""
+    _check_latency(dev, Nk, diag_x, diag_u, with_lux, with_f, n, m)
+
+
+def test_default_options_solves_launch_the_latency_kernel(dev):
+    """`solver.solve` with default SolverOptions() (the strong-Wolfe
+    search) on the card: the Scotty single solve (4, 2), dense
+    expansions, and the unconstrained pendulum swing-up (2, 1), both f32:
+    SUCCESS, and the backward ran as the kernel."""
+    import dataclasses
+
+    from altro_tpu_torch import mpc, solver
+    from altro_tpu_torch import reference_problems as rp
+    from altro_tpu_torch.io.scotty import load_scotty
+    from altro_tpu_torch.ops import riccati_latency as rl
+    from altro_tpu_torch.options import SolverOptions
+
+    prob, st = mpc.scotty_reference_problem(load_scotty(), N=30, device=dev)
+    before = rl.LAUNCHES
+    state, stats = solver.solve(prob, st, SolverOptions(iterations_max=80))
+    assert rl.LAUNCHES > before
+    assert int(stats.status) == 0 and bool(torch.isfinite(state.x).all())
+
+    prob = rp.pendulum_problem(50, 3.0, device=dev)
+    st = solver.init_state(prob)
+    st = dataclasses.replace(st, u=torch.full_like(st.u, 0.1))
+    before = rl.LAUNCHES
+    state, stats = solver.solve(prob, st, SolverOptions(iterations_max=20))
+    assert rl.LAUNCHES > before and int(stats.status) == 0
+    xN = state.x[-1].double().cpu().numpy()
+    assert np.linalg.norm(xN - [3.12099917161669, 0.0011966258762942175]) < 1e-3
+
+
+def test_refused_default_solve_launches_nothing(dev):
+    """A float64 problem under default options (pallas_latency_backward)
+    is refused before anything launches, naming the kernel and the way to
+    the plain backward; that way solves."""
+    from altro_tpu_torch import mpc, solver
+    from altro_tpu_torch.io.scotty import load_scotty
+    from altro_tpu_torch.ops import riccati_latency as rl
+    from altro_tpu_torch.options import SolverOptions
+
+    prob, st = mpc.scotty_reference_problem(load_scotty(), N=30, dtype=torch.float64,
+                                            device=dev)
+    before = rl.LAUNCHES
+    with pytest.raises(NotImplementedError,
+                       match=r"riccati_latency.*float64.*pallas_latency_backward=False"):
+        solver.solve(prob, st, SolverOptions(iterations_max=80))
+    assert rl.LAUNCHES == before
+    _, stats = solver.solve(prob, st, SolverOptions(iterations_max=80,
+                                                    pallas_latency_backward=False))
+    assert rl.LAUNCHES == before and int(stats.status) == 0
 
 
 def test_riccati_latency_kernel_refuses_what_it_does_not_implement(dev):

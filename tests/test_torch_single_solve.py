@@ -13,6 +13,11 @@ well conditioned: from steering near +-pi/2 (the tangent's pole) the
 closed loop amplifies roundoff so strongly that no two implementations
 agree.
 
+The options the solve refuses, each by name, and the three it ran
+only after the strong-Wolfe search, the non-split grid and dense
+expansions were ported (the sequential backtracking, the non-split grid,
+dense expansions), each against the JAX solve.
+
 `linesearch.parallel_backtracking_search_split` against the JAX search
 on synthetic merits: one that first passes Armijo in block 2 (with and
 without the strong-Wolfe test of trial 0), and one that never passes and
@@ -115,18 +120,46 @@ def test_solve_matches_jax_solve_f64(variant, offset, override):
         assert float(stats.merit_value) != float(stats.objective_value)
 
 
-def test_solve_refuses_unported_options():
+@pytest.mark.parametrize("kw,word", [
+    (dict(rti_mode=True), "rti_mode"),
+    (dict(pallas_backward=True), "pallas_backward"),
+    (dict(iteration_callback=print), "iteration_callback"),
+    (dict(verbose=2), "verbose"),
+    (dict(exact_al_hessian=True), "exact_al_hessian"),
+    (dict(parallel_riccati=True), "parallel_riccati"),
+    (dict(ls_grid_x_only=False), "ls_grid_x_only"),
+], ids=["rti_mode", "pallas_backward", "iteration_callback", "verbose", "exact_al_hessian",
+        "parallel_riccati", "ls_grid_x_only"])
+def test_solve_refuses_unported_options(kw, word):
     ref = load_scotty()
     prob = mpc.scotty_problem(ref, N=6, dtype=torch.float64, device="cpu")
     st = mpc.long_horizon_state(prob, ref)
-    for kw, word in ((dict(parallel_linesearch=False), "parallel_linesearch"),
-                     (dict(ls_phase_split=False), "ls_phase_split"),
-                     (dict(rti_mode=True), "rti_mode"),
-                     (dict(pallas_backward=True), "pallas_backward"),
-                     (dict(diag_expansion=False), "diag_expansion"),
-                     (dict(iteration_callback=print), "iteration_callback")):
-        with pytest.raises(NotImplementedError, match=word):
-            solver.solve(prob, st, T_OPTS.replace(**kw))
+    with pytest.raises(NotImplementedError, match=word):
+        solver.solve(prob, st, T_OPTS.replace(**kw))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(parallel_linesearch=False, ls_armijo_only=False),
+    dict(ls_phase_split=False, ls_armijo_only=False),
+    dict(diag_expansion=False),
+], ids=["sequential_backtracking", "non_split_grid", "dense_expansions"])
+def test_solve_runs_formerly_refused_options(kw):
+    """The options the solve refused before the strong-Wolfe search, the
+    non-split grid and dense expansions were ported: the sequential
+    backtracking search, the non-split grid and dense expansions (with
+    the trial-rollout grid) now solve, as JAX's solve does: status,
+    iterations and ls_iterations equal, x and u to 1e-8."""
+    opts = T_OPTS.replace(**kw)
+    x0 = REF.x[0] + np.asarray(STARTS[0][1])
+    j_state, j_stats = _jax_solve(True, x0, opts)
+    ref = load_scotty()
+    prob = dataclasses.replace(mpc.scotty_problem(ref, N=N, dtype=torch.float64, device="cpu"),
+                               x0=torch.as_tensor(x0))
+    state, stats = solver.solve(prob, mpc.long_horizon_state(prob, ref), opts)
+    for k in ("status", "iterations", "ls_iterations", "bp_fail_index"):
+        assert int(getattr(stats, k)) == int(getattr(j_stats, k)), k
+    np.testing.assert_allclose(state.x.numpy(), np.asarray(j_state.x), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(state.u.numpy(), np.asarray(j_state.u), rtol=0, atol=1e-8)
 
 
 @pytest.mark.parametrize("case,word", [("no_block_step", "no block step"),
