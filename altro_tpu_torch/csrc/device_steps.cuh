@@ -12,6 +12,12 @@
 //   midpoint step (csrc/rollout_grid.cu); csrc/trial_rollout.cu calls
 //   `terms` and `f` itself, to split the steering angle's terms between
 //   two lanes.
+//   model 1, integrator 1: QuadrotorRK4, the twin of
+//   rk4_cols(quadrotor_cols(mass, gravity, arm, kf, km, inertia)) and of
+//   rk4_tile(quadrotor_tile(...)): `f` is quadrotor_cols' right-hand side
+//   (three sine-cosine pairs for roll, pitch and yaw, two divides by
+//   cos(pitch)), `step` the classic RK4 with the stages and the update
+//   x + (h/6)(k1 + 2 k2 + 2 k3 + k4) summed in that order.
 // Built without --use_fast_math, so sinf/cosf/sincosf/tanf/sqrtf are the
 // accurate library versions.
 
@@ -87,6 +93,78 @@ struct BicycleFrame {
     f(xm, u, terms(xm[3]), fm);
 #pragma unroll
     for (int i = 0; i < NS; ++i) x[i] = x[i] + h * fm[i];
+  }
+};
+
+// The planar-attitude quadrotor (n = 12: position, roll-pitch-yaw,
+// velocity, body rates; m = 4 rotor thrusts) under classic RK4. Each
+// expression keeps quadrotor_cols' order of operations (the compiler may
+// still contract a product and a sum into one FMA).
+struct QuadrotorRK4 {
+  static constexpr int NS = 12;
+  static constexpr int NI = 4;
+  float mass, gravity, arm, kf, km, Jx, Jy, Jz;
+
+  __device__ __forceinline__ void f(const float x[NS], const float u[NI], float out[NS]) const {
+    const float wx = x[9], wy = x[10], wz = x[11];
+    const float w0 = kf * u[0], w1 = kf * u[1], w2 = kf * u[2], w3 = kf * u[3];
+    float cr, sr, cp, sp, cy, sy;
+    sincosf(x[3], &sr, &cr);
+    sincosf(x[4], &sp, &cp);
+    sincosf(x[5], &sy, &cy);
+
+    const float T = (w0 + w1 + w2 + w3) / mass;
+    const float ax = (cy * sp * cr + sy * sr) * T;
+    const float ay = (sy * sp * cr - cy * sr) * T;
+    const float az = cp * cr * T - gravity;
+
+    const float tx = arm * (w1 - w3);
+    const float ty = arm * (w2 - w0);
+    const float tz = km * (w0 - w1 + w2 - w3);
+    const float wdx = (tx - (wy * Jz * wz - wz * Jy * wy)) / Jx;
+    const float wdy = (ty - (wz * Jx * wx - wx * Jz * wz)) / Jy;
+    const float wdz = (tz - (wx * Jy * wy - wy * Jx * wx)) / Jz;
+
+    const float tp = sp / cp;
+    out[0] = x[6];
+    out[1] = x[7];
+    out[2] = x[8];
+    out[3] = wx + sr * tp * wy + cr * tp * wz;
+    out[4] = cr * wy - sr * wz;
+    out[5] = (sr * wy + cr * wz) / cp;
+    out[6] = ax;
+    out[7] = ay;
+    out[8] = az;
+    out[9] = wdx;
+    out[10] = wdy;
+    out[11] = wdz;
+  }
+
+  // classic RK4; the stage sum is kept as it grows, ((k1 + 2 k2) + 2 k3) + k4
+  __device__ __forceinline__ void step(float x[NS], const float u[NI], float h) const {
+    float k[NS], xs[NS], acc[NS];
+    f(x, u, k);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      acc[i] = k[i];
+      xs[i] = x[i] + 0.5f * h * k[i];
+    }
+    f(xs, u, k);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      acc[i] = acc[i] + 2.0f * k[i];
+      xs[i] = x[i] + 0.5f * h * k[i];
+    }
+    f(xs, u, k);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      acc[i] = acc[i] + 2.0f * k[i];
+      xs[i] = x[i] + h * k[i];
+    }
+    f(xs, u, k);
+    const float h6 = h / 6.0f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) x[i] = x[i] + h6 * (acc[i] + k[i]);
   }
 };
 

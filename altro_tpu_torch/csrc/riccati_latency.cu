@@ -1,5 +1,5 @@
 // Single-lane Riccati backward pass (latency kernel) for Hopper (sm_90a):
-// one warp computes each knot together, three warps copy.
+// one warp (five at (12, 4)) computes each knot together, three warps copy.
 //
 // Replaces: altro_tpu/ops/pallas_packed.py::riccati_backward_pallas_packed
 // (its Pallas `_kernel` / `_knot_body`): the whole N-knot backward chain of
@@ -14,13 +14,17 @@
 // the next one's, so the time is N times the latency of one knot's
 // dependent arithmetic: P' -> [A B]'P'[A B] -> the pivots of Quu + reg I ->
 // [K | d] -> P, p. One thread doing all of it issues every multiply-add
-// of the knot alone, 20 IEEE divides among them.
+// of the knot alone, 20 IEEE divides among them. At (12, 4), N=30 with
+// diagonal costs (the quadrotor's single-lane solve) a knot reads 224
+// floats and writes 208 (about 52 KB in all: 0.016 us at 3.35 TB/s); the chain
+// again bounds it, each knot's Q-block entry a 12-term sum of 12-term sums.
 //
-// What the design does about it: one block of 128 threads, launched once.
-// Warp 0 computes each knot in two phases, with the carry (P', p'), the
-// Q blocks and the gradient exchanged through shared memory and a
-// __syncwarp() between the phases (counts at (n, m) = (4, 2); at (2, 1):
-// 6 Q entries and 3 gradient rows, then 3 entries of P and 2 of p):
+// What the design does about it: one block, launched once. The compute
+// warps (one at (4, 2) and (2, 1): 128 threads in all) compute each knot
+// in two phases, with the carry (P', p'), the Q blocks and the gradient
+// exchanged through shared memory and a __syncwarp() between the phases
+// (counts at (n, m) = (4, 2); at (2, 1): 6 Q entries and 3 gradient rows,
+// then 3 entries of P and 2 of p):
 //   A. lane t owns one of the 21 distinct entries of the Q blocks
 //      (Qxx upper triangle, Qux, Quu lower triangle) or one of the 6 rows
 //      of the gradient: it forms its column of P'[A B] (or P'f + p') in
@@ -31,20 +35,26 @@
 //      [Qux | -Qu] its item needs with multiply-adds only, and writes one
 //      of the 10 distinct entries of the new P (mirrored) or one of the 4
 //      of p, and of K, d and dV.
-// Each lane's operands of the next knot (its two columns of [A B] or f,
-// and its cost term) are read from the staged chunk into registers while
-// phase B runs. (n, m), diag_x, diag_u, lux and f are template parameters
-// (16 instantiations per shape, chosen once on the host; shapes (4, 2) and
-// (2, 1)) and every layout offset is a compile-time constant. Every
-// per-chunk array of shared memory holds CH = 64 knots, so each starts on
-// a 16-byte boundary at any (n, m). Warps 1-3 stage the operands in chunks of CH
-// knots, double-buffered, with 16-byte cp.async where a slice is 16-byte
-// aligned (one float a copy where not), and write the outputs of the
-// chunk before back from their staging. Chunks are handed over by named
-// barriers: the copy warps arrive at FULL(b) when buffer b holds a chunk
-// and warp 0 syncs on it; warp 0 arrives at DONE(b) when it has finished
-// with buffer b and the copy warps sync on it. So warp 0 waits only when a
-// chunk is not staged yet.
+// At (12, 4) a knot has 152 phase-A items (78 + 48 + 10 entries and 16
+// gradient rows) and 90 phase-B items (78 + 12), so five compute warps
+// hold a thread per item (256 threads in all) and meet between the phases
+// at a named barrier (BAR_COMPUTE) instead of __syncwarp(); each thread
+// runs the same code on its one item. Each lane's operands of the next
+// knot (its two columns of [A B] or f, and its cost term) are read from
+// the staged chunk into registers while phase B runs. (n, m), diag_x,
+// diag_u, lux and f are template parameters (16 instantiations per shape,
+// chosen once on the host; shapes (4, 2), (2, 1) and (12, 4)) and every
+// layout offset is a compile-time constant. Every per-chunk array of
+// shared memory holds CH knots, 64, or 32 at (12, 4), where one 64-knot
+// buffer of dense operands takes 109.6 KB; a multiple of 4, so each array
+// starts on a 16-byte boundary at any (n, m). The copy warps stage the
+// operands in chunks of CH knots, double-buffered, with 16-byte cp.async
+// where a slice is 16-byte aligned (one float a copy where not), and write
+// the outputs of the chunk before back from their staging. Chunks are
+// handed over by named barriers: the copy warps arrive at FULL(b) when
+// buffer b holds a chunk and the compute warps sync on it; they arrive at
+// DONE(b) when they have finished with buffer b and the copy warps sync
+// on it. So the compute warps wait only when a chunk is not staged yet.
 //
 // Semantics carried over from the plain version
 // (ops/riccati_backward.py::riccati_backward_ref with one lane):
@@ -65,15 +75,16 @@
 
 namespace {
 
-constexpr int CH = 64;        // knots per staged chunk
-constexpr int THREADS = 128;  // warp 0: the chain; warps 1-3: copies
-constexpr int COPIERS = THREADS - 32;
+constexpr int COPIERS = 96;  // warps of copies after the compute warps
 
 // Float offsets in shared memory: two buffers of one chunk's operands and
 // two of its outputs (each array [CH][width], 16-byte aligned), then warp
 // 0's exchange area.
 template <int NS, int NI, bool DX, bool DU, bool LUX, bool F>
 struct Layout {
+  // knots per staged chunk: 64, or 32 at n > 4, where two 64-knot
+  // buffers of dense operands would not fit in shared memory
+  static constexpr int CH = NS > 4 ? 32 : 64;
   static constexpr int NT = NS + NI;
   static constexpr int WXX = DX ? NS : NS * NS;
   static constexpr int WUU = DU ? NI : NI * NI;
@@ -110,7 +121,11 @@ struct Layout {
   static constexpr int ITEMS_A = TRI_X + NI * NS + TRI_U + NT;
   // phase B: P upper triangle, p
   static constexpr int ITEMS_B = TRI_X + NS;
-  static_assert(ITEMS_A <= 32 && ITEMS_B <= 32, "one warp holds a knot's items");
+  // compute warps: a thread per item of the larger phase
+  static constexpr int CW = ((ITEMS_A > ITEMS_B ? ITEMS_A : ITEMS_B) + 31) / 32;
+  static constexpr int CT = 32 * CW;
+  static constexpr int THREADS = CT + COPIERS;
+  static_assert(NS * NS + NS <= CT, "the compute threads hold the carry's entries");
   static_assert(IN % 4 == 0 && OUT % 4 == 0 && (CH * NI) % 4 == 0, "16-byte aligned arrays");
 };
 
@@ -130,7 +145,15 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 __device__ __forceinline__ int bar_full(int b) { return 1 + b; }  // chunk staged in buffer b
-__device__ __forceinline__ int bar_done(int b) { return 3 + b; }  // warp 0 finished buffer b
+__device__ __forceinline__ int bar_done(int b) { return 3 + b; }  // compute done with buffer b
+constexpr int BAR_COMPUTE = 5;  // the compute warps, between the phases of a knot
+
+// The compute threads meet: a warp barrier for one warp, else a named one.
+template <int CW>
+__device__ __forceinline__ void compute_sync() {
+  if (CW == 1) __syncwarp();
+  else bar_sync(BAR_COMPUTE, 32 * CW);
+}
 
 // 1/sqrt(x) for a normal x > 0: the MUFU result rsqrtf gives there, without
 // rsqrtf's rescaling of subnormal inputs.
@@ -168,7 +191,8 @@ __device__ __forceinline__ void copy_out(float* dst, const float* src, int count
   for (int i = done + t; i < count; i += COPIERS) dst[i] = src[i];
 }
 
-// Chunk c covers knots [kbeg, kbeg + cnt), walked from the last down.
+// Chunk c of CH knots covers knots [kbeg, kbeg + cnt), walked from the last down.
+template <int CH>
 __device__ __forceinline__ void chunk_range(int c, int N, int& kbeg, int& cnt) {
   const int kend = N - c * CH;
   kbeg = kend - CH > 0 ? kend - CH : 0;
@@ -178,11 +202,11 @@ __device__ __forceinline__ void chunk_range(int c, int N, int& kbeg, int& cnt) {
 template <int NS, int NI, bool DX, bool DU, bool LUX, bool F>
 __device__ void copy_warps(float* smem, const Args& a, int t) {
   using Ly = Layout<NS, NI, DX, DU, LUX, F>;
-  const int N = a.N, nch = (N + CH - 1) / CH;
+  const int N = a.N, nch = (N + Ly::CH - 1) / Ly::CH;
   auto stage = [&](int c) {
     float* buf = smem + (c & 1) * Ly::IN;
     int kbeg, cnt;
-    chunk_range(c, N, kbeg, cnt);
+    chunk_range<Ly::CH>(c, N, kbeg, cnt);
     const long k0 = kbeg;
     copy_in(buf + Ly::A, a.A + k0 * NS * NS, cnt * NS * NS, t);
     copy_in(buf + Ly::B, a.Bm + k0 * NS * NI, cnt * NS * NI, t);
@@ -198,7 +222,7 @@ __device__ void copy_warps(float* smem, const Args& a, int t) {
   auto write = [&](int c) {
     const float* buf = smem + 2 * Ly::IN + (c & 1) * Ly::OUT;
     int kbeg, cnt;
-    chunk_range(c, N, kbeg, cnt);
+    chunk_range<Ly::CH>(c, N, kbeg, cnt);
     const long k0 = kbeg;
     copy_out(a.K + k0 * NI * NS, buf + Ly::K, cnt * NI * NS, t);
     copy_out(a.d + k0 * NI, buf + Ly::D, cnt * NI, t);
@@ -207,14 +231,14 @@ __device__ void copy_warps(float* smem, const Args& a, int t) {
   };
   for (int c = 0; c < nch; ++c) {
     if (c >= 2) {
-      bar_sync(bar_done(c & 1), THREADS);  // warp 0 is done with chunk c - 2
+      bar_sync(bar_done(c & 1), Ly::THREADS);  // the compute warps are done with chunk c - 2
       write(c - 2);
     }
     stage(c);
-    bar_arrive(bar_full(c & 1), THREADS);
+    bar_arrive(bar_full(c & 1), Ly::THREADS);
   }
   for (int c = nch >= 2 ? nch - 2 : 0; c < nch; ++c) {
-    bar_sync(bar_done(c & 1), THREADS);
+    bar_sync(bar_done(c & 1), Ly::THREADS);
     write(c);
   }
 }
@@ -246,15 +270,16 @@ __device__ __forceinline__ void load_lane(const float* in, const LaneOps& o, int
 
 // One block per launch; saying so lets ptxas use what registers it likes.
 template <int NS, int NI, bool DX, bool DU, bool LUX, bool F>
-__global__ void __launch_bounds__(THREADS, 1) riccati_latency_kernel(const Args a) {
+__global__ void __launch_bounds__((Layout<NS, NI, DX, DU, LUX, F>::THREADS), 1)
+    riccati_latency_kernel(const Args a) {
   using Ly = Layout<NS, NI, DX, DU, LUX, F>;
   constexpr int NT = Ly::NT;
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
-  if (tid >= 32) return copy_warps<NS, NI, DX, DU, LUX, F>(smem, a, tid - 32);
+  if (tid >= Ly::CT) return copy_warps<NS, NI, DX, DU, LUX, F>(smem, a, tid - Ly::CT);
 
-  const int N = a.N, nch = (N + CH - 1) / CH;
+  const int N = a.N, nch = (N + Ly::CH - 1) / Ly::CH;
   const int lane = tid;
   float* const Pc = smem + Ly::XCP;
   float* const pc = smem + Ly::XCV;
@@ -346,19 +371,19 @@ __global__ void __launch_bounds__(THREADS, 1) riccati_latency_kernel(const Args 
 
   float dV0 = 0.0f, dV1 = 0.0f;
   int fail = N;
-  __syncwarp();
+  compute_sync<Ly::CW>();
 
   for (int c = 0; c < nch; ++c) {
     const int b = c & 1;
     int kbeg, cnt;
-    chunk_range(c, N, kbeg, cnt);
+    chunk_range<Ly::CH>(c, N, kbeg, cnt);
     const float* in = smem + b * Ly::IN;
     float* const out = smem + 2 * Ly::IN + b * Ly::OUT;
     float* const sink = smem + Ly::SINK;
     float* const st0 = act_b ? out + o0 : sink;
     float* const st1 = act_b ? out + o1 : sink;
     float* const stg = gain ? out + g : sink;
-    bar_sync(bar_full(b), THREADS);
+    bar_sync(bar_full(b), Ly::THREADS);
 
     float ac[NS], v[NS], lt;
     load_lane<NS>(in, o, cnt - 1, ac, v, lt);
@@ -382,7 +407,7 @@ __global__ void __launch_bounds__(THREADS, 1) riccati_latency_kernel(const Args 
         }
         if (act_a) H[h_store] = h;
       }
-      __syncwarp();
+      compute_sync<Ly::CW>();
       // the next knot's operands, read while phase B runs
       load_lane<NS>(in, o, j > 0 ? j - 1 : 0, ac, v, lt);
 
@@ -462,9 +487,9 @@ __global__ void __launch_bounds__(THREADS, 1) riccati_latency_kernel(const Args 
         dV0 += dQu;
         dV1 -= 0.5f * (dQu + r * dd);
       }
-      __syncwarp();
+      compute_sync<Ly::CW>();
     }
-    bar_arrive(bar_done(b), THREADS);
+    bar_arrive(bar_done(b), Ly::THREADS);
   }
 
   if (lane == Ly::TRI_X) {  // the item of p_0 carries dV
@@ -485,7 +510,7 @@ int launch(const Args& a, cudaStream_t s) {
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<1, THREADS, bytes, s>>>(a);
+  kern<<<1, Ly::THREADS, bytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -505,7 +530,7 @@ int launch_shape(const Args& a, cudaStream_t s, bool dx, bool du) {
 
 }  // namespace
 
-// (n, m) is (4, 2) or (2, 1); lux and f may be null (a zero cross term, the
+// (n, m) is (4, 2), (2, 1) or (12, 4); lux and f may be null (a zero cross term, the
 // affine term elided); reg is one float on the device.
 extern "C" int riccati_latency_f32(
     const float* A, const float* Bm, const float* lxx, const float* luu,
@@ -517,5 +542,6 @@ extern "C" int riccati_latency_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 4 && m == 2) return launch_shape<4, 2>(a, s, diag_x != 0, diag_u != 0);
   if (n == 2 && m == 1) return launch_shape<2, 1>(a, s, diag_x != 0, diag_u != 0);
+  if (n == 12 && m == 4) return launch_shape<12, 4>(a, s, diag_x != 0, diag_u != 0);
   return (int)cudaErrorInvalidValue;
 }

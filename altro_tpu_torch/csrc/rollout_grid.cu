@@ -36,9 +36,14 @@
 // trials past W compute copies and store nothing; every barrier is reached
 // by every thread.
 //
-// The dynamics are BicycleFrame<FRAME>::step from csrc/device_steps.cuh,
+// The dynamics are a step of csrc/device_steps.cuh: BicycleFrame<FRAME>,
 // the twin of models/tile_steps.py::midpoint_cols(bicycle_cols(frame,
-// length, rear)), the model csrc/trial_rollout.cu runs too.
+// length, rear)) (P = 0 or 2), and QuadrotorRK4, the twin of
+// rk4_cols(quadrotor_cols(...)) (P = 0). The quadrotor's lane data is 68
+// floats a knot (K 48, d 4, x_ref 12, u_ref 4): two 8-knot chunks take
+// 71,808 bytes, above the 48 KB default, so its launch opts in. Its
+// thread keeps x, the RK4 stage and the stage sum (36 floats) live
+// through the step; at B=1024, W=8 it runs 64 blocks of 128 threads.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -49,6 +54,7 @@ namespace {
 
 using altro_dev::BicycleFrame;
 using altro_dev::neg_part;
+using altro_dev::QuadrotorRK4;
 
 constexpr int LANES = 16;       // lanes per block (threadIdx.x)
 constexpr int MAX_TRIALS = 8;   // trials per block (threadIdx.y)
@@ -252,11 +258,17 @@ __global__ void __launch_bounds__(LANES * MAX_TRIALS) rollout_grid_kernel(const 
 
 template <class Model, int P>
 int launch(const Ops& o, const Model& model, cudaStream_t s) {
+  auto kern = rollout_grid_kernel<Model, P>;
   const int trials = o.W < MAX_TRIALS ? o.W : MAX_TRIALS;
   const dim3 block(LANES, trials);
   const dim3 grid((o.Bsz + LANES - 1) / LANES, (o.W + trials - 1) / trials);
   const size_t bytes = 2 * (size_t)Chunk<Model::NS, Model::NI, P>::BUF * sizeof(float);
-  rollout_grid_kernel<Model, P><<<grid, block, bytes, s>>>(o, model);
+  if (bytes > 48 * 1024) {  // the quadrotor's two chunks (71,808 bytes) opt in
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<grid, block, bytes, s>>>(o, model);
   return (int)cudaGetLastError();
 }
 
@@ -271,8 +283,10 @@ int launch_p(const Ops& o, float length, float rear, int P, cudaStream_t s) {
 }  // namespace
 
 // z0 holds the first p0 constraint rows and z1 the other P - p0 (the
-// problem's constraint groups, null when empty); P is 0 or 2; frame 0,
-// 1 or 2.
+// problem's constraint groups, null when empty). (model, integrator)
+// (0, 0): the bicycle midpoint step, P 0 or 2, params (frame 0, 1 or 2,
+// length, rear); (1, 1): the quadrotor RK4 step, P 0, params (mass,
+// gravity, arm, kf, km, Jx, Jy, Jz). params lies in host memory.
 extern "C" int rollout_grid_f32(
     const float* xref, const float* uref, const float* K, const float* d,
     const float* Q, const float* q, const float* R, const float* r,
@@ -280,16 +294,23 @@ extern "C" int rollout_grid_f32(
     const float* cg, const float* act, const float* z0, const float* z1,
     const float* rho, const float* alphas, const float* x0,
     float* phi, float* xstack, int N, int Bsz, int W, int P, int p0, int model,
-    int integrator, int frame, float length, float rear, void* stream) {
+    int integrator, const float* params, void* stream) {
   if (N <= 0 || Bsz <= 0 || W <= 0 || (W + MAX_TRIALS - 1) / MAX_TRIALS > 65535 || p0 < 0 ||
       p0 > P)
     return (int)cudaErrorInvalidValue;
   const Ops o{xref, uref, K, d, Q, q, R, r, c, h, cax, cau, cg, act, z0, z1, rho, alphas, x0,
               phi, xstack, N, Bsz, W, p0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (model == 1 && integrator == 1) {
+    if (P != 0) return (int)cudaErrorInvalidValue;
+    const QuadrotorRK4 m{params[0], params[1], params[2], params[3],
+                         params[4], params[5], params[6], params[7]};
+    return launch<QuadrotorRK4, 0>(o, m, s);
+  }
   if (model != 0 || integrator != 0) return (int)cudaErrorInvalidValue;
-  if (frame == 0) return launch_p<0>(o, length, rear, P, s);
-  if (frame == 1) return launch_p<1>(o, length, rear, P, s);
-  if (frame == 2) return launch_p<2>(o, length, rear, P, s);
+  const int frame = (int)params[0];
+  if (frame == 0) return launch_p<0>(o, params[1], params[2], P, s);
+  if (frame == 1) return launch_p<1>(o, params[1], params[2], P, s);
+  if (frame == 2) return launch_p<2>(o, params[1], params[2], P, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -51,7 +51,8 @@
 //
 // The dynamics are a __device__ step from csrc/device_steps.cuh, the twin
 // of models/tile_steps.py::midpoint_tile(bicycle_tile(frame, length,
-// rear)). The merit follows ops/trial_rollout.py::trial_rollout_ref term
+// rear)). The quadrotor's RK4 step (rk4_tile(quadrotor_tile())) runs in a
+// second, plain kernel at the end of this file: one thread a trial. The merit follows ops/trial_rollout.py::trial_rollout_ref term
 // for term: phi += 0.5 Q.x.x + q.x + 0.5 R.u.u + r.u + c, then
 // + rhoi * sum_e min(w_e, 0)^2.
 
@@ -376,22 +377,150 @@ int launch_p(const Args& a, int P, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// One thread a trial: the kernel of a step without a split of its own (the
+// quadrotor's RK4), P = 0.
+//
+// What bounds it: the chain, as above. A quadrotor RK4 step is four
+// evaluations of the model (three sine-cosine pairs and three IEEE
+// divides each) behind the 48 multiply-adds of the policy; one knot's
+// operands are 102 floats.
+//
+// The design is the plain one: one warp, lane w runs trial w (lanes past
+// W run a copy of the last trial and store nothing) and does the whole
+// knot: the policy, the merit, the store of x and the step. The warp
+// copies chunks of SCH knots of the operands into shared memory together
+// (coalesced), then each lane walks the chunk, every lane reading one
+// address at a time (a broadcast). No copy overlaps the chain.
+
+constexpr int SCH = 32;  // knots per staged chunk
+
+template <class Model>
+struct StepLayout {
+  static constexpr int S = Model::NS, I = Model::NI;
+  static constexpr int XREF = 0;
+  static constexpr int UREF = XREF + SCH * S;
+  static constexpr int K = UREF + SCH * I;
+  static constexpr int D = K + SCH * I * S;
+  static constexpr int H = D + SCH * I;
+  static constexpr int Q = H + SCH;
+  static constexpr int QL = Q + SCH * S;
+  static constexpr int R = QL + SCH * S;
+  static constexpr int RL = R + SCH * I;
+  static constexpr int C = RL + SCH * I;
+  static constexpr int FLOATS = C + SCH;
+};
+
+__device__ __forceinline__ void warp_copy(float* dst, const float* src, int count, int lane) {
+  for (int i = lane; i < count; i += 32) dst[i] = src[i];
+}
+
+template <class Model>
+__global__ void __launch_bounds__(32, 1) trial_rollout_step_kernel(const Args a, const Model model) {
+  constexpr int S = Model::NS, I = Model::NI;
+  using Ly = StepLayout<Model>;
+  __shared__ float sm[Ly::FLOATS];
+  const int lane = threadIdx.x, N = a.N, W = a.W;
+  const bool mine = lane < W;
+  const int w = mine ? lane : W - 1;
+  const float alpha = a.alphas[w];
+  float* const xs = a.xstack + (long)w * (N + 1) * S;
+  float x[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) x[i] = a.x0[i];
+  float phi = 0.0f;
+  for (int k0 = 0; k0 < N; k0 += SCH) {
+    const int cnt = N - k0 < SCH ? N - k0 : SCH;
+    const long kb = k0;
+    __syncwarp();  // every lane has left the previous chunk
+    warp_copy(sm + Ly::XREF, a.xref + kb * S, cnt * S, lane);
+    warp_copy(sm + Ly::UREF, a.uref + kb * I, cnt * I, lane);
+    warp_copy(sm + Ly::K, a.K + kb * I * S, cnt * I * S, lane);
+    warp_copy(sm + Ly::D, a.d + kb * I, cnt * I, lane);
+    warp_copy(sm + Ly::H, a.h + kb, cnt, lane);
+    warp_copy(sm + Ly::Q, a.Q + kb * S, cnt * S, lane);
+    warp_copy(sm + Ly::QL, a.q + kb * S, cnt * S, lane);
+    warp_copy(sm + Ly::R, a.R + kb * I, cnt * I, lane);
+    warp_copy(sm + Ly::RL, a.r + kb * I, cnt * I, lane);
+    warp_copy(sm + Ly::C, a.c + kb, cnt, lane);
+    __syncwarp();
+    for (int j = 0; j < cnt; ++j) {
+      const float* xr = sm + Ly::XREF + j * S;
+      const float* Kj = sm + Ly::K + j * I * S;
+      float u[I];
+#pragma unroll
+      for (int q = 0; q < I; ++q) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int i = 0; i < S; ++i) acc += Kj[q * S + i] * (x[i] - xr[i]);
+        u[q] = sm[Ly::UREF + j * I + q] + alpha * sm[Ly::D + j * I + q] - acc;
+      }
+      float sq = 0.0f, sl = 0.0f, su = 0.0f, sr = 0.0f;
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        sq += sm[Ly::Q + j * S + i] * x[i] * x[i];
+        sl += sm[Ly::QL + j * S + i] * x[i];
+      }
+#pragma unroll
+      for (int q = 0; q < I; ++q) {
+        su += sm[Ly::R + j * I + q] * u[q] * u[q];
+        sr += sm[Ly::RL + j * I + q] * u[q];
+      }
+      phi = phi + 0.5f * sq + sl + 0.5f * su + sr + sm[Ly::C + j];
+      if (mine) {
+#pragma unroll
+        for (int i = 0; i < S; ++i) xs[(kb + j) * S + i] = x[i];
+      }
+      model.step(x, u, sm[Ly::H + j]);
+    }
+  }
+  // terminal knot: the state-only cost
+  float sq = 0.0f, sl = 0.0f;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    sq += a.Q[(long)N * S + i] * x[i] * x[i];
+    sl += a.q[(long)N * S + i] * x[i];
+  }
+  if (mine) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) xs[(long)N * S + i] = x[i];
+    a.phi[lane] = phi + 0.5f * sq + sl + a.c[N];
+  }
+}
+
+template <class Model>
+int launch_step(const Args& a, const Model& model, cudaStream_t s) {
+  trial_rollout_step_kernel<Model><<<1, 32, 0, s>>>(a, model);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // wa, wu, wg and rhoi are null when P = 0; rhoi is one float on the
-// device. P is 0 or 2; frame 0, 1 or 2.
+// device. params lies in host memory. (model, integrator) (0, 0): the
+// bicycle midpoint step, P 0 or 2, W <= 32, params (frame 0, 1 or 2,
+// length, rear); (1, 1): the quadrotor RK4 step, P 0, W <= 32, params
+// (mass, gravity, arm, kf, km, Jx, Jy, Jz).
 extern "C" int trial_rollout_f32(
     const float* alphas, const float* x0, const float* xref, const float* uref,
     const float* K, const float* d, const float* Q, const float* q, const float* R,
     const float* r, const float* c, const float* h, const float* wa, const float* wu,
     const float* wg, const float* rhoi, float* phi, float* xstack, int N,
-    int W, int P, int model, int integrator, int frame, float length, float rear,
-    void* stream) {
+    int W, int P, int model, int integrator, const float* params, void* stream) {
   if (N <= 0 || W <= 0 || W > MAX_W) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (model == 1 && integrator == 1) {
+    if (P != 0) return (int)cudaErrorInvalidValue;
+    const Args a{xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg, rhoi,
+                 alphas, x0, phi, xstack, N, W, 0.0f, 0.0f};
+    const altro_dev::QuadrotorRK4 m{params[0], params[1], params[2], params[3],
+                                    params[4], params[5], params[6], params[7]};
+    return launch_step(a, m, s);
+  }
   if (!(model == 0 && integrator == 0)) return (int)cudaErrorInvalidValue;
   const Args a{xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg, rhoi,
-               alphas, x0, phi, xstack, N, W, length, rear};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+               alphas, x0, phi, xstack, N, W, params[1], params[2]};
+  const int frame = (int)params[0];
   if (frame == 0) return launch_p<0>(a, P, s);
   if (frame == 1) return launch_p<1>(a, P, s);
   if (frame == 2) return launch_p<2>(a, P, s);

@@ -1,8 +1,9 @@
 """Column-form and block-form dynamics steps (PyTorch port).
 
 Counterpart: altro_tpu/models/tile_steps.py (`bicycle_cols`,
-`midpoint_cols`, `block_from_cols`, `block_step_from_cols`,
-`midpoint_tile`, `bicycle_tile`).
+`midpoint_cols`, `rk4_cols`, `quadrotor_cols`, `block_from_cols`,
+`block_step_from_cols`, `midpoint_tile`, `rk4_tile`, `bicycle_tile`,
+`quadrotor_tile`), each with the same expression order as there.
 
 * Column form: a function takes tuples of per-component tensors that
   broadcast against each other (one `[B]` lane vector per state
@@ -32,11 +33,17 @@ __all__ = [
     "block_step_from_cols",
     "midpoint_tile",
     "bicycle_tile",
+    "rk4_cols",
+    "rk4_tile",
+    "quadrotor_cols",
+    "quadrotor_tile",
 ]
 
 # Model and integrator codes shared with csrc/device_steps.cuh.
 MODEL_BICYCLE = 0
+MODEL_QUADROTOR = 1
 INTEGRATOR_MIDPOINT = 0
+INTEGRATOR_RK4 = 1
 BICYCLE_FRAMES = {"cog": 0, "CENTER_OF_GRAVITY": 0, "rear": 1, "REAR": 1,
                   "front": 2, "FRONT": 2}
 
@@ -49,7 +56,19 @@ class DeviceStep:
     integrator: int
     n: int
     m: int
-    params: tuple  # model parameters, e.g. (frame code, length, rear)
+    params: tuple  # model parameters: (frame code, length, rear) for the bicycle,
+    # (mass, gravity, arm, kf, km, Jx, Jy, Jz) for the quadrotor
+
+
+def _with_device_step(step, f, integrator):
+    """Attach the DeviceStep of `integrator` over f's model (None when f
+    names no device model)."""
+    model = getattr(f, "device_model", None)
+    step.device_step = None
+    if model is not None:
+        code, n, m, params = model
+        step.device_step = DeviceStep(code, integrator, n, m, params)
+    return step
 
 
 def midpoint_cols(f):
@@ -61,11 +80,23 @@ def midpoint_cols(f):
         fm = f(xm, u)
         return tuple(xi + h * fi for xi, fi in zip(x, fm))
 
-    model = getattr(f, "device_model", None)
-    if model is not None:
-        code, n, m, params = model
-        step.device_step = DeviceStep(code, INTEGRATOR_MIDPOINT, n, m, params)
-    return step
+    return _with_device_step(step, f, INTEGRATOR_MIDPOINT)
+
+
+def rk4_cols(f):
+    """Classic RK4 on column tuples (== integrators.rk4)."""
+
+    def step(x, u, h):
+        k1 = f(x, u)
+        k2 = f(tuple(xi + 0.5 * h * ki for xi, ki in zip(x, k1)), u)
+        k3 = f(tuple(xi + 0.5 * h * ki for xi, ki in zip(x, k2)), u)
+        k4 = f(tuple(xi + h * ki for xi, ki in zip(x, k3)), u)
+        return tuple(
+            xi + (h / 6.0) * (a + 2.0 * b + 2.0 * c + d)
+            for xi, a, b, c, d in zip(x, k1, k2, k3, k4)
+        )
+
+    return _with_device_step(step, f, INTEGRATOR_RK4)
 
 
 def bicycle_cols(frame="cog", length=2.7, rear=1.5):
@@ -129,14 +160,69 @@ def midpoint_tile(f):
         xm = x + 0.5 * h * f(x, u)
         return x + h * f(xm, u)
 
-    model = getattr(f, "device_model", None)
-    step.device_step = None
-    if model is not None:
-        code, n, m, params = model
-        step.device_step = DeviceStep(code, INTEGRATOR_MIDPOINT, n, m, params)
-    return step
+    return _with_device_step(step, f, INTEGRATOR_MIDPOINT)
+
+
+def rk4_tile(f):
+    """Classic RK4 on [W, n] blocks (== integrators.rk4)."""
+
+    def step(x, u, h):
+        k1 = f(x, u)
+        k2 = f(x + 0.5 * h * k1, u)
+        k3 = f(x + 0.5 * h * k2, u)
+        k4 = f(x + h * k3, u)
+        return x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+    return _with_device_step(step, f, INTEGRATOR_RK4)
 
 
 def bicycle_tile(frame="cog", length=2.7, rear=1.5):
     """Block form of models.bicycle.bicycle_continuous (all 3 frames)."""
     return block_from_cols(bicycle_cols(frame, length, rear))
+
+
+def quadrotor_cols(mass=0.5, gravity=9.81, arm=0.1750, kf=1.0, km=0.0245,
+                   inertia=(0.0023, 0.0023, 0.004)):
+    """Column form of models.quadrotor.quadrotor_continuous (n=12:
+    [pos(3), rpy(3), vel(3), omega(3)], u = 4 rotor thrusts), the same
+    scalar expressions on component columns."""
+    Jx, Jy, Jz = inertia
+
+    def f(x, u):
+        r, p, y = x[3], x[4], x[5]
+        vx, vy, vz = x[6], x[7], x[8]
+        wx, wy, wz = x[9], x[10], x[11]
+        w0, w1, w2, w3 = (kf * u[i] for i in range(4))
+
+        cr, sr = torch.cos(r), torch.sin(r)
+        cp, sp = torch.cos(p), torch.sin(p)
+        cy, sy = torch.cos(y), torch.sin(y)
+
+        T = (w0 + w1 + w2 + w3) / mass
+        ax = (cy * sp * cr + sy * sr) * T
+        ay = (sy * sp * cr - cy * sr) * T
+        az = cp * cr * T - gravity
+
+        tx = arm * (w1 - w3)
+        ty = arm * (w2 - w0)
+        tz = km * (w0 - w1 + w2 - w3)
+        wdx = (tx - (wy * Jz * wz - wz * Jy * wy)) / Jx
+        wdy = (ty - (wz * Jx * wx - wx * Jz * wz)) / Jy
+        wdz = (tz - (wx * Jy * wy - wy * Jx * wx)) / Jz
+
+        tp = sp / cp
+        rd = wx + sr * tp * wy + cr * tp * wz
+        pd = cr * wy - sr * wz
+        yd = (sr * wy + cr * wz) / cp
+
+        return (vx, vy, vz, rd, pd, yd, ax, ay, az, wdx, wdy, wdz)
+
+    f.device_model = (MODEL_QUADROTOR, 12, 4,
+                      tuple(float(v) for v in (mass, gravity, arm, kf, km, Jx, Jy, Jz)))
+    return f
+
+
+def quadrotor_tile(mass=0.5, gravity=9.81, arm=0.1750, kf=1.0, km=0.0245,
+                   inertia=(0.0023, 0.0023, 0.004)):
+    """Block form of models.quadrotor.quadrotor_continuous."""
+    return block_from_cols(quadrotor_cols(mass, gravity, arm, kf, km, inertia))

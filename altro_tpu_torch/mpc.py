@@ -36,6 +36,15 @@ bench.py's closed loop (`child_main`, its problem, options, rescue and
   quadrotor (rk4) flying B lanes through four waypoints, switched every
   25 ticks, each tick one vmapped solve (`parallel.batch.solve_lanes`)
   with the dense backward kernel (`pallas_backward=True`).
+* `quadrotor_tiled_options` and `run_quadrotor_waypoints_tiled`: the
+  same row through `tile_solver.solve_tiled` (bench_all.py's tiled branch,
+  `quadrotor_waypoint_mpc_B1024_tiled`): the Armijo-only grid, the
+  batched backward kernel and the trial-grid kernel with the quadrotor's
+  column step.
+* `quadrotor_latency_options` and `run_quadrotor_latency`: one quadrotor
+  through the waypoints by the single-lane `solver.solve`
+  (`quadrotor_latency_B1`, bench_all.py:514-564) on the single-lane
+  backward and trial-rollout kernels.
 """
 
 from __future__ import annotations
@@ -59,6 +68,10 @@ from altro_tpu_torch.models.tile_steps import (
     bicycle_tile,
     midpoint_cols,
     midpoint_tile,
+    quadrotor_cols,
+    quadrotor_tile,
+    rk4_cols,
+    rk4_tile,
 )
 from altro_tpu_torch.options import SolverOptions
 from altro_tpu_torch.parallel.batch import batch_init_state, solve_lanes
@@ -97,6 +110,10 @@ __all__ = [
     "quadrotor_initial_states",
     "WaypointResult",
     "run_quadrotor_waypoints",
+    "quadrotor_tiled_options",
+    "run_quadrotor_waypoints_tiled",
+    "quadrotor_latency_options",
+    "run_quadrotor_latency",
 ]
 
 Q_DIAG = 1e-2
@@ -470,7 +487,9 @@ def _quadrotor_q_diag(N: int) -> np.ndarray:
 def quadrotor_waypoint_problem(N: int = 30, *, dtype=torch.float32, device="cuda") -> Problem:
     """The row's problem: rk4 quadrotor (n=12, m=4), h=0.05, no
     constraints, diagonal tracking cost toward the first waypoint with
-    R=1e-2 and u_ref = hover; on the card unless `device` says otherwise."""
+    R=1e-2 and u_ref = hover, and the column-form and block-form rk4
+    steps that the rollout kernels run; on the card unless `device` says
+    otherwise."""
     n, m = 12, 4
     kw = dict(dtype=dtype, device=device)
     xf = np.zeros(n)
@@ -480,7 +499,8 @@ def quadrotor_waypoint_problem(N: int = 30, *, dtype=torch.float32, device="cuda
         torch.as_tensor(np.tile(xf, (N + 1, 1)), **kw), torch.full((N + 1, m), QUAD_HOVER, **kw))
     return Problem(N=N, n=n, m=m, dynamics=rk4(quadrotor_continuous()), dynamics_jac=None,
                    constraints=(), cost=cost, h=torch.full((N,), 0.05, **kw),
-                   x0=torch.zeros(n, **kw))
+                   x0=torch.zeros(n, **kw), dynamics_cols=rk4_cols(quadrotor_cols()),
+                   dynamics_tile=rk4_tile(quadrotor_tile()))
 
 
 def quadrotor_options() -> SolverOptions:
@@ -540,21 +560,10 @@ class WaypointResult:
         }
 
 
-def run_quadrotor_waypoints(problem: Problem, x_true0: torch.Tensor, *, ticks: int = 100,
-                            opts: Optional[SolverOptions] = None, switch_every: int = 25,
-                            state0: Optional[SolverState] = None,
-                            layer_seconds: Optional[dict] = None) -> WaypointResult:
-    """Closed-loop waypoint MPC: each tick every lane solves (the vmapped
-    solve), applies u_0 through the rk4 plant and shifts its warm start;
-    the waypoint's cost rows (shared by all lanes) switch every
-    `switch_every` ticks. problem: from `quadrotor_waypoint_problem`;
-    x_true0 [B, 12]; opts default `quadrotor_options()`; state0
-    (batch-major) defaults to the cold start with the inputs at hover.
-    The lanes stay lane-minor for the whole run. layer_seconds: a dict
-    that accumulates the solves' host seconds by layer
-    (`tile_solver.lane_loop`)."""
-    opts = quadrotor_options() if opts is None else opts
-    N, n, m, B = problem.N, problem.n, problem.m, x_true0.shape[0]
+def _waypoint_costs(problem: Problem, ticks: int, switch_every: int):
+    """The waypoints' linear cost rows (q [4, N+1, n], c [4, N+1], shared
+    by all lanes) and the waypoint index of each tick."""
+    N, n, m = problem.N, problem.n, problem.m
     dt, dev = problem.dtype, problem.device
     wps = np.zeros((len(QUAD_WAYPOINTS), n))
     wps[:, :3] = QUAD_WAYPOINTS
@@ -564,6 +573,16 @@ def run_quadrotor_waypoints(problem: Problem, x_true0: torch.Tensor, *, ticks: i
     c_wp[:, :N] += 0.5 * float(np.full(m, QUAD_HOVER) @ (np.full(m, 1e-2) * np.full(m, QUAD_HOVER)))
     c_wp = torch.as_tensor(c_wp, dtype=dt, device=dev)
     wp_idx = [(t // switch_every) % len(QUAD_WAYPOINTS) for t in range(ticks)]
+    return q_wp, c_wp, wp_idx
+
+
+def _waypoint_loop(problem: Problem, x_true0: torch.Tensor, ticks: int, switch_every: int,
+                   state0: Optional[SolverState], solve_lanes_fn) -> WaypointResult:
+    """The batched waypoint loop: each tick `solve_lanes_fn(prob_t, st)`
+    on the lane-minor state, u_0 through the rk4 plant, the shift."""
+    N, m, B = problem.N, problem.m, x_true0.shape[0]
+    dt, dev = problem.dtype, problem.device
+    q_wp, c_wp, wp_idx = _waypoint_costs(problem, ticks, switch_every)
     if state0 is None:
         state0 = dataclasses.replace(batch_init_state(problem, B),
                                      u=torch.full((B, N, m), QUAD_HOVER, dtype=dt, device=dev))
@@ -579,7 +598,7 @@ def run_quadrotor_waypoints(problem: Problem, x_true0: torch.Tensor, *, ticks: i
         w = wp_idx[t]
         prob_t = dataclasses.replace(
             problem, cost=dataclasses.replace(problem.cost, q=q_wp[w], c=c_wp[w]), x0=x_true)
-        st, stats = solve_lanes(prob_t, st, opts, layer_seconds)
+        st, stats = solve_lanes_fn(prob_t, st)
         x_true = problem.dynamics(x_true, st.u[0], h, 0)
         st = tsv.shift_trajectory_tiled(st)
         iters[t] = stats.iterations
@@ -590,4 +609,99 @@ def run_quadrotor_waypoints(problem: Problem, x_true0: torch.Tensor, *, ticks: i
         torch.cuda.synchronize(x_true0.device)
     seconds = time.perf_counter() - t0
     return WaypointResult(iters, statuses, x_true_b, QUAD_WAYPOINTS[wp_idx[-1]], state_b,
+                          seconds)
+
+
+def run_quadrotor_waypoints(problem: Problem, x_true0: torch.Tensor, *, ticks: int = 100,
+                            opts: Optional[SolverOptions] = None, switch_every: int = 25,
+                            state0: Optional[SolverState] = None,
+                            layer_seconds: Optional[dict] = None) -> WaypointResult:
+    """Closed-loop waypoint MPC: each tick every lane solves (the vmapped
+    solve), applies u_0 through the rk4 plant and shifts its warm start;
+    the waypoint's cost rows (shared by all lanes) switch every
+    `switch_every` ticks. problem: from `quadrotor_waypoint_problem`;
+    x_true0 [B, 12]; opts default `quadrotor_options()`; state0
+    (batch-major) defaults to the cold start with the inputs at hover.
+    The lanes stay lane-minor for the whole run. layer_seconds: a dict
+    that accumulates the solves' host seconds by layer
+    (`tile_solver.lane_loop`)."""
+    opts = quadrotor_options() if opts is None else opts
+    return _waypoint_loop(problem, x_true0, ticks, switch_every, state0,
+                          lambda prob, st: solve_lanes(prob, st, opts, layer_seconds))
+
+
+def quadrotor_tiled_options() -> SolverOptions:
+    """The tiled row's options (bench_all.py:371-398 with the tiled
+    branch on): `quadrotor_options()` with the Armijo-only grid that
+    `solve_tiled` runs and the trial-grid kernel (`pallas_rollout_tiled`);
+    `pallas_backward` is not read there."""
+    return quadrotor_options().replace(ls_armijo_only=True, pallas_rollout_tiled=True)
+
+
+def run_quadrotor_waypoints_tiled(problem: Problem, x_true0: torch.Tensor, *,
+                                  ticks: int = 100, opts: Optional[SolverOptions] = None,
+                                  switch_every: int = 25,
+                                  state0: Optional[SolverState] = None,
+                                  layer_seconds: Optional[dict] = None) -> WaypointResult:
+    """The waypoint loop of `run_quadrotor_waypoints` through
+    `tile_solver.solve_tiled` (bench_all.py:433-472): the waypoint's q and
+    c shared by every lane, u_0 through the rk4 plant,
+    `shift_trajectory_tiled`. On CUDA tensors the batched backward and the
+    trial-grid kernels run, or the solve is refused before it starts. On
+    every device and dtype, `run_quadrotor_waypoints` with these options
+    and `pallas_backward=False` takes the same steps on the plain paths.
+    opts default `quadrotor_tiled_options()`; layer_seconds as there."""
+    opts = quadrotor_tiled_options() if opts is None else opts
+    return _waypoint_loop(problem, x_true0, ticks, switch_every, state0,
+                          lambda prob, st: tsv.solve_tiled(prob, st, opts, layer_seconds))
+
+
+def quadrotor_latency_options() -> SolverOptions:
+    """The latency row's options (bench_all.py:527-530): the tiled row's
+    search (`quadrotor_options()` with the Armijo-only grid) on the
+    single-lane backward kernel (`pallas_latency_backward`) and the
+    trial-rollout kernel (`pallas_rollout`), without `pallas_backward`."""
+    return quadrotor_options().replace(pallas_backward=False, ls_armijo_only=True,
+                                       pallas_latency_backward=True)
+
+
+def run_quadrotor_latency(problem: Problem, x_true0: torch.Tensor, *, ticks: int = 100,
+                          opts: Optional[SolverOptions] = None, switch_every: int = 25,
+                          state0: Optional[SolverState] = None,
+                          layer_seconds: Optional[dict] = None) -> WaypointResult:
+    """One quadrotor through the waypoints, one `solver.solve` a tick
+    (bench_all.py:535-556): solve warm, apply u_0 through the rk4 plant,
+    `shift_trajectory`. x_true0 [12] (the row takes
+    `quadrotor_initial_states(1024, seed=1)[0]`); state0 (one lane)
+    defaults to the cold start with the inputs at hover; opts default
+    `quadrotor_latency_options()`. Returns a WaypointResult with one lane
+    (iterations and status [T, 1], x_true [1, 12]) whose `state` is the
+    final one-lane state."""
+    opts = quadrotor_latency_options() if opts is None else opts
+    N, m = problem.N, problem.m
+    q_wp, c_wp, wp_idx = _waypoint_costs(problem, ticks, switch_every)
+    if state0 is None:
+        state0 = dataclasses.replace(init_state(problem), u=torch.full(
+            (N, m), QUAD_HOVER, dtype=problem.dtype, device=problem.device))
+    if x_true0.is_cuda:
+        torch.cuda.synchronize(x_true0.device)
+    t0 = time.perf_counter()
+    st, x_true = state0, x_true0
+    iters, statuses = [], []
+    h = problem.h[0]
+    for t in range(ticks):
+        w = wp_idx[t]
+        prob_t = dataclasses.replace(
+            problem, cost=dataclasses.replace(problem.cost, q=q_wp[w], c=c_wp[w]), x0=x_true)
+        st, stats = solve(prob_t, st, opts, layer_seconds)
+        x_true = problem.dynamics(x_true, st.u[0], h, 0)
+        st = shift_trajectory(st)
+        iters.append(stats.iterations)
+        statuses.append(stats.status)
+    iters = torch.stack(iters).to(torch.int32)[:, None]
+    statuses = torch.stack(statuses).to(torch.int32)[:, None]
+    if x_true0.is_cuda:
+        torch.cuda.synchronize(x_true0.device)
+    seconds = time.perf_counter() - t0
+    return WaypointResult(iters, statuses, x_true[None], QUAD_WAYPOINTS[wp_idx[-1]], st,
                           seconds)

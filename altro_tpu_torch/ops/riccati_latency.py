@@ -4,9 +4,10 @@ Counterpart: altro_tpu/ops/pallas_packed.py::riccati_backward_pallas_packed
 (the Pallas `_kernel` and `_knot_body`, and the unpacking after the call).
 The TPU kernel packed each knot's operands into one (8, 128) tile and ran
 the N-knot chain as a sequential grid; csrc/riccati_latency.cu runs it in
-one thread block: warps 1-3 stage chunks of knots through shared memory
-(double-buffered) while warp 0 computes each knot together, a lane per
-entry of the Q blocks and then of the new (P, p).
+one thread block: three copy warps stage chunks of knots through shared
+memory (double-buffered) while the compute warps (one, or five at
+(12, 4)) compute each knot together, a thread per entry of the Q blocks
+and then of the new (P, p).
 
 Contract, for ONE lane (unbatched, the JAX layout): A [N, n, n],
 B [N, n, m]; lxx [N+1, n, n] or diagonals [N+1, n]; luu [N, m, m] or
@@ -35,7 +36,7 @@ LAUNCHES = 0
 
 # (n, m) pairs the CUDA kernel is instantiated for (csrc/riccati_latency.cu's
 # entry guard and dispatch).
-KERNEL_SHAPES = ((4, 2), (2, 1))
+KERNEL_SHAPES = ((4, 2), (2, 1), (12, 4))
 
 
 def _lane(t):

@@ -25,13 +25,19 @@ besides allocating the outputs.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from altro_tpu_torch import al
 from altro_tpu_torch.cones import Cone
-from altro_tpu_torch.models.tile_steps import INTEGRATOR_MIDPOINT, MODEL_BICYCLE
+from altro_tpu_torch.models.tile_steps import (
+    INTEGRATOR_MIDPOINT,
+    INTEGRATOR_RK4,
+    MODEL_BICYCLE,
+    MODEL_QUADROTOR,
+)
 from altro_tpu_torch.ops import _build
 from altro_tpu_torch.problem import DiagonalCost, Problem
 
@@ -49,11 +55,16 @@ __all__ = [
 # Count of kernel launches (plain integer; the CPU path never adds to it).
 LAUNCHES = 0
 
-# (model, integrator) pairs the CUDA kernel has a __device__ step for.
-DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): "bicycle_midpoint"}
+# (model, integrator) pairs the CUDA kernel has a __device__ step for, and
+# the constraint row counts P each step is instantiated with.
+DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): ("bicycle_midpoint", (0, 2)),
+                (MODEL_QUADROTOR, INTEGRATOR_RK4): ("quadrotor_rk4", (0,))}
 
-# Constraint row counts P the CUDA kernel is instantiated for.
-KERNEL_ROWS = (0, 2)
+
+def device_params(ds) -> ctypes.Array:
+    """A DeviceStep's parameters as the C entry points take them: eight
+    floats in host memory (the bicycle's frame code as a float)."""
+    return (ctypes.c_float * 8)(*(float(v) for v in ds.params))
 
 
 def ineligibility(problem: Problem) -> Optional[str]:
@@ -75,9 +86,10 @@ def ineligibility(problem: Problem) -> Optional[str]:
             return (f"constraint group {spec.label!r} is not an affine "
                     "NEGATIVE_ORTHANT group")
     rows = sum(spec.dim for spec in problem.constraints)
-    if rows not in KERNEL_ROWS or len(problem.constraints) > 2:
-        return (f"{rows} constraint rows in {len(problem.constraints)} groups (the kernel "
-                f"takes {KERNEL_ROWS} rows in at most two groups)")
+    name, step_rows = DEVICE_STEPS[(ds.model, ds.integrator)]
+    if rows not in step_rows or len(problem.constraints) > 2:
+        return (f"{rows} constraint rows in {len(problem.constraints)} groups (the {name} "
+                f"step is instantiated for {step_rows} rows in at most two groups)")
     return None
 
 
@@ -212,7 +224,6 @@ def rollout_grid(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0,
         if t is not None:
             _build.check_operand("rollout_grid", name, t, shape)
     ds = problem.dynamics_cols.device_step
-    frame, length, rear = ds.params
 
     lib = _build.load()
     phi = torch.empty((W, Bsz), dtype=x0.dtype, device=x0.device)
@@ -221,8 +232,7 @@ def rollout_grid(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0,
     err = lib.rollout_grid_f32(
         *(None if t is None else t.data_ptr() for t, _ in ops.values()),
         phi.data_ptr(), xstack.data_ptr(),
-        N, Bsz, W, P, p0, ds.model, ds.integrator, int(frame), float(length),
-        float(rear), stream)
+        N, Bsz, W, P, p0, ds.model, ds.integrator, device_params(ds), stream)
     _build.check(err, "rollout_grid_f32")
     LAUNCHES += 1
     return phi, xstack

@@ -18,9 +18,10 @@ phis [W] and xstack [W, N+1, n]; the stored state at knot k is the state
 before the step. `con` is the optional affine bundle (wa [N+1, P, n],
 wu [N+1, P, m], wg [N+1, P], rhoi scalar), active-masked and
 rho-premultiplied as the solver builds it. The kernel
-(csrc/trial_rollout.cu) runs one block: two lanes per trial walk the
-state chain, splitting the model's steering-angle terms between them, and
-a lane of another warp per trial accumulates the merit behind them.
+(csrc/trial_rollout.cu) runs one block: for the bicycle, two lanes per
+trial walk the state chain, splitting the model's steering-angle terms
+between them, and a lane of another warp per trial accumulates the merit
+behind them; for the quadrotor's RK4 step, one warp, one lane a trial.
 """
 
 from __future__ import annotations
@@ -30,9 +31,14 @@ from typing import Optional
 import torch
 
 from altro_tpu_torch.cones import Cone
-from altro_tpu_torch.models.tile_steps import INTEGRATOR_MIDPOINT, MODEL_BICYCLE
+from altro_tpu_torch.models.tile_steps import (
+    INTEGRATOR_MIDPOINT,
+    INTEGRATOR_RK4,
+    MODEL_BICYCLE,
+    MODEL_QUADROTOR,
+)
 from altro_tpu_torch.ops import _build
-from altro_tpu_torch.ops.rollout_grid import plain_grid
+from altro_tpu_torch.ops.rollout_grid import device_params, plain_grid
 from altro_tpu_torch.problem import DiagonalCost
 
 __all__ = [
@@ -56,8 +62,12 @@ KERNEL_MAX_W = 32
 # bound's two rows, or none).
 KERNEL_P = (0, 2)
 
-# (model, integrator) pairs the CUDA kernel has a __device__ step for.
-DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): "bicycle_midpoint"}
+# (model, integrator) pairs the CUDA kernel has a __device__ step for, and
+# the constraint row counts each step is instantiated with (the bicycle in
+# the two-lanes-a-trial kernel, the quadrotor in the one-thread-a-trial
+# kernel).
+DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): ("bicycle_midpoint", KERNEL_P),
+                (MODEL_QUADROTOR, INTEGRATOR_RK4): ("quadrotor_rk4", (0,))}
 
 
 def problem_ineligibility(problem) -> Optional[str]:
@@ -84,7 +94,7 @@ def problem_ineligibility(problem) -> Optional[str]:
 def ineligibility(step_tile, n: int, m: int, W: int = 1, P: int = 0) -> Optional[str]:
     """Why the kernel cannot run this block step with W trials and P
     constraint rows, or None when it can (an instantiation exists; every
-    bicycle frame has one)."""
+    bicycle frame has one, the quadrotor's RK4 step one at P=0)."""
     ds = getattr(step_tile, "device_step", None)
     if ds is None:
         return "the block step names no device step (models/tile_steps.py)"
@@ -94,8 +104,9 @@ def ineligibility(step_tile, n: int, m: int, W: int = 1, P: int = 0) -> Optional
         return f"device step is for n={ds.n}, m={ds.m}, operands have n={n}, m={m}"
     if W > KERNEL_MAX_W:
         return f"W={W} > {KERNEL_MAX_W} trials"
-    if P not in KERNEL_P:
-        return f"P={P} constraint rows (instantiated for {KERNEL_P})"
+    name, rows = DEVICE_STEPS[(ds.model, ds.integrator)]
+    if P not in rows:
+        return f"P={P} constraint rows (the {name} step is instantiated for {rows})"
     return None
 
 
@@ -170,14 +181,13 @@ def trial_rollout(step_tile, alphas, x0, xref, uref, K, d, Qd, ql, Rd, rl, ccons
         rows = tuple(t.data_ptr() for _, t, _ in ops[12:])
     _build.check_operands("trial_rollout", ops)
     ds = step_tile.device_step
-    frame, length, rear = ds.params
 
     lib = _build.load()
     phi, xstack = output_views(W, N, n, x0.device)
     err = lib.trial_rollout_f32(
         *(t.data_ptr() for _, t, _ in ops[:12]), *rows,
-        phi.data_ptr(), xstack.data_ptr(), N, W, P, ds.model, ds.integrator, int(frame),
-        float(length), float(rear), torch.cuda.current_stream(x0.device).cuda_stream)
+        phi.data_ptr(), xstack.data_ptr(), N, W, P, ds.model, ds.integrator, device_params(ds),
+        torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check(err, "trial_rollout_f32")
     LAUNCHES += 1
     return phi, xstack

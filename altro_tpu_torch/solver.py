@@ -61,7 +61,11 @@ from altro_tpu_torch.ops.packed_backward import tvlqr_backward_latency
 from altro_tpu_torch.ops import riccati_latency as rl
 from altro_tpu_torch.ops.riccati_latency import riccati_latency_ref
 from altro_tpu_torch.ops.rollout_grid import affine_constraint_stacks
-from altro_tpu_torch.ops.trial_rollout import problem_ineligibility, trial_rollout
+from altro_tpu_torch.ops.trial_rollout import (
+    ineligibility,
+    problem_ineligibility,
+    trial_rollout,
+)
 from altro_tpu_torch.options import SolverOptions, Verbosity
 from altro_tpu_torch.problem import Problem
 from altro_tpu_torch.status import LineSearchCode, SolveStatus
@@ -533,6 +537,13 @@ def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
     if kernel_grid and not f32:
         return (f"pallas_rollout: the trial-rollout kernel takes float32, not "
                 f"{problem.dtype}; pallas_rollout=False selects the problem's own grid")
+    if kernel_grid:
+        rows = sum(spec.dim for spec in problem.constraints)
+        grid_why = ineligibility(problem.dynamics_tile, problem.n, problem.m,
+                                 int(opts.ls_parallel_width), rows)
+        if grid_why is not None:
+            return (f"pallas_rollout: the trial-rollout kernel (trial_rollout): {grid_why}; "
+                    f"pallas_rollout=False selects the problem's own grid")
     return None
 
 

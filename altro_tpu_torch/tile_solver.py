@@ -222,7 +222,7 @@ class _Laps:
 
 
 def solve_tiled(problem: Problem, state: SolverState,
-                opts: SolverOptions = SolverOptions()):
+                opts: SolverOptions = SolverOptions(), layer_seconds: Optional[dict] = None):
     """Lane-minor batched solve. Returns (SolverState, SolveStats), the
     state lane-minor and the stats [B] per lane.
 
@@ -232,14 +232,14 @@ def solve_tiled(problem: Problem, state: SolverState,
     grid otherwise, on any device); a problem they cannot take is refused
     before anything runs (`kernel_refusal`). On CPU tensors the plain
     versions run. `pallas_backward` is not read (as in JAX) and
-    stats.dphi is NaN.
+    stats.dphi is NaN. layer_seconds: as `lane_loop`'s.
     """
     if not supported_options(opts):
         raise ValueError(
             "solve_tiled supports the phase-split x-only armijo-only grid "
             "line search or rti_mode; other configurations are not ported")
     refuse_on_card("solve_tiled", problem, opts, vmapped=False)
-    return lane_loop(problem, state, opts, vmapped=False)
+    return lane_loop(problem, state, opts, vmapped=False, layer_seconds=layer_seconds)
 
 
 def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,

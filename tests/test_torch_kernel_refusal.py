@@ -18,7 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from altro_tpu_torch import mpc, rescue  # noqa: E402
+from altro_tpu_torch import mpc, rescue, solver  # noqa: E402
 from altro_tpu_torch import tile_solver as tsv  # noqa: E402
 from altro_tpu_torch.io.scotty import load_scotty  # noqa: E402
 from altro_tpu_torch.parallel import batch  # noqa: E402
@@ -56,7 +56,10 @@ def _bicycle(rows, dtype=torch.float32, N=4):
 def _problem(name):
     if name == "linear_2x1":
         return _linear_problem()
-    if name == "quadrotor":
+    if name == "quadrotor":  # without its column and block steps
+        return dataclasses.replace(mpc.quadrotor_waypoint_problem(N=4, device="cpu"),
+                                   dynamics_cols=None, dynamics_tile=None)
+    if name == "quadrotor_full":
         return mpc.quadrotor_waypoint_problem(N=4, device="cpu")
     if name == "main_path_f64":
         return _bicycle(2, dtype=torch.float64)
@@ -75,6 +78,7 @@ CASES = [
     ("main_path_f64", ("riccati_backward", "rollout_grid", "float32"),
      ("riccati_backward", "float32")),
     ("main_path", (), ()),
+    ("quadrotor_full", (), ()),
 ]
 
 
@@ -95,7 +99,7 @@ def test_kernel_refusal_names_each_kernel(name, words, words_plain_grid):
             assert "rollout_grid" not in why
 
 
-@pytest.mark.parametrize("name", ["linear_2x1", "quadrotor", "main_path"])
+@pytest.mark.parametrize("name", ["linear_2x1", "quadrotor", "main_path", "quadrotor_full"])
 def test_vmapped_refusal_reads_only_the_dense_kernel(name):
     """The vmapped solve runs the plain grid always and a kernel only for
     the backward pass under `pallas_backward`."""
@@ -115,6 +119,7 @@ class _OnCard:
 
     is_cuda = True
     dtype = torch.float32
+    device = torch.device("cuda", 0)  # a name only: nothing is allocated there
 
 
 @pytest.mark.parametrize("entry", ["solve_tiled", "solve_tiled_with_rescue", "solve_lanes",
@@ -170,3 +175,56 @@ def test_plain_grid_option_never_calls_the_kernel_wrapper(monkeypatch):
     assert torch.equal(stats_k.status, stats_p.status)
     assert torch.equal(stats_k.iterations, stats_p.iterations)
     assert torch.equal(st_k.x, st_p.x) and torch.equal(st_k.u, st_p.u)
+
+
+# (problem, options, words the single-lane refusal names on the card); ()
+# means no refusal
+SINGLE_LANE_CASES = [
+    ("quadrotor_full", {}, ()),
+    ("quadrotor", {}, ("pallas_rollout", "no block step")),
+    ("quadrotor_full", {"ls_parallel_width": 33}, ("trial_rollout", "W=33")),
+    ("quadrotor_full", {"pallas_rollout": False}, ()),
+]
+
+
+@pytest.mark.parametrize("name, kw, words", SINGLE_LANE_CASES,
+                         ids=["full", "no_block_step", "w33", "plain_grid"])
+def test_single_lane_refusal_on_the_card(name, kw, words):
+    """The latency row's options on the card: the (12, 4) backward kernel
+    and the quadrotor's trial-rollout kernel take the full quadrotor;
+    without its block step, or with more trials than the kernel's warp
+    holds, the solve is refused before it starts."""
+    prob = dataclasses.replace(_problem(name), x0=_OnCard())
+    why = solver.single_lane_refusal(prob, mpc.quadrotor_latency_options().replace(**kw))
+    if not words:
+        assert why is None, why
+        return
+    for word in words:
+        assert word in why, (word, why)
+
+
+def test_tiled_row_options_take_the_full_quadrotor():
+    """The tiled row's options: both batched kernels take the quadrotor
+    with its column step; the vmapped row's dense kernel too."""
+    prob = _problem("quadrotor_full")
+    assert tsv.kernel_refusal(prob, mpc.quadrotor_tiled_options(), vmapped=False) is None
+    assert tsv.kernel_refusal(prob, mpc.quadrotor_options(), vmapped=True) is None
+    assert tsv.supported_options(mpc.quadrotor_tiled_options())
+
+
+def test_vmapped_plain_run_takes_the_tiled_rows_steps():
+    """The tiled row's float64 reference on the card is the vmapped loop
+    with the tiled row's options and pallas_backward=False: the plain
+    backward, the plain grid and the Armijo-only search. On the CPU, where
+    `solve_tiled` runs the same plain versions, the two loops agree
+    exactly in statuses, iterations, states and inputs."""
+    prob = mpc.quadrotor_waypoint_problem(N=6, dtype=torch.float64, device="cpu")
+    x0 = mpc.quadrotor_initial_states(3, seed=1, dtype=torch.float64, device="cpu")
+    opts = mpc.quadrotor_tiled_options().replace(iterations_max=3)
+    tiled = mpc.run_quadrotor_waypoints_tiled(prob, x0, ticks=3, opts=opts, switch_every=2)
+    vmapped = mpc.run_quadrotor_waypoints(prob, x0, ticks=3, switch_every=2,
+                                          opts=opts.replace(pallas_backward=False))
+    assert torch.equal(tiled.status, vmapped.status)
+    assert torch.equal(tiled.iterations, vmapped.iterations)
+    assert torch.equal(tiled.x_true, vmapped.x_true)
+    assert torch.equal(tiled.state.u, vmapped.state.u)

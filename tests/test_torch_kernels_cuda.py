@@ -570,3 +570,131 @@ def test_vmap_solve_on_card_tracks_plain_path(dev):
     a, b = out
     assert torch.equal(a.status.cpu(), b.status)
     assert float((a.x_true.double().cpu() - b.x_true).abs().max()) < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# The quadrotor (n=12, m=4, rk4): its column step in rollout_grid.cu, its
+# block step in trial_rollout.cu's one-thread-a-trial kernel, and the
+# (12, 4) instantiations of riccati_latency.cu
+# ---------------------------------------------------------------------------
+
+def _quad_rollout_inputs(dev, Bsz, Nk, W, seed=7):
+    """The waypoint problem and grid operands of Bsz lanes around hover:
+    small rotor imbalances and gains, as the solve gives them."""
+    from altro_tpu_torch import mpc
+
+    prob = mpc.quadrotor_waypoint_problem(N=Nk, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(seed)
+    xr = 0.02 * rng.standard_normal((Nk + 1, 12, Bsz))
+    # a rotor imbalance of 0.01 N tips the body over within the 1.5 s horizon
+    ur = mpc.QUAD_HOVER + 0.001 * rng.standard_normal((Nk, 4, Bsz))
+    K = 0.005 * rng.standard_normal((Nk, 4, 12, Bsz))
+    d = 0.002 * rng.standard_normal((Nk, 4, Bsz))
+    rho = 1.0 + rng.random(Bsz)
+    x0 = xr[0] + 0.01 * rng.standard_normal((12, Bsz))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
+    return prob, (t(xr), t(ur), t(K), t(d), (), t(rho), t(0.5 ** np.arange(W)), t(x0))
+
+
+@pytest.mark.parametrize("W", [1, 8])
+@pytest.mark.parametrize("Bsz", [1, 33, 1024])
+def test_rollout_kernel_quadrotor_matches_plain(dev, Bsz, W):
+    """The <QuadrotorRK4, 0> instantiation (its two 8-knot chunks opt in
+    above 48 KB of shared memory): ragged lane tiles and the row's
+    B=1024, 30 knots (four staged chunks, the last one ragged)."""
+    from altro_tpu_torch.ops import rollout_grid as rg
+
+    prob, args = _quad_rollout_inputs(dev, Bsz, 30, W)
+    before = rg.LAUNCHES
+    pk, xk = rg.rollout_grid(prob, *args)
+    pr, xr = rg.rollout_grid_ref(prob, *args)
+    torch.cuda.synchronize()
+    assert rg.LAUNCHES == before + 1
+    assert pk.shape == (W, Bsz) and xk.shape == (W, 31, 12, Bsz)
+    assert bool(torch.isfinite(pk).all())
+    assert float(((pk - pr).abs() / pr.abs().clamp(min=1.0)).max()) < 1e-4
+    assert float((xk - xr).abs().max()) < 1e-4 * max(1.0, float(xr.abs().max()))
+
+
+def _quad_trial_inputs(dev, Nk, W, seed=8):
+    from altro_tpu_torch import mpc
+
+    prob = mpc.quadrotor_waypoint_problem(N=Nk, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(seed)
+    xr = 0.05 * rng.standard_normal((Nk + 1, 12))
+    xr[:, 2] += np.linspace(0.0, 0.5, Nk + 1)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
+    c = prob.cost
+    args = (t(0.5 ** np.arange(W)), t(xr[0] + 0.02 * rng.standard_normal(12)), t(xr),
+            t(mpc.QUAD_HOVER + 0.001 * rng.standard_normal((Nk, 4))),
+            t(0.005 * rng.standard_normal((Nk, 4, 12))), t(0.002 * rng.standard_normal((Nk, 4))),
+            c.Q, c.q, c.R, c.r, c.c, prob.h)
+    return prob.dynamics_tile, args
+
+
+@pytest.mark.parametrize("W", [1, 8])
+@pytest.mark.parametrize("Nk", [1, 30, 31, 32, 33, 64, 65])
+def test_trial_rollout_kernel_quadrotor_matches_plain(dev, W, Nk):
+    """The one-thread-a-trial kernel on the quadrotor's block step, N at
+    its 32-knot chunk edges and the row's N=30 (an open-loop quadrotor
+    leaves hover within a few seconds, so the horizons stay short)."""
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    step, args = _quad_trial_inputs(dev, Nk, W)
+    before = tr.LAUNCHES
+    pk, xk = tr.trial_rollout(step, *args)
+    pr, xs = tr.trial_rollout_ref(step, *args)
+    torch.cuda.synchronize()
+    assert tr.LAUNCHES == before + 1
+    assert pk.shape == (W,) and xk.shape == (W, Nk + 1, 12)
+    assert bool(torch.isfinite(pk).all())
+    assert float(((pk - pr).abs() / pr.abs().clamp(min=1.0)).max()) < 1e-4
+    assert float((xk - xs).abs().max()) < 1e-4 * max(1.0, float(xs.abs().max()))
+
+
+def test_trial_rollout_kernel_quadrotor_refuses_rows(dev):
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    step, args = _quad_trial_inputs(dev, 30, 8)
+    Nk = 30
+    con = (torch.zeros((Nk + 1, 2, 12), device=dev), torch.zeros((Nk + 1, 2, 4), device=dev),
+           torch.zeros((Nk + 1, 2), device=dev), 0.5)
+    with pytest.raises(NotImplementedError, match=r"P=2.*quadrotor_rk4"):
+        tr.trial_rollout(step, *args, con=con)
+
+
+@pytest.mark.parametrize("diag_x, diag_u, with_lux, with_f", LATENCY_VARIANTS)
+@pytest.mark.parametrize("Nk", [1, 30, 31, 32, 33, 63, 64, 65, 500])
+def test_riccati_latency_kernel_12x4_matches_plain(dev, diag_x, diag_u, with_lux, with_f, Nk):
+    """The (12, 4) instantiations (five compute warps, 32-knot chunks):
+    every (diag_x, diag_u, lux, f) variant at the chunk edges, the row's
+    N=30 and the long horizon, with planted failing knots."""
+    _check_latency(dev, Nk, diag_x, diag_u, with_lux, with_f, 12, 4)
+
+
+def test_quadrotor_rows_launch_their_kernels(dev):
+    """Two ticks of each quadrotor row on the card (f32) against the same
+    ticks on the plain path on the CPU (f64): the tiled row (B=64) launches
+    the batched backward and the trial-grid kernels, the latency row the
+    single-lane backward and trial-rollout kernels; statuses equal, plant
+    states to 1e-2 (each solve stops at stationarity 1e-3)."""
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch.ops import riccati_backward as rb
+    from altro_tpu_torch.ops import riccati_latency as rl
+    from altro_tpu_torch.ops import rollout_grid as rg
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    rows = {"tiled": (mpc.run_quadrotor_waypoints_tiled, 64, (rb, rg)),
+            "latency": (mpc.run_quadrotor_latency, None, (rl, tr))}
+    for name, (run, Bsz, kernels) in rows.items():
+        out = []
+        for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+            prob = mpc.quadrotor_waypoint_problem(N=30, dtype=dtype, device=device)
+            x0 = mpc.quadrotor_initial_states(64, seed=1, dtype=dtype, device=device)
+            before = [k.LAUNCHES for k in kernels]
+            out.append(run(prob, x0 if Bsz else x0[0], ticks=2))
+            launched = [k.LAUNCHES > b for k, b in zip(kernels, before)]
+            assert all(launched) if device == dev else not any(launched), (name, launched)
+        a, b = out
+        assert torch.equal(a.status.cpu(), b.status), name
+        assert float((a.x_true.double().cpu() - b.x_true).abs().max()) < 1e-2, name

@@ -1,6 +1,7 @@
 """The JAX package's own solve in float32 on the reference's test problems.
 
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py [--tol-stationarity T]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --quadrotor [--lanes B]
 
 Runs altro_tpu (the reference package, not the port) in float32 on the
 CPU: the three double integrator oracles of
@@ -12,6 +13,17 @@ counted, the ticks whose iterations differ from data/scotty_mpc.npz and
 the largest tracking-error difference from it. It shows what the
 algorithm does in float32 on these problems, which is what chip_smoke.py's
 float32 gates of the reference solves rest on.
+
+With --quadrotor it runs instead the two quadrotor rows of
+scripts/bench_all.py that reach the TPU kernels, 100 ticks each, from
+the starts the port draws (torch.Generator, seed 1, 0.05 N(0, 1)): the
+tiled waypoint MPC (`quadrotor_waypoint_mpc_B1024_tiled`: `solve_tiled`
+on B lanes, its Pallas backward in interpret mode, the scan grid) and
+the single-lane latency row (`quadrotor_latency_B1`: `solve` on lane 0,
+the scan paths), and prints each row's success rate, final waypoint
+distance and mean iterations: what chip_smoke.py's gates of the port's
+two rows rest on. The tiled row takes about 20 minutes at B=1024 on
+one CPU.
 """
 
 from __future__ import annotations
@@ -106,10 +118,126 @@ def scotty_mpc(tol, ticks=200, N=30):
             "mean_tracking_error": float(np.mean(errs))}
 
 
+QUAD_HOVER = 0.5 * 9.81 / 4.0
+QUAD_WAYPOINTS = ((1.0, 0.0, 1.0), (1.0, 1.0, 1.5), (0.0, 1.0, 1.0), (0.0, 0.0, 0.5))
+
+
+def quadrotor_rows(lanes, ticks=100, switch_every=25, N=30):
+    """The two quadrotor rows (scripts/bench_all.py:322-564) in float32."""
+    import torch
+
+    from altro_tpu import tile_solver as tsv
+    from altro_tpu.models.integrators import rk4
+    from altro_tpu.models.quadrotor import quadrotor_continuous
+    from altro_tpu.models.tile_steps import quadrotor_cols, quadrotor_tile, rk4_cols, rk4_tile
+    from altro_tpu.ops.tile_iter import tile_vmap
+    from altro_tpu.parallel.batch import batch_init_state
+
+    n, m = 12, 4
+    Qd = np.tile(np.concatenate([np.full(3, 1.0), np.full(9, 0.1)]), (N + 1, 1))
+    Qd[N] *= 10
+    wps = np.zeros((4, n))
+    wps[:, :3] = QUAD_WAYPOINTS
+    cost = lqr_cost_from_reference(jnp.asarray(Qd, F32), jnp.full((N + 1, m), 1e-2, F32),
+                                   jnp.asarray(np.tile(wps[0], (N + 1, 1)), F32),
+                                   jnp.full((N + 1, m), QUAD_HOVER, F32))
+    dyn = rk4(quadrotor_continuous())
+    problem = Problem(N=N, n=n, m=m, dynamics=dyn, dynamics_jac=None, constraints=(),
+                      cost=cost, h=jnp.full(N, 0.05, F32), x0=jnp.zeros(n, F32),
+                      dynamics_tile=rk4_tile(quadrotor_tile()),
+                      dynamics_cols=rk4_cols(quadrotor_cols()))
+    c_u = 0.5 * float(np.full(m, QUAD_HOVER) @ (np.full(m, 1e-2) * np.full(m, QUAD_HOVER)))
+    q_wp = jnp.asarray(-(Qd[None] * wps[:, None]), F32)
+    c_wp_ = 0.5 * np.sum(Qd[None] * wps[:, None] ** 2, axis=2)
+    c_wp_[:, :N] += c_u
+    c_wp = jnp.asarray(c_wp_, F32)
+    wp_idx = [(t // switch_every) % 4 for t in range(ticks)]
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    x0 = (0.05 * torch.randn((1024, n), generator=gen, dtype=torch.float64)).numpy()
+    x0 = np.resize(x0, (lanes, n)).astype(np.float32)
+    final_wp = wps[wp_idx[-1], :3]
+    # the tiled row's options (bench_all.py:371-398, tiled branch), the scan grid
+    qopts = SolverOptions(
+        iterations_max=15, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+        throw_errors=False, rti_mode=False, use_backtracking_linesearch=True,
+        parallel_linesearch=True, ls_phase_split=True, ls_try_cubic_first=False,
+        ls_max_iters=8, penalty_warm_start=True, ls_armijo_only=True,
+        tol_stationarity_rel=1e-5, pallas_backward=True, pallas_rollout_tiled=False,
+        ls_armijo_slack=1e-6)
+
+    def row(name, iters, statuses, x_final, seconds):
+        dist = np.linalg.norm(np.asarray(x_final, np.float64)[:, :3] - final_wp[None], axis=1)
+        return {"row": name, "lanes": int(np.asarray(x_final).shape[0]), "ticks": ticks,
+                "success_rate": float(np.mean(np.asarray(statuses) == 0)),
+                "mean_final_waypoint_dist": float(dist.mean()),
+                "mean_iterations": float(np.mean(iters)),
+                "max_iterations_of_a_tick": int(np.max(iters)), "cpu_seconds": seconds}
+
+    import time
+
+    # single-lane latency row (bench_all.py:514-564) on lane 0
+    lopts = dataclasses.replace(qopts, pallas_backward=False, ls_armijo_only=True,
+                                pallas_latency_backward=True)
+    run = jax.jit(solve, static_argnames=("opts",))
+    st = dataclasses.replace(init_state(problem), u=jnp.full((N, m), QUAD_HOVER, F32))
+    x = jnp.asarray(x0[0])
+    iters, statuses = [], []
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        w = wp_idx[t]
+        prob = dataclasses.replace(problem, x0=x, cost=dataclasses.replace(
+            problem.cost, q=q_wp[w], c=c_wp[w]))
+        st, stats = run(prob, st, lopts)
+        x = dyn(x, st.u[0], jnp.asarray(0.05, F32), 0)
+        st = shift_trajectory(st)
+        iters.append(int(stats.iterations))
+        statuses.append(int(stats.status))
+    print(json.dumps(row("quadrotor_latency_B1", iters, statuses, np.asarray(x)[None],
+                         time.perf_counter() - t0)), flush=True)
+
+    # tiled waypoint MPC (bench_all.py:433-472)
+    tsv._FORCE_INTERPRET = True  # the Pallas backward off the TPU; the grid is the scan
+    axes = dataclasses.replace(
+        problem, cost=dataclasses.replace(problem.cost, Q=False, R=False, q=False, r=False,
+                                          c=False),
+        h=False, x0=True, A=False, B=False, f_aff=False, constraints=())
+    plant = tile_vmap(lambda xk, uk: dyn(xk, uk, jnp.asarray(0.05, F32), 0), (True, True))
+
+    @jax.jit
+    def tick(x_t, st_t, q, c):
+        prob = dataclasses.replace(problem, x0=x_t,
+                                   cost=dataclasses.replace(problem.cost, q=q, c=c))
+        st_t, stats = tsv.solve_tiled(prob, axes, st_t, qopts)
+        x_t = plant(x_t, st_t.u[:, 0])
+        return x_t, tsv.shift_trajectory_tiled(st_t), stats.iterations, stats.status
+
+    st_t = tsv.state_to_tiles(dataclasses.replace(
+        batch_init_state(problem, lanes), u=jnp.full((lanes, N, m), QUAD_HOVER, F32)))
+    x_t = tsv.batch_to_tiles(jnp.asarray(x0))
+    iters, statuses = [], []
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        w = wp_idx[t]
+        x_t, st_t, it, stat = tick(x_t, st_t, q_wp[w], c_wp[w])
+        iters.append(np.asarray(it).reshape(-1))
+        statuses.append(np.asarray(stat).reshape(-1))
+    print(json.dumps(row("quadrotor_waypoint_mpc_B1024_tiled", np.stack(iters),
+                         np.stack(statuses), tsv.tiles_to_batch(x_t),
+                         time.perf_counter() - t0)), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tol-stationarity", type=float, default=1e-4)
-    tol = ap.parse_args().tol_stationarity
+    ap.add_argument("--quadrotor", action="store_true",
+                    help="run the two quadrotor rows instead of the reference solves")
+    ap.add_argument("--lanes", type=int, default=1024,
+                    help="lanes of the tiled quadrotor row (a multiple of 1024)")
+    args = ap.parse_args()
+    if args.quadrotor:
+        quadrotor_rows(args.lanes)
+        return
+    tol = args.tol_stationarity
     for case, x0, kinds, kw in (
             ("goal", [1.0, 2.0, 0.0, 0.0], ("goal",), dict(penalty_scaling=100.0)),
             ("control_bounds", [2.0, 2.0, 0.0, 0.0], ("goal", "bounds"),
