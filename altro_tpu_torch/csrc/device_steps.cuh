@@ -18,6 +18,9 @@
 //   (three sine-cosine pairs for roll, pitch and yaw, two divides by
 //   cos(pitch)), `step` the classic RK4 with the stages and the update
 //   x + (h/6)(k1 + 2 k2 + 2 k3 + k4) summed in that order.
+//   model 2, integrator 0: PendulumMidpoint, the twin of
+//   midpoint_cols(pendulum_cols(mass, length, b, g)): one sine a
+//   evaluation, the midpoint step as the bicycle's.
 // Built without --use_fast_math, so sinf/cosf/sincosf/tanf/sqrtf are the
 // accurate library versions.
 
@@ -165,6 +168,31 @@ struct QuadrotorRK4 {
     const float h6 = h / 6.0f;
 #pragma unroll
     for (int i = 0; i < NS; ++i) x[i] = x[i] + h6 * (acc[i] + k[i]);
+  }
+};
+
+// The torque-driven pendulum (n = 2: angle, rate; m = 1 torque) under the
+// explicit midpoint: alpha = (tau - b omega) / (m l^2) - (g / l) sin(theta),
+// pendulum_cols' expression.
+struct PendulumMidpoint {
+  static constexpr int NS = 2;
+  static constexpr int NI = 1;
+  float mass, length, b, g;
+
+  __device__ __forceinline__ void f(const float x[NS], const float u[NI], float out[NS]) const {
+    out[0] = x[1];
+    out[1] = (u[0] - b * x[1]) / (mass * length * length) - (g / length) * sinf(x[0]);
+  }
+
+  // explicit midpoint: x <- x + h f(x + h/2 f(x, u), u)
+  __device__ __forceinline__ void step(float x[NS], const float u[NI], float h) const {
+    float fx[NS], xm[NS], fm[NS];
+    f(x, u, fx);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) xm[i] = x[i] + 0.5f * h * fx[i];
+    f(xm, u, fm);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) x[i] = x[i] + h * fm[i];
   }
 };
 

@@ -25,10 +25,11 @@
 // issues, not bytes.
 //
 // What the design does about it: a block holds LANES lanes (threadIdx.x,
-// the fastest axis: 8 at (12, 4), 16 at (4, 2), so the compute threads
-// fill whole warps) and G = n + m compute threads per lane (threadIdx.y =
-// r < G), 128 blocks of 128 compute threads at B=1024, (12, 4), and 128
-// blocks of 96 at B=2048, (4, 2). Thread t
+// the fastest axis: 8 at (12, 4), 16 at (4, 2), 32 at (2, 1) and (6, 3),
+// so the compute threads fill whole warps) and G = n + m compute threads
+// per lane (threadIdx.y = r < G), 128 blocks of 128 compute threads at
+// B=1024, (12, 4), 128 blocks of 96 at B=2048, (4, 2), and 32 blocks of
+// 96 (the pendulum's (2, 1)) or 288 (the rocket's (6, 3)) at B=1024. Thread t
 // owns a strided tile of M = [A B]' P' and of H = l_hess + M [A B]: rows
 // t / GC + GR i, columns t % GC + GC j, so the GC threads of a warp that
 // share rows read one row value (a broadcast) and GC distinct columns (GC
@@ -80,12 +81,19 @@ template <int NS, int NI>
 struct Layout {
   static constexpr int NT = NS + NI;  // rows of [A B]'
   static constexpr int G = NT;        // compute threads per lane
-  static constexpr int LANES = (G % 4 == 0) ? 8 : 16;  // 8: one 32-byte sector per entry
+  // the fewest lanes (8: one 32-byte sector per entry) whose compute
+  // threads fill whole warps: 8 at G = 16, 16 at G = 6, 32 at G = 3 and 9
+  static constexpr int LANES = (8 * G % 32 == 0) ? 8 : (16 * G % 32 == 0) ? 16 : 32;
   static constexpr int COMPUTE = LANES * G;
   static constexpr int COPY = 64;  // the two copy warps
   static constexpr int THREADS = COMPUTE + COPY;
-  // thread t's tile of M and H: rows t / GC + GR i, columns t % GC + GC j
-  static constexpr int GC = (NS % 4 == 0 && NT % 4 == 0) ? 4 : 2;
+  // thread t's tile of M and H: rows t / GC + GR i, columns t % GC + GC j,
+  // GC the largest of 4, 3, 2, 1 that divides n and n + m (4 at (12, 4),
+  // 3 at (6, 3), 2 at (4, 2), 1 at (2, 1))
+  static constexpr int GC = (NS % 4 == 0 && NT % 4 == 0)   ? 4
+                            : (NS % 3 == 0 && NT % 3 == 0) ? 3
+                            : (NS % 2 == 0 && NT % 2 == 0) ? 2
+                                                           : 1;
   static constexpr int GR = G / GC;
   static constexpr int PS = NS + 1;  // padded row stride of P
   static constexpr int MS = NS + 1;  // padded row stride of M
@@ -115,6 +123,7 @@ struct Layout {
   static constexpr int IN_COPIES = (ENTRIES * LANES / 4 + COPY - 1) / COPY;
   static constexpr int OUT_COPIES = (OUT_ENTRIES * LANES / 4 + COPY - 1) / COPY;
   static_assert(COMPUTE % 32 == 0, "the compute threads fill whole warps");
+  static_assert(LANES % 4 == 0 && THREADS <= 1024, "16-byte copies of 4 lanes, one block");
   static_assert(GR * GC == G && NT % GR == 0 && NS % GC == 0 && NT % GC == 0, "tile grid");
 };
 
@@ -559,5 +568,7 @@ extern "C" int riccati_dense_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 4 && m == 2) return launch<4, 2>(a, diag != 0, s);
   if (n == 12 && m == 4) return launch<12, 4>(a, diag != 0, s);
+  if (n == 2 && m == 1) return launch<2, 1>(a, diag != 0, s);
+  if (n == 6 && m == 3) return launch<6, 3>(a, diag != 0, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -44,6 +44,10 @@
 // 71,808 bytes, above the 48 KB default, so its launch opts in. Its
 // thread keeps x, the RK4 stage and the stage sum (36 floats) live
 // through the step; at B=1024, W=8 it runs 64 blocks of 128 threads.
+// PendulumMidpoint, the twin of midpoint_cols(pendulum_cols(...)) (P = 0
+// or 2), has the smallest chunks (8 floats a lane and knot at P = 2, 9,344
+// bytes for the two); its torque bound's two rows lie on u (wau), not on
+// x as the bicycle's steering rows do.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -54,6 +58,7 @@ namespace {
 
 using altro_dev::BicycleFrame;
 using altro_dev::neg_part;
+using altro_dev::PendulumMidpoint;
 using altro_dev::QuadrotorRK4;
 
 constexpr int LANES = 16;       // lanes per block (threadIdx.x)
@@ -272,11 +277,10 @@ int launch(const Ops& o, const Model& model, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <int FRAME>
-int launch_p(const Ops& o, float length, float rear, int P, cudaStream_t s) {
-  const BicycleFrame<FRAME> m{length, rear};
-  if (P == 0) return launch<BicycleFrame<FRAME>, 0>(o, m, s);
-  if (P == 2) return launch<BicycleFrame<FRAME>, 2>(o, m, s);
+template <class Model>
+int launch_p(const Ops& o, const Model& m, int P, cudaStream_t s) {
+  if (P == 0) return launch<Model, 0>(o, m, s);
+  if (P == 2) return launch<Model, 2>(o, m, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -286,7 +290,8 @@ int launch_p(const Ops& o, float length, float rear, int P, cudaStream_t s) {
 // problem's constraint groups, null when empty). (model, integrator)
 // (0, 0): the bicycle midpoint step, P 0 or 2, params (frame 0, 1 or 2,
 // length, rear); (1, 1): the quadrotor RK4 step, P 0, params (mass,
-// gravity, arm, kf, km, Jx, Jy, Jz). params lies in host memory.
+// gravity, arm, kf, km, Jx, Jy, Jz); (2, 0): the pendulum midpoint step,
+// P 0 or 2, params (mass, length, b, g). params lies in host memory.
 extern "C" int rollout_grid_f32(
     const float* xref, const float* uref, const float* K, const float* d,
     const float* Q, const float* q, const float* R, const float* r,
@@ -307,10 +312,12 @@ extern "C" int rollout_grid_f32(
                          params[4], params[5], params[6], params[7]};
     return launch<QuadrotorRK4, 0>(o, m, s);
   }
+  if (model == 2 && integrator == 0)
+    return launch_p(o, PendulumMidpoint{params[0], params[1], params[2], params[3]}, P, s);
   if (model != 0 || integrator != 0) return (int)cudaErrorInvalidValue;
   const int frame = (int)params[0];
-  if (frame == 0) return launch_p<0>(o, params[1], params[2], P, s);
-  if (frame == 1) return launch_p<1>(o, params[1], params[2], P, s);
-  if (frame == 2) return launch_p<2>(o, params[1], params[2], P, s);
+  if (frame == 0) return launch_p(o, BicycleFrame<0>{params[1], params[2]}, P, s);
+  if (frame == 1) return launch_p(o, BicycleFrame<1>{params[1], params[2]}, P, s);
+  if (frame == 2) return launch_p(o, BicycleFrame<2>{params[1], params[2]}, P, s);
   return (int)cudaErrorInvalidValue;
 }

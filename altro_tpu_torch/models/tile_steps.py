@@ -3,7 +3,8 @@
 Counterpart: altro_tpu/models/tile_steps.py (`bicycle_cols`,
 `midpoint_cols`, `rk4_cols`, `quadrotor_cols`, `block_from_cols`,
 `block_step_from_cols`, `midpoint_tile`, `rk4_tile`, `bicycle_tile`,
-`quadrotor_tile`), each with the same expression order as there.
+`quadrotor_tile`, `pendulum_cols`), each with the same expression order
+as there.
 
 * Column form: a function takes tuples of per-component tensors that
   broadcast against each other (one `[B]` lane vector per state
@@ -37,11 +38,13 @@ __all__ = [
     "rk4_tile",
     "quadrotor_cols",
     "quadrotor_tile",
+    "pendulum_cols",
 ]
 
 # Model and integrator codes shared with csrc/device_steps.cuh.
 MODEL_BICYCLE = 0
 MODEL_QUADROTOR = 1
+MODEL_PENDULUM = 2
 INTEGRATOR_MIDPOINT = 0
 INTEGRATOR_RK4 = 1
 BICYCLE_FRAMES = {"cog": 0, "CENTER_OF_GRAVITY": 0, "rear": 1, "REAR": 1,
@@ -57,7 +60,8 @@ class DeviceStep:
     n: int
     m: int
     params: tuple  # model parameters: (frame code, length, rear) for the bicycle,
-    # (mass, gravity, arm, kf, km, Jx, Jy, Jz) for the quadrotor
+    # (mass, gravity, arm, kf, km, Jx, Jy, Jz) for the quadrotor, (mass,
+    # length, b, g) for the pendulum
 
 
 def _with_device_step(step, f, integrator):
@@ -226,3 +230,17 @@ def quadrotor_tile(mass=0.5, gravity=9.81, arm=0.1750, kf=1.0, km=0.0245,
                    inertia=(0.0023, 0.0023, 0.004)):
     """Block form of models.quadrotor.quadrotor_continuous."""
     return block_from_cols(quadrotor_cols(mass, gravity, arm, kf, km, inertia))
+
+
+def pendulum_cols(mass=1.0, length=0.5, b=0.1, g=9.81):
+    """Column form of models.pendulum.pendulum_continuous (JAX's
+    expression: alpha = (tau - b omega) / (m l^2) - (g / l) sin(theta))."""
+
+    def f(x, u):
+        theta, omega = x[0], x[1]
+        tau = u[0]
+        alpha = (tau - b * omega) / (mass * length * length) - (g / length) * torch.sin(theta)
+        return (omega, alpha)
+
+    f.device_model = (MODEL_PENDULUM, 2, 1, tuple(float(v) for v in (mass, length, b, g)))
+    return f

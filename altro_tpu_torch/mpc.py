@@ -45,6 +45,21 @@ bench.py's closed loop (`child_main`, its problem, options, rescue and
   through the waypoints by the single-lane `solver.solve`
   (`quadrotor_latency_B1`, bench_all.py:514-564) on the single-lane
   backward and trial-rollout kernels.
+* `pendulum_swingup_problem`, `pendulum_swingup_options`,
+  `pendulum_initial_states` and `run_pendulum_swingup_tiled`: B pendulums
+  swung up by closed-loop MPC through `tile_solver.solve_tiled`
+  (`pendulum_swingup_mpc_B1024`, bench_all.py:845-980; its f64 oracle
+  twin tests/test_pendulum_mpc_trace.py): the batched backward at (2, 1)
+  and the trial-grid kernel on the pendulum's midpoint column step with
+  the torque bound's two rows on u. `run_pendulum_swingup` is the same
+  loop through the vmapped solve, the row's plain reference.
+* `rocket_soc_options`, `rocket_initial_states`, `run_rocket_soc_tiled`
+  and `run_rocket_soc`: one batched solve of B rocket landings
+  (`reference_problems.rocket_landing_problem`: three SOC groups, a
+  min-thrust row, the touchdown equality) through `solve_tiled`
+  (`rocket_soc_tiled_B1024`, bench_all.py:732-843: dense expansions, the
+  batched backward at (6, 3), the plain grid) or through the vmapped
+  solve.
 """
 
 from __future__ import annotations
@@ -62,12 +77,14 @@ from altro_tpu_torch import tile_solver as tsv
 from altro_tpu_torch.cones import Cone
 from altro_tpu_torch.models.bicycle import bicycle_continuous
 from altro_tpu_torch.models.integrators import midpoint, rk4
+from altro_tpu_torch.models.pendulum import pendulum_continuous
 from altro_tpu_torch.models.quadrotor import quadrotor_continuous
 from altro_tpu_torch.models.tile_steps import (
     bicycle_cols,
     bicycle_tile,
     midpoint_cols,
     midpoint_tile,
+    pendulum_cols,
     quadrotor_cols,
     quadrotor_tile,
     rk4_cols,
@@ -75,6 +92,7 @@ from altro_tpu_torch.models.tile_steps import (
 )
 from altro_tpu_torch.options import SolverOptions
 from altro_tpu_torch.parallel.batch import batch_init_state, solve_lanes
+from altro_tpu_torch.reference_problems import rocket_landing_problem
 from altro_tpu_torch.problem import (
     ConstraintSpec,
     DiagonalCost,
@@ -114,6 +132,17 @@ __all__ = [
     "run_quadrotor_waypoints_tiled",
     "quadrotor_latency_options",
     "run_quadrotor_latency",
+    "pendulum_swingup_problem",
+    "pendulum_swingup_options",
+    "pendulum_initial_states",
+    "SwingupResult",
+    "run_pendulum_swingup_tiled",
+    "run_pendulum_swingup",
+    "rocket_soc_options",
+    "rocket_initial_states",
+    "RocketResult",
+    "run_rocket_soc_tiled",
+    "run_rocket_soc",
 ]
 
 Q_DIAG = 1e-2
@@ -576,16 +605,15 @@ def _waypoint_costs(problem: Problem, ticks: int, switch_every: int):
     return q_wp, c_wp, wp_idx
 
 
-def _waypoint_loop(problem: Problem, x_true0: torch.Tensor, ticks: int, switch_every: int,
-                   state0: Optional[SolverState], solve_lanes_fn) -> WaypointResult:
-    """The batched waypoint loop: each tick `solve_lanes_fn(prob_t, st)`
-    on the lane-minor state, u_0 through the rk4 plant, the shift."""
-    N, m, B = problem.N, problem.m, x_true0.shape[0]
-    dt, dev = problem.dtype, problem.device
-    q_wp, c_wp, wp_idx = _waypoint_costs(problem, ticks, switch_every)
-    if state0 is None:
-        state0 = dataclasses.replace(batch_init_state(problem, B),
-                                     u=torch.full((B, N, m), QUAD_HOVER, dtype=dt, device=dev))
+def _lanes_closed_loop(problem: Problem, x_true0: torch.Tensor, ticks: int, state0: SolverState,
+                      solve_lanes_fn, cost_at=None):
+    """The batched closed loop of the rows: each tick `solve_lanes_fn(prob_t,
+    st)` on the lane-minor state from the plant states (prob_t's cost
+    `cost_at(t)` when given), u_0 through the plant (the problem's own
+    dynamics), the shift. state0 is batch-major. Returns (iterations
+    [T, B], statuses [T, B], final plant states [B, n], final state
+    batch-major, wall seconds, synchronized on CUDA)."""
+    B, dev = x_true0.shape[0], problem.device
     if x_true0.is_cuda:
         torch.cuda.synchronize(x_true0.device)
     t0 = time.perf_counter()
@@ -595,9 +623,9 @@ def _waypoint_loop(problem: Problem, x_true0: torch.Tensor, ticks: int, switch_e
     statuses = torch.empty((ticks, B), dtype=torch.int32, device=dev)
     h = problem.h[0]
     for t in range(ticks):
-        w = wp_idx[t]
-        prob_t = dataclasses.replace(
-            problem, cost=dataclasses.replace(problem.cost, q=q_wp[w], c=c_wp[w]), x0=x_true)
+        prob_t = dataclasses.replace(problem, x0=x_true)
+        if cost_at is not None:
+            prob_t = dataclasses.replace(prob_t, cost=cost_at(t))
         st, stats = solve_lanes_fn(prob_t, st)
         x_true = problem.dynamics(x_true, st.u[0], h, 0)
         st = tsv.shift_trajectory_tiled(st)
@@ -607,9 +635,22 @@ def _waypoint_loop(problem: Problem, x_true0: torch.Tensor, ticks: int, switch_e
     state_b = tsv.state_from_lanes(st)
     if x_true0.is_cuda:
         torch.cuda.synchronize(x_true0.device)
-    seconds = time.perf_counter() - t0
-    return WaypointResult(iters, statuses, x_true_b, QUAD_WAYPOINTS[wp_idx[-1]], state_b,
-                          seconds)
+    return iters, statuses, x_true_b, state_b, time.perf_counter() - t0
+
+
+def _waypoint_loop(problem: Problem, x_true0: torch.Tensor, ticks: int, switch_every: int,
+                   state0: Optional[SolverState], solve_lanes_fn) -> WaypointResult:
+    """The batched waypoint loop: `_lanes_closed_loop` with the waypoint's
+    cost rows each tick, through the rk4 plant."""
+    N, m, B = problem.N, problem.m, x_true0.shape[0]
+    q_wp, c_wp, wp_idx = _waypoint_costs(problem, ticks, switch_every)
+    if state0 is None:
+        state0 = dataclasses.replace(batch_init_state(problem, B), u=torch.full(
+            (B, N, m), QUAD_HOVER, dtype=problem.dtype, device=problem.device))
+    out = _lanes_closed_loop(problem, x_true0, ticks, state0, solve_lanes_fn, lambda t: (
+        dataclasses.replace(problem.cost, q=q_wp[wp_idx[t]], c=c_wp[wp_idx[t]])))
+    iters, statuses, x_true, state, seconds = out
+    return WaypointResult(iters, statuses, x_true, QUAD_WAYPOINTS[wp_idx[-1]], state, seconds)
 
 
 def run_quadrotor_waypoints(problem: Problem, x_true0: torch.Tensor, *, ticks: int = 100,
@@ -705,3 +746,232 @@ def run_quadrotor_latency(problem: Problem, x_true0: torch.Tensor, *, ticks: int
     seconds = time.perf_counter() - t0
     return WaypointResult(iters, statuses, x_true[None], QUAD_WAYPOINTS[wp_idx[-1]], st,
                           seconds)
+
+
+# ---------------------------------------------------------------------------
+# Pendulum swing-up MPC (scripts/bench_all.py:845-980)
+# ---------------------------------------------------------------------------
+
+PEND_TORQUE = 6.0  # |u| <= 6
+PEND_H = 0.06
+
+
+def _torque_fn(x, u, k):
+    return torch.cat([u - PEND_TORQUE, -PEND_TORQUE - u])
+
+
+def pendulum_swingup_problem(N: int = 30, *, dtype=torch.float32, device="cuda") -> Problem:
+    """The row's problem: the pendulum (n=2, m=1) under the midpoint, h =
+    0.06, toward x = (pi, 0) with Q = 0.1 (terminal x 100) and R = 1e-3,
+    the torque bound |u| <= 6 as one affine diagonal-Hessian
+    NEGATIVE_ORTHANT group of two rows (its constant Jacobian given),
+    inactive at the terminal knot, and the column-form step the
+    trial-grid kernel runs; on the card unless `device` says otherwise."""
+    n, m = 2, 1
+    kw = dict(dtype=dtype, device=device)
+    Qd = np.tile(np.full(n, 1e-1), (N + 1, 1))
+    Qd[N] *= 100.0
+    cost = lqr_cost_from_reference(
+        torch.as_tensor(Qd, **kw), torch.full((N + 1, m), 1e-3, **kw),
+        torch.as_tensor(np.tile([math.pi, 0.0], (N + 1, 1)), **kw), torch.zeros((N + 1, m), **kw))
+    active = torch.ones(N + 1, dtype=torch.bool, device=device)
+    active[N] = False
+    J = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]], **kw)
+    torque = ConstraintSpec(fn=_torque_fn, cone=Cone.NEGATIVE_ORTHANT, dim=2, active=active,
+                            jac=_constant_jacobian(J), label="torque bound", diag_hessian=True,
+                            affine=True)
+    return Problem(N=N, n=n, m=m, dynamics=midpoint(pendulum_continuous()), dynamics_jac=None,
+                   constraints=(torque,), cost=cost, h=torch.full((N,), PEND_H, **kw),
+                   x0=torch.zeros(n, **kw), dynamics_cols=midpoint_cols(pendulum_cols()))
+
+
+def pendulum_swingup_options() -> SolverOptions:
+    """The row's options (`f32opts` with bench_all.py:895-902): 10
+    iterations, tolerances 1e-3, penalty warm start, the phase-split x-only
+    Armijo-only grid of width 8 in one block, line-search failure recovery
+    with no failures allowed, the best-decrease fallback, the trial-grid
+    kernel (`pallas_rollout_tiled`, the default)."""
+    return SolverOptions(
+        iterations_max=10, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+        throw_errors=False, use_backtracking_linesearch=True, penalty_warm_start=True,
+        parallel_linesearch=True, ls_phase_split=True, ls_try_cubic_first=False,
+        ls_armijo_only=True, ls_max_iters=8, ls_failure_recovery=True,
+        ls_recovery_max_fails=0, ls_best_decrease_fallback=True)
+
+
+def pendulum_initial_states(batch: int = 1024, *, seed: int = 3, scale: float = 0.05,
+                            dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """[B, 2] initial plant states scale * N(0, 1) near hanging down, from
+    numpy's default_rng(seed) (the JAX row draws them from jax.random)."""
+    xs = scale * np.random.default_rng(seed).standard_normal((batch, 2))
+    return torch.as_tensor(xs, dtype=dtype, device=device)
+
+
+@dataclasses.dataclass
+class SwingupResult:
+    iterations: torch.Tensor  # [T, B] int32
+    status: torch.Tensor  # [T, B] int32
+    x_true: torch.Tensor  # [B, 2] final plant states
+    state: SolverState  # final solver state, batch-major
+    seconds: float  # wall time of the run (synchronized on CUDA)
+
+    def up_error(self) -> torch.Tensor:
+        """[B] distance from upright, sqrt((theta mod 2 pi - pi)^2 + 0.1
+        omega^2), in float64 (bench_all.py:960-962)."""
+        x = self.x_true.double().cpu()
+        return torch.sqrt((torch.remainder(x[:, 0], 2 * math.pi) - math.pi) ** 2
+                          + 0.1 * x[:, 1] ** 2)
+
+    def metrics(self) -> dict:
+        """The row's numbers (bench_all.py:963-978, unrounded)."""
+        T, B = self.iterations.shape
+        up = self.up_error()
+        return {
+            "solves_per_s": B * T / self.seconds,
+            "ms_per_tick": 1e3 * self.seconds / T,
+            "success_rate": float((self.status == 0).double().mean()),
+            "mean_iterations": float(self.iterations.double().mean()),
+            "swingup_rate": float((up < 0.3).double().mean()),
+            "mean_up_error": float(up.mean()),
+        }
+
+
+def _swingup_loop(problem: Problem, x_true0: torch.Tensor, ticks: int,
+                  state0: Optional[SolverState], solve_lanes_fn) -> SwingupResult:
+    """The batched swing-up loop: `_lanes_closed_loop` through the midpoint
+    plant, from u = 0.1 unless state0 says otherwise."""
+    N, m, B = problem.N, problem.m, x_true0.shape[0]
+    if state0 is None:
+        state0 = dataclasses.replace(batch_init_state(problem, B), u=torch.full(
+            (B, N, m), 0.1, dtype=problem.dtype, device=problem.device))
+    return SwingupResult(*_lanes_closed_loop(problem, x_true0, ticks, state0, solve_lanes_fn))
+
+
+def run_pendulum_swingup_tiled(problem: Problem, x_true0: torch.Tensor, *, ticks: int = 80,
+                               opts: Optional[SolverOptions] = None,
+                               state0: Optional[SolverState] = None,
+                               layer_seconds: Optional[dict] = None) -> SwingupResult:
+    """Closed-loop swing-up MPC through `tile_solver.solve_tiled`
+    (bench_all.py:918-935): each tick every lane solves warm from its
+    plant state, applies u_0 through the midpoint plant and shifts its
+    warm start (`shift_trajectory_tiled`). problem: from
+    `pendulum_swingup_problem`; x_true0 [B, 2]; opts default
+    `pendulum_swingup_options()`; state0 (batch-major) defaults to the
+    cold start with u = 0.1. On CUDA tensors the batched backward and the
+    trial-grid kernels run, or the solve is refused before it starts; on
+    every device and dtype `run_pendulum_swingup` with these options takes
+    the same steps on the plain paths. layer_seconds: as
+    `tile_solver.lane_loop`'s."""
+    opts = pendulum_swingup_options() if opts is None else opts
+    return _swingup_loop(problem, x_true0, ticks, state0,
+                         lambda prob, st: tsv.solve_tiled(prob, st, opts, layer_seconds))
+
+
+def run_pendulum_swingup(problem: Problem, x_true0: torch.Tensor, *, ticks: int = 80,
+                         opts: Optional[SolverOptions] = None,
+                         state0: Optional[SolverState] = None,
+                         layer_seconds: Optional[dict] = None) -> SwingupResult:
+    """The loop of `run_pendulum_swingup_tiled` through the vmapped solve
+    (`parallel.batch.solve_lanes`, bench_all.py:937-947): with the row's
+    options (the default) the plain backward and the plain grid, the
+    row's float64 reference on any device."""
+    opts = pendulum_swingup_options() if opts is None else opts
+    return _swingup_loop(problem, x_true0, ticks, state0,
+                         lambda prob, st: solve_lanes(prob, st, opts, layer_seconds))
+
+
+# ---------------------------------------------------------------------------
+# Rocket SOC landing (scripts/bench_all.py:732-843)
+# ---------------------------------------------------------------------------
+
+
+def rocket_soc_options() -> SolverOptions:
+    """The row's options (`r_opts`, bench_all.py:767-773): 120 iterations,
+    penalty 10 scaled by 10, tolerances 1e-3 with relative stationarity
+    1e-5, Armijo slack 1e-6, the phase-split x-only Armijo-only grid. The
+    trial-grid kernel takes no SOC group, so `pallas_rollout_tiled` is off
+    (JAX falls back to its scan grid by itself, altro_tpu/tile_solver.py:
+    329-342; the port refuses instead, so the row asks for the plain grid)."""
+    return SolverOptions(
+        iterations_max=120, penalty_initial=10.0, penalty_scaling=10.0,
+        tol_stationarity=1e-3, tol_primal_feasibility=1e-3, tol_stationarity_rel=1e-5,
+        ls_armijo_slack=1e-6, use_backtracking_linesearch=True, parallel_linesearch=True,
+        ls_phase_split=True, ls_grid_x_only=True, ls_armijo_only=True, throw_errors=False,
+        pallas_rollout_tiled=False)
+
+
+def rocket_initial_states(problem: Problem, batch: int = 1024, *, seed: int = 0) -> torch.Tensor:
+    """[B, 6] initial states: the problem's x0 plus 2 N(0, 1) on the position
+    and 0.5 N(0, 1) on the velocity, from numpy's default_rng(seed) (the
+    JAX row draws them from jax.random), in the problem's dtype and device."""
+    rng = np.random.default_rng(seed)
+    noise = np.concatenate([2.0 * rng.standard_normal((batch, 3)),
+                            0.5 * rng.standard_normal((batch, 3))], axis=1)
+    base = problem.x0.double().cpu().numpy()
+    return torch.as_tensor(base[None] + noise, dtype=problem.dtype, device=problem.device)
+
+
+@dataclasses.dataclass
+class RocketResult:
+    status: torch.Tensor  # [B] int32
+    iterations: torch.Tensor  # [B] int32
+    state: SolverState  # the solved state, batch-major (x [B, N+1, 6])
+    seconds: float  # wall time of the solve (synchronized on CUDA)
+
+    def touchdown(self) -> torch.Tensor:
+        """[B] distance of x_N's position from the pad, float64."""
+        return torch.linalg.norm(self.state.x[:, -1, :3].double().cpu(), dim=1)
+
+    def metrics(self) -> dict:
+        """The row's numbers (bench_all.py:827-837, unrounded)."""
+        B = self.status.shape[0]
+        return {
+            "solves_per_s": B / self.seconds,
+            "success_rate": float((self.status == 0).double().mean()),
+            "mean_iterations": float(self.iterations.double().mean()),
+            "mean_touchdown_m": float(self.touchdown().mean()),
+        }
+
+
+def _rocket_solve(problem: Problem, hover: torch.Tensor, x0s: torch.Tensor,
+                  solve_lanes_fn) -> RocketResult:
+    B = x0s.shape[0]
+    state = dataclasses.replace(batch_init_state(problem, B),
+                                u=hover.expand(B, problem.N, problem.m).contiguous())
+    if x0s.is_cuda:
+        torch.cuda.synchronize(x0s.device)
+    t0 = time.perf_counter()
+    st, stats = solve_lanes_fn(dataclasses.replace(problem, x0=tsv.batch_to_lanes(x0s)),
+                               tsv.state_to_lanes(state))
+    state_b = tsv.state_from_lanes(st)
+    if x0s.is_cuda:
+        torch.cuda.synchronize(x0s.device)
+    return RocketResult(stats.status, stats.iterations, state_b, time.perf_counter() - t0)
+
+
+def run_rocket_soc_tiled(problem: Problem, hover: torch.Tensor, x0s: torch.Tensor, *,
+                         opts: Optional[SolverOptions] = None,
+                         layer_seconds: Optional[dict] = None) -> RocketResult:
+    """One batched solve of the rocket landings from x0s [B, 6] through
+    `tile_solver.solve_tiled` (bench_all.py:798-813), each lane cold with
+    u = hover. problem, hover: from `reference_problems.rocket_landing_
+    problem`; opts default `rocket_soc_options()`. On CUDA tensors the
+    batched backward runs at (6, 3) on dense expansions (lux included),
+    or the solve is refused before it starts (the trial-grid kernel with
+    `pallas_rollout_tiled`: the rocket has no column step and SOC groups).
+    layer_seconds: as `tile_solver.lane_loop`'s."""
+    opts = rocket_soc_options() if opts is None else opts
+    return _rocket_solve(problem, hover, x0s,
+                         lambda prob, st: tsv.solve_tiled(prob, st, opts, layer_seconds))
+
+
+def run_rocket_soc(problem: Problem, hover: torch.Tensor, x0s: torch.Tensor, *,
+                   opts: Optional[SolverOptions] = None,
+                   layer_seconds: Optional[dict] = None) -> RocketResult:
+    """The solve of `run_rocket_soc_tiled` through the vmapped solve
+    (`parallel.batch.solve_lanes`, bench_all.py:775-791): with the row's
+    options (the default) the plain backward and the plain grid, the same
+    steps as `solve_tiled`'s, the row's float64 reference on any device."""
+    opts = rocket_soc_options() if opts is None else opts
+    return _rocket_solve(problem, hover, x0s,
+                         lambda prob, st: solve_lanes(prob, st, opts, layer_seconds))

@@ -6,8 +6,8 @@ The TPU kernel held every matrix entry as an (8, 128) tile of 1024 lanes;
 the port's layout is lane-minor, `[N(+1), entry..., B]`. JAX ran one
 Pallas `_kernel` for this entry and for the batch-major one at :387, and
 so does the port: `launch_kernel` launches csrc/riccati_dense.cu (blocks
-of 16 lanes at (4, 2), 8 at (12, 4), n + m compute threads per lane and
-two copy warps) for both `riccati_backward` here and
+of 16 lanes at (4, 2), 8 at (12, 4), 32 at (2, 1) and (6, 3), n + m
+compute threads per lane and two copy warps) for both `riccati_backward` here and
 ops/riccati_dense.py, with diagonal lxx/luu streamed as diagonals.
 
 Both versions compute, per lane, for k = N-1 .. 0:
@@ -40,8 +40,9 @@ __all__ = ["Gains", "KERNEL_SHAPES", "LAUNCHES", "launch_kernel", "riccati_backw
 # never adds to it).
 LAUNCHES = 0
 
-# (n, m) pairs csrc/riccati_dense.cu is instantiated for.
-KERNEL_SHAPES = ((4, 2), (12, 4))
+# (n, m) pairs csrc/riccati_dense.cu is instantiated for: the bicycle's,
+# the quadrotor's, the pendulum's and the rocket's.
+KERNEL_SHAPES = ((4, 2), (12, 4), (2, 1), (6, 3))
 
 
 class Gains(NamedTuple):

@@ -36,6 +36,7 @@ from altro_tpu_torch.models.tile_steps import (
     INTEGRATOR_MIDPOINT,
     INTEGRATOR_RK4,
     MODEL_BICYCLE,
+    MODEL_PENDULUM,
     MODEL_QUADROTOR,
 )
 from altro_tpu_torch.ops import _build
@@ -58,7 +59,8 @@ LAUNCHES = 0
 # (model, integrator) pairs the CUDA kernel has a __device__ step for, and
 # the constraint row counts P each step is instantiated with.
 DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): ("bicycle_midpoint", (0, 2)),
-                (MODEL_QUADROTOR, INTEGRATOR_RK4): ("quadrotor_rk4", (0,))}
+                (MODEL_QUADROTOR, INTEGRATOR_RK4): ("quadrotor_rk4", (0,)),
+                (MODEL_PENDULUM, INTEGRATOR_MIDPOINT): ("pendulum_midpoint", (0, 2))}
 
 
 def device_params(ds) -> ctypes.Array:

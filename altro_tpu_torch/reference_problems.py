@@ -6,7 +6,10 @@ its own copy): tests/test_solver_double_integrator.py (`make_problem`,
 `goal_constraint`, `control_bounds`, `soc_control_bound`;
 double_integrator_test.cpp), tests/test_pendulum.py (`make_problem`,
 `goal_constraint`; pendulum_test.cpp) and tests/test_status_surface.py
-(`make_problem`). The Scotty MPC problem is `mpc.scotty_reference_problem`.
+(`make_problem`), and the rocket landing of examples/rocket_landing.py
+(`build_problem`), whose three second-order-cone groups, min-thrust
+orthant row and touchdown equality the SOC rows of scripts/bench_all.py
+solve. The Scotty MPC problem is `mpc.scotty_reference_problem`.
 
 Every function here makes its tensors on the card unless `device` says
 otherwise. Constraint functions broadcast over trailing batch dims
@@ -22,6 +25,7 @@ from altro_tpu_torch.cones import Cone
 from altro_tpu_torch.models.double_integrator import double_integrator_dynamics
 from altro_tpu_torch.models.integrators import midpoint
 from altro_tpu_torch.models.pendulum import pendulum_continuous
+from altro_tpu_torch.models.rocket import GRAVITY, rocket_continuous
 from altro_tpu_torch.problem import (
     ConstraintSpec,
     DiagonalCost,
@@ -37,14 +41,16 @@ __all__ = [
     "di_soc_control_bound",
     "pendulum_problem",
     "pendulum_goal_constraint",
+    "rocket_landing_problem",
 ]
 
 DI_N, DI_DIM, DI_H = 10, 2, 0.5  # tf = 5
 
 
 def _column(v, x):
-    """v [p] as [p, 1, ...], broadcasting against x [p, *batch]."""
-    return v.reshape((-1,) + (1,) * (x.ndim - 1))
+    """v [p] as [p, 1, ...] in x's dtype and device, broadcasting against
+    x [p, *batch]."""
+    return v.to(dtype=x.dtype, device=x.device).reshape((-1,) + (1,) * (x.ndim - 1))
 
 
 def _mask(N, device, *, terminal):
@@ -118,3 +124,49 @@ def pendulum_goal_constraint(N: int, xf=(np.pi, 0.0), *, dtype=torch.float32,
     xf = torch.as_tensor(xf, dtype=dtype, device=device)
     return ConstraintSpec(fn=lambda x, u, k: _column(xf, x) - x, cone=Cone.ZERO, dim=2,
                           active=_mask(N, device, terminal=True), label="goal")
+
+
+def rocket_landing_problem(N: int = 60, tf: float = 6.0, *, theta_max_deg: float = 25.0,
+                           gamma_deg: float = 45.0, u_max: float = 20.0, u_min: float = 2.0,
+                           dtype=torch.float32, device="cuda"):
+    """examples/rocket_landing.py::build_problem: the 3-DOF rocket
+    (midpoint, h = tf / N) from x0 = (20, -10, 50, 1, 2, -8) to rest at the
+    pad, Q = (1e-2 x 3, 1e-1 x 3) (terminal x 10), R = 1e-1 about hover,
+    and five constraint groups: the thrust pointing cone ||(ux, uy)|| <=
+    tan(theta_max) uz and the thrust ball ||u|| <= u_max (SECOND_ORDER,
+    stage knots), u_min - uz <= 0 (NEGATIVE_ORTHANT, stage knots), the
+    glide slope ||(rx, ry)|| <= tan(gamma) rz (SECOND_ORDER, every knot)
+    and the touchdown x_N = 0 (ZERO, the terminal knot). Returns (problem,
+    hover input [3])."""
+    n, m = 6, 3
+    kw = dict(dtype=dtype, device=device)
+    h = tf / N
+    xf = torch.zeros(n, **kw)
+    hover = torch.tensor([0.0, 0.0, GRAVITY], **kw)
+    Qd = np.tile(np.concatenate([np.full(3, 1e-2), np.full(3, 1e-1)]), (N + 1, 1))
+    Qd[N] *= 10.0
+    cost = lqr_cost_from_reference(torch.as_tensor(Qd, **kw), torch.full((N + 1, m), 1e-1, **kw),
+                                   xf.expand(N + 1, n), hover.expand(N + 1, m))
+    tan_th = float(np.tan(np.deg2rad(theta_max_deg)))
+    tan_ga = float(np.tan(np.deg2rad(gamma_deg)))
+    stage = _mask(N, device, terminal=False)
+    every = torch.ones(N + 1, dtype=torch.bool, device=device)
+    terminal = _mask(N, device, terminal=True)
+    constraints = (
+        ConstraintSpec(fn=lambda x, u, k: torch.stack([u[0], u[1], tan_th * u[2]]),
+                       cone=Cone.SECOND_ORDER, dim=3, active=stage,
+                       label="thrust pointing cone"),
+        ConstraintSpec(fn=lambda x, u, k: torch.stack(
+            [u[0], u[1], u[2], torch.full_like(u[2], u_max)]),
+            cone=Cone.SECOND_ORDER, dim=4, active=stage, label="max thrust"),
+        ConstraintSpec(fn=lambda x, u, k: torch.stack([u_min - u[2]]),
+                       cone=Cone.NEGATIVE_ORTHANT, dim=1, active=stage, label="min thrust"),
+        ConstraintSpec(fn=lambda x, u, k: torch.stack([x[0], x[1], tan_ga * x[2]]),
+                       cone=Cone.SECOND_ORDER, dim=3, active=every, label="glide slope"),
+        ConstraintSpec(fn=lambda x, u, k: x - _column(xf, x), cone=Cone.ZERO, dim=n,
+                       active=terminal, label="touchdown"),
+    )
+    problem = Problem(N=N, n=n, m=m, dynamics=midpoint(rocket_continuous()), dynamics_jac=None,
+                      constraints=constraints, cost=cost, h=torch.full((N,), h, **kw),
+                      x0=torch.tensor([20.0, -10.0, 50.0, 1.0, 2.0, -8.0], **kw))
+    return problem, hover

@@ -23,21 +23,24 @@ from altro_tpu_torch import tile_solver as tsv  # noqa: E402
 from altro_tpu_torch.io.scotty import load_scotty  # noqa: E402
 from altro_tpu_torch.parallel import batch  # noqa: E402
 from altro_tpu_torch.problem import Problem, lqr_cost_from_reference  # noqa: E402
+from altro_tpu_torch.reference_problems import rocket_landing_problem  # noqa: E402
 
 OPTS, OPTS_R = mpc.bench_options(iterations_max=3)
 
 
-def _linear_problem(dtype=torch.float32, N=4):
-    """A (2, 1) double integrator written here (no column-form step)."""
+def _linear_problem(dtype=torch.float32, N=4, n=2):
+    """A chain of n integrators driven by one input, written here (no
+    column-form step): n = 2 the pendulum's (2, 1), n = 4 the cartpole's
+    (4, 1), a shape the backward kernels still lack."""
     kw = dict(dtype=dtype, device="cpu")
 
     def step(x, u, h, k):
-        return torch.stack([x[0] + h * x[1], x[1] + h * u[0]])
+        return torch.stack([x[i] + h * x[i + 1] for i in range(n - 1)] + [x[n - 1] + h * u[0]])
 
-    cost = lqr_cost_from_reference(torch.ones((N + 1, 2), **kw), torch.full((N + 1, 1), 0.1, **kw),
-                                   torch.zeros((N + 1, 2), **kw), torch.zeros((N + 1, 1), **kw))
-    return Problem(N=N, n=2, m=1, dynamics=step, dynamics_jac=None, constraints=(), cost=cost,
-                   h=torch.full((N,), 0.1, **kw), x0=torch.zeros(2, **kw))
+    cost = lqr_cost_from_reference(torch.ones((N + 1, n), **kw), torch.full((N + 1, 1), 0.1, **kw),
+                                   torch.zeros((N + 1, n), **kw), torch.zeros((N + 1, 1), **kw))
+    return Problem(N=N, n=n, m=1, dynamics=step, dynamics_jac=None, constraints=(), cost=cost,
+                   h=torch.full((N,), 0.1, **kw), x0=torch.zeros(n, **kw))
 
 
 def _bicycle(rows, dtype=torch.float32, N=4):
@@ -56,6 +59,12 @@ def _bicycle(rows, dtype=torch.float32, N=4):
 def _problem(name):
     if name == "linear_2x1":
         return _linear_problem()
+    if name == "linear_4x1":
+        return _linear_problem(n=4)
+    if name == "pendulum":
+        return mpc.pendulum_swingup_problem(N=4, device="cpu")
+    if name == "rocket":
+        return rocket_landing_problem(N=4, device="cpu")[0]
     if name == "quadrotor":  # without its column and block steps
         return dataclasses.replace(mpc.quadrotor_waypoint_problem(N=4, device="cpu"),
                                    dynamics_cols=None, dynamics_tile=None)
@@ -69,9 +78,12 @@ def _problem(name):
 # (problem, words the refusal names with pallas_rollout_tiled, words it
 # names without it); () means no refusal
 CASES = [
-    ("linear_2x1", ("riccati_backward", "n=2, m=1", "rollout_grid", "column-form",
+    ("linear_2x1", ("rollout_grid", "column-form", "pallas_rollout_tiled=False"), ()),
+    ("linear_4x1", ("riccati_backward", "n=4, m=1", "rollout_grid", "column-form",
                     "pallas_rollout_tiled=False"),
-     ("riccati_backward", "n=2, m=1")),
+     ("riccati_backward", "n=4, m=1")),
+    ("pendulum", (), ()),
+    ("rocket", ("rollout_grid", "column-form", "pallas_rollout_tiled=False"), ()),
     ("quadrotor", ("rollout_grid", "column-form", "pallas_rollout_tiled=False"), ()),
     ("bicycle_1_row", ("rollout_grid", "1 constraint rows in 1 groups"), ()),
     ("bicycle_3_rows", ("rollout_grid", "3 constraint rows in 2 groups"), ()),
@@ -99,15 +111,16 @@ def test_kernel_refusal_names_each_kernel(name, words, words_plain_grid):
             assert "rollout_grid" not in why
 
 
-@pytest.mark.parametrize("name", ["linear_2x1", "quadrotor", "main_path", "quadrotor_full"])
+@pytest.mark.parametrize("name", ["linear_2x1", "quadrotor", "main_path", "quadrotor_full",
+                                  "linear_4x1", "rocket"])
 def test_vmapped_refusal_reads_only_the_dense_kernel(name):
     """The vmapped solve runs the plain grid always and a kernel only for
     the backward pass under `pallas_backward`."""
     prob = _problem(name)
     fused = OPTS.replace(pallas_backward=True)
     why = tsv.kernel_refusal(prob, fused, vmapped=True)
-    if name == "linear_2x1":
-        assert "riccati_dense" in why and "n=2, m=1" in why and "rollout_grid" not in why
+    if name == "linear_4x1":
+        assert "riccati_dense" in why and "n=4, m=1" in why and "rollout_grid" not in why
     else:
         assert why is None, why
     assert tsv.kernel_refusal(prob, OPTS, vmapped=True) is None
@@ -125,16 +138,16 @@ class _OnCard:
 @pytest.mark.parametrize("entry", ["solve_tiled", "solve_tiled_with_rescue", "solve_lanes",
                                    "vmap_solve"])
 def test_entry_points_refuse_before_anything_runs(entry):
-    prob = dataclasses.replace(_linear_problem(), x0=_OnCard())
+    prob = dataclasses.replace(_linear_problem(n=4), x0=_OnCard())
     fused = OPTS.replace(pallas_backward=True)
     calls = {
         "solve_tiled": lambda: tsv.solve_tiled(prob, None, OPTS),
         "solve_tiled_with_rescue": lambda: rescue.solve_tiled_with_rescue(prob, None, OPTS,
                                                                           OPTS_R),
         "solve_lanes": lambda: batch.solve_lanes(prob, None, fused),
-        "vmap_solve": lambda: batch.vmap_solve(_linear_problem(), fused)(_OnCard(), None),
+        "vmap_solve": lambda: batch.vmap_solve(_linear_problem(n=4), fused)(_OnCard(), None),
     }
-    with pytest.raises(NotImplementedError, match=f"{entry}: .*n=2, m=1"):
+    with pytest.raises(NotImplementedError, match=f"{entry}: .*n=4, m=1"):
         calls[entry]()
 
 
@@ -228,3 +241,22 @@ def test_vmapped_plain_run_takes_the_tiled_rows_steps():
     assert torch.equal(tiled.iterations, vmapped.iterations)
     assert torch.equal(tiled.x_true, vmapped.x_true)
     assert torch.equal(tiled.state.u, vmapped.state.u)
+
+
+def test_other_models_rows_take_their_kernels_and_the_rocket_grid_is_refused():
+    """The pendulum row's options take its problem on both batched kernels
+    ((2, 1) backward, the pendulum's column step with its two rows on u);
+    the rocket row's take (6, 3) on the backward with the plain grid, and
+    with `pallas_rollout_tiled` `solve_tiled` refuses it on the card,
+    naming the trial-grid kernel, before anything runs."""
+    pend = _problem("pendulum")
+    assert tsv.kernel_refusal(pend, mpc.pendulum_swingup_options(), vmapped=False) is None
+    rocket = _problem("rocket")
+    opts = mpc.rocket_soc_options()
+    assert tsv.kernel_refusal(rocket, opts, vmapped=False) is None
+    assert tsv.kernel_refusal(rocket, opts.replace(pallas_backward=True), vmapped=True) is None
+    on_card = dataclasses.replace(rocket, x0=_OnCard())
+    with_grid = opts.replace(pallas_rollout_tiled=True)
+    with pytest.raises(NotImplementedError,
+                       match="solve_tiled: the trial-grid kernel.*column-form"):
+        tsv.solve_tiled(on_card, None, with_grid)

@@ -61,15 +61,15 @@ def _backward_inputs(dev, n=4, m=2, Bsz=BR, Nk=NK, diag=True, with_lux=False, se
     return [t(a) for a in (A, Bm, lxx, luu, lx, lu, reg)], lux
 
 
-@pytest.mark.parametrize("n, m", [(4, 2), (12, 4)])
+@pytest.mark.parametrize("n, m", [(4, 2), (12, 4), (2, 1), (6, 3)])
 @pytest.mark.parametrize("diag, with_lux", [(True, False), (True, True), (False, False),
                                             (False, True)])
 @pytest.mark.parametrize("Bsz", [1, 33, BR, 2048])
 @pytest.mark.parametrize("Nk", [1, NK, 30])
 def test_riccati_kernel_matches_plain(dev, n, m, diag, with_lux, Bsz, Nk):
     """Every form the batched solve launches (diagonal or dense cost, with
-    and without lux) at both (n, m), ragged lane tiles (B = 1, 33, 300
-    against blocks of 16 and 8 lanes; B = 1 and 33 take the one-float
+    and without lux) at every (n, m), ragged lane tiles (B = 1, 33, 300
+    against blocks of 8, 16 and 32 lanes; B = 1 and 33 take the one-float
     copies), one knot up to the main path's 30, with failing lanes."""
     from altro_tpu_torch.ops import riccati_backward as rb
 
@@ -438,14 +438,14 @@ def _dense_inputs(dev, n, m, seed=4, Bsz=BR):
     return [t(a) for a in (A, Bm, f, lxx, luu, lux, lx, lu, reg)]
 
 
-@pytest.mark.parametrize("n, m", [(4, 2), (12, 4)])
+@pytest.mark.parametrize("n, m", [(4, 2), (12, 4), (2, 1), (6, 3)])
 @pytest.mark.parametrize("with_f, with_lux", [(True, True), (True, False), (False, True),
                                                (False, False)])
 @pytest.mark.parametrize("Bsz", [1, 33, 1000, BR])
 def test_riccati_dense_kernel_matches_plain(dev, n, m, with_f, with_lux, Bsz):
-    """Every f/lux instantiation at both (n, m), with ragged lane tiles
-    (B = 1, 33, 1000, 300 against blocks of 8 and 16 lanes); B = 1 and 33
-    take the one-float copies, the others the 16-byte ones."""
+    """Every f/lux instantiation at every (n, m), with ragged lane tiles
+    (B = 1, 33, 1000, 300 against blocks of 8, 16 and 32 lanes); B = 1 and
+    33 take the one-float copies, the others the 16-byte ones."""
     from altro_tpu_torch.ops import riccati_dense as rd
     from altro_tpu_torch.ops.riccati_backward import riccati_backward_ref
 
@@ -525,8 +525,9 @@ def test_solve_tiled_plain_grid_on_card_tracks_plain_path(dev):
 
 
 def test_refused_problem_launches_nothing(dev):
-    """A (2, 1) problem on the card is refused by solve_tiled before the
-    open-loop rollout, with every kernel's reason, and launches nothing."""
+    """A (4, 1) problem (a shape the kernels lack) on the card is refused
+    by solve_tiled before the open-loop rollout, with every kernel's
+    reason, and launches nothing."""
     import dataclasses
 
     from altro_tpu_torch import mpc
@@ -534,20 +535,20 @@ def test_refused_problem_launches_nothing(dev):
     from altro_tpu_torch.parallel.batch import batch_init_state
     from altro_tpu_torch.problem import Problem, lqr_cost_from_reference
 
-    N, Bsz = 6, 4
+    N, Bsz, n = 6, 4, 4
     kw = dict(dtype=torch.float32, device=dev)
 
     def step(x, u, h, k):
-        return torch.stack([x[0] + h * x[1], x[1] + h * u[0]])
+        return torch.stack([x[i] + h * x[i + 1] for i in range(n - 1)] + [x[n - 1] + h * u[0]])
 
-    cost = lqr_cost_from_reference(torch.ones((N + 1, 2), **kw), torch.ones((N + 1, 1), **kw),
-                                   torch.zeros((N + 1, 2), **kw), torch.zeros((N + 1, 1), **kw))
-    prob = Problem(N=N, n=2, m=1, dynamics=step, dynamics_jac=None, constraints=(), cost=cost,
-                   h=torch.full((N,), 0.1, **kw), x0=torch.zeros(2, **kw))
+    cost = lqr_cost_from_reference(torch.ones((N + 1, n), **kw), torch.ones((N + 1, 1), **kw),
+                                   torch.zeros((N + 1, n), **kw), torch.zeros((N + 1, 1), **kw))
+    prob = Problem(N=N, n=n, m=1, dynamics=step, dynamics_jac=None, constraints=(), cost=cost,
+                   h=torch.full((N,), 0.1, **kw), x0=torch.zeros(n, **kw))
     st = tsv.state_to_lanes(batch_init_state(prob, Bsz))
-    prob = dataclasses.replace(prob, x0=torch.zeros((2, Bsz), **kw))
+    prob = dataclasses.replace(prob, x0=torch.zeros((n, Bsz), **kw))
     before = _kernel_launches()
-    with pytest.raises(NotImplementedError, match="riccati_backward.*n=2, m=1.*rollout_grid"):
+    with pytest.raises(NotImplementedError, match="riccati_backward.*n=4, m=1.*rollout_grid"):
         tsv.solve_tiled(prob, st, mpc.bench_options()[0])
     torch.cuda.synchronize()
     assert _kernel_launches() == before
@@ -698,3 +699,101 @@ def test_quadrotor_rows_launch_their_kernels(dev):
         a, b = out
         assert torch.equal(a.status.cpu(), b.status), name
         assert float((a.x_true.double().cpu() - b.x_true).abs().max()) < 1e-2, name
+
+
+# ---------------------------------------------------------------------------
+# The other models' batched rows: the pendulum's midpoint column step in
+# rollout_grid.cu (its two rows on u), riccati_dense.cu at (2, 1) and
+# (6, 3) (above, in the backward tests), and both rows on the card
+# ---------------------------------------------------------------------------
+
+def _pendulum_rollout_inputs(dev, Bsz, W, P, Nk=30, seed=13):
+    """The swing-up problem (its torque bound for P=2, none for P=0) and
+    grid operands of Bsz lanes around a swing-up, reference torques on
+    either side of the bound, nonzero duals."""
+    import dataclasses
+
+    from altro_tpu_torch import mpc
+
+    prob = mpc.pendulum_swingup_problem(N=Nk, dtype=torch.float32, device=dev)
+    if P == 0:
+        prob = dataclasses.replace(prob, constraints=())
+    rng = np.random.default_rng(seed)
+    xr = np.stack([np.linspace(0.0, np.pi, Nk + 1)[:, None] + 0.3 * rng.standard_normal(
+        (Nk + 1, Bsz)), rng.standard_normal((Nk + 1, Bsz))], axis=1)
+    ur = 5.5 * np.sign(rng.standard_normal((Nk, 1, Bsz))) + rng.standard_normal((Nk, 1, Bsz))
+    K = 0.5 * rng.standard_normal((Nk, 1, 2, Bsz))
+    d = rng.standard_normal((Nk, 1, Bsz))
+    z = np.abs(rng.standard_normal((Nk + 1, 2, Bsz)))
+    rho = 1.0 + 9.0 * rng.random(Bsz)
+    x0 = xr[0] + 0.05 * rng.standard_normal((2, Bsz))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
+    zs = (t(z),) if P else ()
+    return prob, (t(xr), t(ur), t(K), t(d), zs, t(rho), t(0.5 ** np.arange(W)), t(x0))
+
+
+@pytest.mark.parametrize("P", [0, 2])
+@pytest.mark.parametrize("Bsz, W", [(1, 4), (33, 12), (1024, 8)])
+def test_rollout_kernel_pendulum_matches_plain(dev, Bsz, W, P):
+    """The <PendulumMidpoint, P> instantiations: ragged lane tiles, a trial
+    count past one block's 8, and the row's B=1024, W=8, N=30 (four staged
+    chunks, the last one ragged); at P=2 the rows lie on u."""
+    from altro_tpu_torch.ops import rollout_grid as rg
+
+    prob, args = _pendulum_rollout_inputs(dev, Bsz, W, P)
+    before = rg.LAUNCHES
+    pk, xk = rg.rollout_grid(prob, *args)
+    pr, xr = rg.rollout_grid_ref(prob, *args)
+    torch.cuda.synchronize()
+    assert rg.LAUNCHES == before + 1
+    assert pk.shape == (W, Bsz) and xk.shape == (W, 31, 2, Bsz)
+    assert bool(torch.isfinite(pk).all())
+    assert float(((pk - pr).abs() / pr.abs().clamp(min=1.0)).max()) < 1e-4
+    assert float((xk - xr).abs().max()) < 1e-4 * max(1.0, float(xr.abs().max()))
+
+
+def test_other_models_rows_launch_their_kernels(dev):
+    """Two swing-up ticks (B=64) and one rocket solve (B=16) on the card
+    (f32) against the same runs on the plain paths on the CPU (f64): the
+    pendulum row launches the batched backward and the trial-grid kernels,
+    the rocket row the batched backward alone; statuses equal (each rocket
+    lane lands), plant states to 1e-2 and touchdowns within 1e-3 m. The
+    rocket with `pallas_rollout_tiled` is refused on the card and launches
+    nothing."""
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch.ops import riccati_backward as rb
+    from altro_tpu_torch.ops import rollout_grid as rg
+    from altro_tpu_torch.reference_problems import rocket_landing_problem
+
+    out = []
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        prob = mpc.pendulum_swingup_problem(dtype=dtype, device=device)
+        x0 = mpc.pendulum_initial_states(64, dtype=dtype, device=device)
+        before = (rb.LAUNCHES, rg.LAUNCHES)
+        out.append(mpc.run_pendulum_swingup_tiled(prob, x0, ticks=2))
+        launched = [rb.LAUNCHES > before[0], rg.LAUNCHES > before[1]]
+        assert all(launched) if device == dev else not any(launched), launched
+    a, b = out
+    assert torch.equal(a.status.cpu(), b.status)
+    assert float((a.x_true.double().cpu() - b.x_true).abs().max()) < 1e-2
+
+    out = []
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        prob, hover = rocket_landing_problem(dtype=dtype, device=device)
+        x0s = mpc.rocket_initial_states(prob, 16)
+        before = _kernel_launches()
+        out.append(mpc.run_rocket_soc_tiled(prob, hover, x0s))
+        after = _kernel_launches()
+        launched = {k for k in after if after[k] > before[k]}
+        assert launched == ({"altro_tpu_torch.ops.riccati_backward"} if device == dev else set())
+    a, b = out
+    assert torch.equal(a.status.cpu(), b.status) and int(b.status.abs().max()) == 0
+    assert float((a.touchdown() - b.touchdown()).abs().max()) < 1e-3
+
+    prob, hover = rocket_landing_problem(device=dev)
+    before = _kernel_launches()
+    with pytest.raises(NotImplementedError, match="trial-grid kernel"):
+        mpc.run_rocket_soc_tiled(prob, hover, mpc.rocket_initial_states(prob, 4),
+                                 opts=mpc.rocket_soc_options().replace(pallas_rollout_tiled=True))
+    torch.cuda.synchronize()
+    assert _kernel_launches() == before

@@ -2,6 +2,7 @@
 
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py [--tol-stationarity T]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --quadrotor [--lanes B]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --pendulum --rocket [--lanes B]
 
 Runs altro_tpu (the reference package, not the port) in float32 on the
 CPU: the three double integrator oracles of
@@ -24,6 +25,19 @@ the scan paths), and prints each row's success rate, final waypoint
 distance and mean iterations: what chip_smoke.py's gates of the port's
 two rows rest on. The tiled row takes about 20 minutes at B=1024 on
 one CPU.
+
+With --pendulum and --rocket it runs the batched rows of the other two
+models through the vmapped `solve` (`pallas_backward=False`: the scan
+backward and the scan grid, the per-lane iterates that JAX's
+`solve_tiled` promises), from the starts the port draws (numpy
+default_rng; the pendulum 0.05 N(0, 1) with seed 3, the rocket its x0
+plus 2 N(0, 1) on the position and 0.5 N(0, 1) on the velocity with
+seed 0): the pendulum swing-up MPC (`pendulum_swingup_mpc_B1024`,
+bench_all.py:845-980, 80 ticks; swing-up rate, success rate, mean
+iterations, mean distance from upright) and the rocket landing
+(`rocket_soc_tiled_B1024`, bench_all.py:732-843, one solve; success
+rate, mean iterations, mean touchdown distance): what chip_smoke.py's
+gates of the port's two rows rest on.
 """
 
 from __future__ import annotations
@@ -226,16 +240,121 @@ def quadrotor_rows(lanes, ticks=100, switch_every=25, N=30):
                          time.perf_counter() - t0)), flush=True)
 
 
+def pendulum_row(lanes, ticks=80, N=30, h=0.06):
+    """The pendulum swing-up MPC (bench_all.py:845-980) in float32 through
+    vmap(solve)."""
+    import time
+
+    from altro_tpu.models.pendulum import pendulum_continuous
+    from altro_tpu.parallel.batch import batch_init_state
+
+    n, m = 2, 1
+    Qd = np.tile(np.full(n, 1e-1), (N + 1, 1))
+    Qd[N] *= 100.0
+    torque = ConstraintSpec(
+        fn=lambda x, u, k: jnp.concatenate([u - 6.0, -6.0 - u]),
+        cone=Cone.NEGATIVE_ORTHANT, dim=2, active=jnp.ones(N + 1, bool).at[N].set(False),
+        label="torque bound", diag_hessian=True, affine=True)
+    dyn = midpoint(pendulum_continuous())
+    problem = Problem(
+        N=N, n=n, m=m, dynamics=dyn, dynamics_jac=None, constraints=(torque,),
+        cost=lqr_cost_from_reference(
+            jnp.asarray(Qd, F32), jnp.full((N + 1, m), 1e-3, F32),
+            jnp.asarray(np.tile([np.pi, 0.0], (N + 1, 1)), F32), jnp.zeros((N + 1, m), F32)),
+        h=jnp.full(N, h, F32), x0=jnp.zeros(n, F32))
+    opts = SolverOptions(
+        iterations_max=10, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+        throw_errors=False, use_backtracking_linesearch=True, penalty_warm_start=True,
+        parallel_linesearch=True, ls_phase_split=True, ls_try_cubic_first=False,
+        ls_armijo_only=True, ls_max_iters=8, ls_failure_recovery=True,
+        ls_recovery_max_fails=0, ls_best_decrease_fallback=True, pallas_backward=False)
+    x0 = (0.05 * np.random.default_rng(3).standard_normal((1024, n)))
+    x0 = np.resize(x0, (lanes, n)).astype(np.float32)
+
+    @jax.jit
+    def tick(x, st):
+        st, stats = jax.vmap(lambda x0_, s: solve(dataclasses.replace(problem, x0=x0_), s,
+                                                  opts))(x, st)
+        x = jax.vmap(lambda xi, ui: dyn(xi, ui, jnp.asarray(h, F32), 0))(x, st.u[:, 0])
+        return x, jax.vmap(shift_trajectory)(st), stats.iterations, stats.status
+
+    st = dataclasses.replace(batch_init_state(problem, lanes),
+                             u=jnp.full((lanes, N, m), 0.1, F32))
+    x = jnp.asarray(x0)
+    iters, statuses = [], []
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        x, st, it, stat = tick(x, st)
+        iters.append(np.asarray(it))
+        statuses.append(np.asarray(stat))
+    xf = np.asarray(x, np.float64)
+    up = np.sqrt((np.mod(xf[:, 0], 2 * np.pi) - np.pi) ** 2 + 0.1 * xf[:, 1] ** 2)
+    print(json.dumps({"row": "pendulum_swingup_mpc_B1024", "lanes": lanes, "ticks": ticks,
+                      "swingup_rate": float(np.mean(up < 0.3)),
+                      "success_rate": float(np.mean(np.stack(statuses) == 0)),
+                      "mean_iterations": float(np.mean(np.stack(iters))),
+                      "mean_up_error": float(up.mean()),
+                      "cpu_seconds": time.perf_counter() - t0}), flush=True)
+
+
+def rocket_row(lanes):
+    """The rocket landing (bench_all.py:732-843) in float32: one vmap(solve)."""
+    import sys
+    import time
+
+    from altro_tpu.parallel.batch import batch_init_state
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    from rocket_landing import build_problem
+
+    problem, hover = build_problem(dtype=F32)
+    opts = SolverOptions(
+        iterations_max=120, penalty_initial=10.0, penalty_scaling=10.0,
+        tol_stationarity=1e-3, tol_primal_feasibility=1e-3, tol_stationarity_rel=1e-5,
+        ls_armijo_slack=1e-6, use_backtracking_linesearch=True, parallel_linesearch=True,
+        ls_phase_split=True, ls_grid_x_only=True, ls_armijo_only=True, throw_errors=False,
+        pallas_backward=False)
+    rng = np.random.default_rng(0)
+    noise = np.concatenate([2.0 * rng.standard_normal((1024, 3)),
+                            0.5 * rng.standard_normal((1024, 3))], axis=1)
+    x0s = np.resize(np.asarray(problem.x0, np.float64)[None] + noise, (lanes, 6))
+    states = dataclasses.replace(batch_init_state(problem, lanes),
+                                 u=jnp.tile(hover, (lanes, problem.N, 1)))
+    run = jax.jit(jax.vmap(lambda x0, s: solve(dataclasses.replace(problem, x0=x0), s, opts)))
+    t0 = time.perf_counter()
+    st, stats = jax.block_until_ready(run(jnp.asarray(x0s, F32), states))
+    touchdown = np.linalg.norm(np.asarray(st.x, np.float64)[:, problem.N, :3], axis=1)
+    status = np.asarray(stats.status)
+    print(json.dumps({"row": "rocket_soc_tiled_B1024", "lanes": lanes,
+                      "success_rate": float(np.mean(status == 0)),
+                      "statuses": {str(s): int(c) for s, c in zip(*np.unique(
+                          status, return_counts=True))},
+                      "mean_iterations": float(np.mean(np.asarray(stats.iterations))),
+                      "max_iterations": int(np.max(np.asarray(stats.iterations))),
+                      "mean_touchdown_m": float(touchdown.mean()),
+                      "max_touchdown_m": float(touchdown.max()),
+                      "cpu_seconds_with_compile": time.perf_counter() - t0}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tol-stationarity", type=float, default=1e-4)
     ap.add_argument("--quadrotor", action="store_true",
                     help="run the two quadrotor rows instead of the reference solves")
+    ap.add_argument("--pendulum", action="store_true",
+                    help="run the pendulum swing-up MPC row")
+    ap.add_argument("--rocket", action="store_true", help="run the rocket landing row")
     ap.add_argument("--lanes", type=int, default=1024,
-                    help="lanes of the tiled quadrotor row (a multiple of 1024)")
+                    help="lanes of the batched rows (the tiled quadrotor row: a multiple "
+                         "of 1024)")
     args = ap.parse_args()
     if args.quadrotor:
         quadrotor_rows(args.lanes)
+    if args.pendulum:
+        pendulum_row(args.lanes)
+    if args.rocket:
+        rocket_row(args.lanes)
+    if args.quadrotor or args.pendulum or args.rocket:
         return
     tol = args.tol_stationarity
     for case, x0, kinds, kw in (
