@@ -1,4 +1,4 @@
-"""Line searches of the single-lane solve (PyTorch port, one lane).
+"""Line searches (PyTorch port): one lane's, and B lanes' in lockstep.
 
 Counterpart: altro_tpu/linesearch.py (`LineSearchOptions`,
 `LineSearchResult`, `cubic_fit`, `cubic_argmin`, `wolfe_line_search`,
@@ -11,6 +11,15 @@ Counterpart: altro_tpu/linesearch.py (`LineSearchOptions`,
   host scalars of the merit's dtype (numpy), in JAX's order, every
   constant cast to that dtype first, so an f64 search takes JAX's path
   trial for trial and an f32 one rounds as JAX's f32 search does.
+* `wolfe_line_search_lanes`: the same machine under `jax.vmap`, for the
+  batched solves: B lanes in lockstep on [B] tensors, each lane's
+  transition selected by its mode, with `cubic_fit_lanes` /
+  `cubic_argmin_lanes`, the spline on lane tensors; one host read per
+  loop pass (the lanes' mode counts).
+* `Trace`: the batched solve's host-side instrumentation (seconds by
+  layer, host reads, machine passes, per-lane trials), one object that
+  the lane machine, `tile_iter.retry_tiled` and `tile_solver.lane_loop`
+  share.
 * The grid searches: the JAX `lax.while_loop` over grid blocks becomes a
   Python loop with one host sync per block beyond the first (on
   `found`).
@@ -21,6 +30,8 @@ payload is a tensor, a (named) tuple of payloads, or None.
 
 from __future__ import annotations
 
+import math
+import time
 import types
 from typing import Callable, NamedTuple, Optional
 
@@ -37,10 +48,46 @@ __all__ = [
     "wolfe_line_search",
     "parallel_backtracking_search",
     "parallel_backtracking_search_split",
+    "cubic_fit_lanes",
+    "cubic_argmin_lanes",
+    "wolfe_line_search_lanes",
+    "Trace",
     "tree_map",
 ]
 
 _TOL = 1e-6  # cubicspline.c LINESEARCH_TOL, as in the JAX module
+
+
+class Trace:
+    """Host-side instrumentation of a batched solve. `seconds`: host
+    seconds by layer, each `lap` adding the time since the previous one
+    (`tile_solver.lane_loop` names the layers). `counts`: "syncs" (host
+    reads, each through `read`), "passes" (the lane machine's loop
+    passes, which every lane pays) and, in the vmapped solve, "trials"
+    ([B], each lane's line-search trials, summed over its iterations)."""
+
+    __slots__ = ("seconds", "counts", "t0")
+
+    def __init__(self, seconds: Optional[dict] = None):
+        self.seconds = {} if seconds is None else seconds
+        self.counts = {}
+        self.t0 = time.perf_counter()
+
+    def start(self) -> None:
+        self.t0 = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        t = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + t - self.t0
+        self.t0 = t
+
+    def add(self, name: str, k=1) -> None:
+        self.counts[name] = self.counts.get(name, 0) + k
+
+    def read(self, t: torch.Tensor):
+        """t.tolist() (a bool for a 0-dim flag): one host read, counted."""
+        self.add("syncs")
+        return t.tolist()
 
 
 class LineSearchOptions(NamedTuple):
@@ -386,6 +433,277 @@ def wolfe_line_search(
     ints = torch.tensor([s.code, s.n_iters], dtype=torch.int32, device=dev)
     return LineSearchResult(alpha=vals[0], phi=vals[1], dphi=vals[2], code=ints[0],
                             n_iters=ints[1], aux=s.aux, aux_alpha=vals[3])
+
+
+# ---------------------------------------------------------------------------
+# Lane tensors: the cubic spline and the strong-Wolfe machine, per lane
+# ---------------------------------------------------------------------------
+
+
+def cubic_fit_lanes(x1, y1, d1, x2, y2, d2):
+    """`cubic_fit` on [B] tensors of one float dtype, lane by lane, in
+    JAX's order with every constant a tensor of that dtype."""
+    dt, dev = y1.dtype, y1.device
+    one, two, three = (torch.tensor(v, dtype=dt, device=dev) for v in (1.0, 2.0, 3.0))
+    delta = x2 - x1
+    same = torch.abs(delta) < torch.tensor(_TOL, dtype=dt, device=dev)
+    ds = torch.where(same, one, delta)
+    c = three * (y2 - y1) / (ds * ds) - (d2 + two * d1) / ds
+    d = (d2 + d1) / (ds * ds) - two * (y2 - y1) / (ds * ds * ds)
+    return (x1, y1, d1, c, d), ~same
+
+
+def cubic_argmin_lanes(spline):
+    """`cubic_argmin` on [B] tensors, lane by lane; a lane without a
+    minimum may hold any value (NaN included) in x_min, selected away
+    by `found`."""
+    x0, _, b, c, d = spline
+    dt, dev = b.dtype, b.device
+    zero, one, two, three, four, six = (torch.tensor(v, dtype=dt, device=dev)
+                                        for v in (0.0, 1.0, 2.0, 3.0, 4.0, 6.0))
+    tol = torch.tensor(_TOL, dtype=dt, device=dev)
+    is_quadratic = torch.abs(d) < tol
+    is_linear = is_quadratic & (torch.abs(c) < tol)
+
+    # quadratic path
+    c_safe = torch.where(torch.abs(c) < tol, one, c)
+    quad_min = -b / (two * c_safe) + x0
+    quad_found = is_quadratic & ~is_linear & (c > 0)
+
+    # cubic path: roots of 3d t^2 + 2c t + b = 0
+    qa, qb, qc = three * d, two * c, b
+    qa_safe = torch.where(torch.abs(qa) < tol, one, qa)
+    s2 = qb * qb - four * qa * qc
+    s2_zero = torch.abs(s2) < tol
+    s = torch.where(s2_zero, zero, torch.sqrt(torch.maximum(s2, zero)))
+    roots_ok = s2_zero | (s2 >= 0)
+    t1 = (-qb + s) / (two * qa_safe)
+    t2 = (-qb - s) / (two * qa_safe)
+    curv1 = two * c + six * d * t1
+    curv2 = two * c + six * d * t2
+    pick1 = (curv1 > 0) & (curv2 < 0)
+    pick2 = (curv1 < 0) & (curv2 > 0)
+    cubic_min = torch.where(pick1, t1, t2) + x0
+    cubic_found = ~is_quadratic & roots_ok & (pick1 | pick2)
+    return torch.where(is_quadratic, quad_min, cubic_min), quad_found | cubic_found
+
+
+_STATE = ("mode", "alpha_next", "aux", "aux_alpha", "small_window", "n_iters", "iter",
+          "zoom_iter", "btr_iter", "alpha", "phi", "dphi", "fnd", "alpha_prev", "phi_prev",
+          "dphi_prev", "alo", "ahi", "phi_lo", "phi_hi", "dphi_lo", "dphi_hi",
+          "hit_max_alpha", "code", "res_alpha", "res_phi", "res_dphi")
+
+
+def _pick(cond, a: dict, b: dict) -> dict:
+    """Per-lane select of two machine states (fields both share are kept
+    as they are): where-only, so a discarded NaN never reaches a lane."""
+    return {k: a[k] if a[k] is b[k] else _where(cond, a[k], b[k]) for k in _STATE}
+
+
+def wolfe_line_search_lanes(
+    merit_full: Callable,
+    phi0: torch.Tensor,
+    dphi0: torch.Tensor,
+    alpha0=1.0,
+    opts: LineSearchOptions = LineSearchOptions(),
+    aux0=None,
+    active: Optional[torch.Tensor] = None,
+    trace: Optional[Trace] = None,
+) -> LineSearchResult:
+    """`jax.vmap(wolfe_line_search)` on lane tensors: B searches in
+    lockstep, each lane its own state machine (bracket, one-shot cubic,
+    zoom with the small-window midpoint, or the sequential backtracking).
+
+    phi0, dphi0 [B] (float); merit_full(alpha [B]) -> (phi [B], dphi [B])
+    or (phi, dphi, aux), each lane evaluated at its own alpha; with aux0
+    (a pytree of [..., B] tensors) the payload of each lane's last
+    evaluation is carried (`aux`, valid at `aux_alpha`). active [B] bool:
+    lanes to search (default all); the others start finished (code
+    NO_ERROR, alpha 0) and are never read.
+
+    One loop pass evaluates the merit once for every lane, computes the
+    transitions of the modes any running lane is in, and selects each
+    lane's by its mode (torch.where only); a finished lane keeps every
+    field, its payload too: the semantics of JAX's vmapped
+    `lax.while_loop` over `lax.switch`. Each pass ends in one host read
+    (the lanes' mode counts), which is the loop condition and picks the
+    next pass's transitions. Every decision is a tensor operation in the
+    merit's dtype, in JAX's order, so an f64 search takes JAX's path lane
+    for lane. trace: a `Trace` whose "passes" and "syncs" count this
+    search's loop passes and host reads.
+    """
+    trace = trace or Trace()
+    dt, dev = phi0.dtype, phi0.device
+    Bsz = phi0.shape[0]
+
+    def T(v):
+        return torch.tensor(v, dtype=dt, device=dev)
+
+    def I(v):
+        return torch.full((Bsz,), int(v), dtype=torch.int32, device=dev)
+
+    c1, c2, slack = T(opts.c1), T(opts.c2), T(opts.armijo_slack)
+    beta_inc, beta_dec = T(opts.beta_increase), T(opts.beta_decrease)
+    alpha_max, min_interval, half = T(opts.alpha_max), T(opts.min_interval_size), T(0.5)
+    zero = torch.zeros(Bsz, dtype=dt, device=dev)
+    alpha0 = torch.as_tensor(alpha0, dtype=dt, device=dev).expand(Bsz)
+    false = torch.zeros(Bsz, dtype=torch.bool, device=dev)
+    has_aux = aux0 is not None
+    modes = {k: I(k) for k in range(5)}
+
+    def done(s, code, alpha, phi, dphi):
+        return {**s, "mode": modes[_DONE], "code": I(code) if isinstance(code, int) else code,
+                "res_alpha": alpha, "res_phi": phi, "res_dphi": dphi}
+
+    def armijo(alpha, phi):
+        return phi <= phi0 + c1 * alpha * dphi0 + slack * torch.abs(phi0)
+
+    def wolfe(dphi):
+        return torch.abs(dphi) <= -c2 * dphi0
+
+    def zoom_trial(alo, phi_lo, dphi_lo, ahi, phi_hi, dphi_hi):
+        """Next zoom trial: cubic argmin, else midpoint; tiny window -> midpoint."""
+        small = torch.abs(alo - ahi) < min_interval
+        spline, fit_ok = cubic_fit_lanes(alo, phi_lo, dphi_lo, ahi, phi_hi, dphi_hi)
+        amin, found = cubic_argmin_lanes(spline)
+        use_cubic = fit_ok & found & torch.isfinite(amin)
+        mid = half * (alo + ahi)
+        return torch.where(small, mid, torch.where(use_cubic, amin, mid)), small
+
+    def enter_zoom(s, alo, phi_lo, dphi_lo, ahi, phi_hi, dphi_hi):
+        """Transition into the zoom stage (linesearch.cpp:233-303)."""
+        nonfinite = ~(torch.isfinite(alo) & torch.isfinite(ahi))
+        zoom_iter = s["n_iters"] + 1
+        trial, small = zoom_trial(alo, phi_lo, dphi_lo, ahi, phi_hi, dphi_hi)
+        s = {**s, "mode": modes[_ZOOM], "alo": alo, "ahi": ahi, "phi_lo": phi_lo,
+             "phi_hi": phi_hi, "dphi_lo": dphi_lo, "dphi_hi": dphi_hi, "zoom_iter": zoom_iter,
+             "alpha_next": trial, "small_window": small}
+        s = _pick(zoom_iter >= opts.max_iters,
+                  done(s, int(LineSearchCode.MAX_ITERATIONS), alo, phi_lo, dphi_lo), s)
+        return _pick(nonfinite, done(s, int(LineSearchCode.GOT_NONFINITE_STEP_SIZE), zero,
+                                     s["phi"], s["dphi"]), s)
+
+    def expand(s, alpha, phi, dphi):
+        new_alpha = alpha * beta_inc
+        over = new_alpha > alpha_max
+        new_alpha = torch.minimum(new_alpha, alpha_max)
+        stop = over & s["hit_max_alpha"]
+        s = {**s, "alpha_prev": alpha, "phi_prev": phi, "dphi_prev": dphi,
+             "alpha_next": new_alpha, "hit_max_alpha": s["hit_max_alpha"] | over,
+             "iter": s["iter"] + 1}
+        s = _pick(stop, done(s, int(LineSearchCode.HIT_MAX_STEPSIZE), new_alpha, phi, dphi), s)
+        # bracket loop exhausted: the current alpha, the code as it stands
+        return _pick(s["iter"] >= opts.max_iters, done(s, s["code"], new_alpha, phi, dphi), s)
+
+    def post_check(s, alpha, phi, dphi, fnd):
+        """Bracket-stage logic after the Wolfe test fails (linesearch.cpp:
+        137-213): the backtracking fallback, the two zoom entries, or the
+        interval expansion with its alpha_max handling."""
+        if opts.use_backtracking:
+            return {**s, "mode": modes[_BACKTRACK], "alpha_next": alpha0 * beta_dec,
+                    "btr_iter": I(1)}
+        case_a = ~armijo(alpha, phi) | ((s["iter"] > 0) & fnd)
+        case_c = dphi >= 0
+        zoom_a = enter_zoom(s, s["alpha_prev"], s["phi_prev"], s["dphi_prev"], alpha, phi, dphi)
+        zoom_c = enter_zoom(s, alpha, phi, dphi, s["alpha_prev"], s["phi_prev"], s["dphi_prev"])
+        return _pick(case_a, zoom_a, _pick(case_c, zoom_c, expand(s, alpha, phi, dphi)))
+
+    def bracket_step(s, phi_t, dphi_t):
+        alpha = s["alpha_next"]
+        fnd = phi_t >= s["phi_prev"]
+        ok = armijo(alpha, phi_t) & wolfe(dphi_t)
+        s = {**s, "n_iters": s["n_iters"] + 1, "alpha": alpha, "phi": phi_t, "dphi": dphi_t,
+             "fnd": fnd}
+        on_fail = post_check(s, alpha, phi_t, dphi_t, fnd)
+        if opts.try_cubic_first:  # one-shot cubic interpolation on the first interval
+            spline, fit_ok = cubic_fit_lanes(zero, phi0, dphi0, alpha, phi_t, dphi_t)
+            amin, found = cubic_argmin_lanes(spline)
+            try_cubic = (s["iter"] == 0) & fit_ok & found & torch.isfinite(amin)
+            to_cubic = {**s, "mode": modes[_CUBIC], "alpha_next": amin, "iter": s["iter"] + 1}
+            on_fail = _pick(try_cubic, to_cubic, on_fail)
+        return _pick(ok, done(s, int(LineSearchCode.MINIMUM_FOUND), alpha, phi_t, dphi_t),
+                     on_fail)
+
+    def cubic_step(s, phi_t, dphi_t):
+        alpha_c = s["alpha_next"]
+        s = {**s, "n_iters": s["n_iters"] + 1}
+        ok = armijo(alpha_c, phi_t) & wolfe(dphi_t)
+        # a failed cubic trial is discarded: on with the saved first trial
+        return _pick(ok, done(s, int(LineSearchCode.MINIMUM_FOUND), alpha_c, phi_t, dphi_t),
+                     post_check(s, s["alpha"], s["phi"], s["dphi"], s["fnd"]))
+
+    def zoom_step(s, phi_t, dphi_t):
+        alpha = s["alpha_next"]
+        s = {**s, "n_iters": s["n_iters"] + 1}
+        suff, curv = armijo(alpha, phi_t), wolfe(dphi_t)
+        ok = suff & curv
+        on_small = done(s, torch.where(ok, I(LineSearchCode.MINIMUM_FOUND),
+                                       I(LineSearchCode.WINDOW_TOO_SMALL)), alpha, phi_t, dphi_t)
+        on_ok = done(s, int(LineSearchCode.MINIMUM_FOUND), alpha, phi_t, dphi_t)
+        shrink_hi = ~suff | (phi_t > s["phi_lo"])
+        adj_hi = {**s, "ahi": alpha, "phi_hi": phi_t, "dphi_hi": dphi_t}
+        reset_ahi = dphi_t * (s["ahi"] - s["alo"]) <= 0
+        adj_lo = {**s, "ahi": torch.where(reset_ahi, s["alo"], s["ahi"]),
+                  "phi_hi": torch.where(reset_ahi, s["phi_lo"], s["phi_hi"]),
+                  "dphi_hi": torch.where(reset_ahi, s["dphi_lo"], s["dphi_hi"]),
+                  "alo": alpha, "phi_lo": phi_t, "dphi_lo": dphi_t}
+        up = _pick(shrink_hi, adj_hi, adj_lo)
+        trial, small = zoom_trial(up["alo"], up["phi_lo"], up["dphi_lo"], up["ahi"],
+                                  up["phi_hi"], up["dphi_hi"])
+        up = {**up, "zoom_iter": up["zoom_iter"] + 1, "alpha_next": trial, "small_window": small}
+        up = _pick(up["zoom_iter"] >= opts.max_iters,
+                   done(up, int(LineSearchCode.MAX_ITERATIONS), alpha, phi_t, dphi_t), up)
+        return _pick(s["small_window"], on_small, _pick(ok, on_ok, up))
+
+    def backtrack_step(s, phi_t, dphi_t):
+        alpha = s["alpha_next"]
+        s = {**s, "n_iters": s["n_iters"] + 1}
+        new_alpha = alpha * beta_dec
+        shrink = {**s, "alpha_next": new_alpha, "btr_iter": s["btr_iter"] + 1}
+        shrink = _pick(shrink["btr_iter"] >= opts.max_iters,
+                       done(shrink, shrink["code"], new_alpha, phi_t, shrink["res_dphi"]), shrink)
+        return _pick(armijo(alpha, phi_t),
+                     done(s, int(LineSearchCode.MINIMUM_FOUND), alpha, phi_t, dphi_t), shrink)
+
+    steps = (bracket_step, cubic_step, zoom_step, backtrack_step)
+    s = dict(
+        mode=modes[_BRACKET], alpha_next=alpha0, aux=aux0 if has_aux else (),
+        aux_alpha=torch.full((Bsz,), math.nan, dtype=dt, device=dev), small_window=false,
+        n_iters=I(0), iter=I(0), zoom_iter=I(0), btr_iter=I(0), alpha=alpha0, phi=phi0,
+        dphi=dphi0, fnd=false, alpha_prev=zero, phi_prev=phi0, dphi_prev=dphi0, alo=zero,
+        ahi=zero, phi_lo=phi0, phi_hi=phi0, dphi_lo=dphi0, dphi_hi=dphi0,
+        hit_max_alpha=false, code=I(LineSearchCode.NO_ERROR), res_alpha=zero, res_phi=phi0,
+        res_dphi=dphi0)
+    # not a descent direction: alpha = 0 (linesearch.cpp:49-52)
+    s = _pick(dphi0 >= 0, done(s, int(LineSearchCode.NOT_DESCENT_DIRECTION), zero, phi0,
+                               dphi0), s)
+    if active is not None:
+        s = _pick(active, s, done(s, int(LineSearchCode.NO_ERROR), zero, phi0, dphi0))
+
+    def mode_counts(s):
+        return trace.read(torch.bincount(s["mode"].long(), minlength=5))
+
+    counts = mode_counts(s)
+    while any(counts[:_DONE]):
+        out = merit_full(s["alpha_next"])
+        if has_aux:
+            phi_t, dphi_t, aux_t = out
+        else:
+            (phi_t, dphi_t), aux_t = out[:2], ()
+        phi_t, dphi_t = phi_t.to(dt), dphi_t.to(dt)
+        s_t = {**s, "aux": aux_t, "aux_alpha": s["alpha_next"]}
+        new = None
+        for mode in (k for k in range(_DONE) if counts[k]):
+            stepped = steps[mode](s_t, phi_t, dphi_t)
+            new = stepped if new is None else _pick(s["mode"] == mode, stepped, new)
+        # finished lanes keep every field, the payload included
+        s = _pick(s["mode"] == _DONE, s, new) if counts[_DONE] else new
+        trace.add("passes")
+        counts = mode_counts(s)
+
+    return LineSearchResult(alpha=s["res_alpha"], phi=s["res_phi"], dphi=s["res_dphi"],
+                            code=s["code"], n_iters=s["n_iters"], aux=s["aux"],
+                            aux_alpha=s["aux_alpha"])
 
 
 # ---------------------------------------------------------------------------

@@ -60,6 +60,12 @@ bench.py's closed loop (`child_main`, its problem, options, rescue and
   (`rocket_soc_tiled_B1024`, bench_all.py:732-843: dense expansions, the
   batched backward at (6, 3), the plain grid) or through the vmapped
   solve.
+* `batched_tracking_problem`, `batched_tracking_options`,
+  `batched_tracking_initial_states` and `run_batched_tracking`:
+  examples/batched_mpc.py's fleet of B bicycle controllers tracking the
+  Scotty path, each tick one `parallel.batch.batched_tracking_solver`
+  call with per-lane cost rows, under the sequential backtracking search
+  and the dense backward kernel.
 """
 
 from __future__ import annotations
@@ -75,6 +81,8 @@ import torch
 from altro_tpu_torch import rescue as rsc
 from altro_tpu_torch import tile_solver as tsv
 from altro_tpu_torch.cones import Cone
+from altro_tpu_torch.io.scotty import load_scotty
+from altro_tpu_torch.linesearch import Trace
 from altro_tpu_torch.models.bicycle import bicycle_continuous
 from altro_tpu_torch.models.integrators import midpoint, rk4
 from altro_tpu_torch.models.pendulum import pendulum_continuous
@@ -91,7 +99,7 @@ from altro_tpu_torch.models.tile_steps import (
     rk4_tile,
 )
 from altro_tpu_torch.options import SolverOptions
-from altro_tpu_torch.parallel.batch import batch_init_state, solve_lanes
+from altro_tpu_torch.parallel.batch import batch_init_state, batched_tracking_solver, solve_lanes
 from altro_tpu_torch.reference_problems import rocket_landing_problem
 from altro_tpu_torch.problem import (
     ConstraintSpec,
@@ -143,6 +151,11 @@ __all__ = [
     "RocketResult",
     "run_rocket_soc_tiled",
     "run_rocket_soc",
+    "batched_tracking_problem",
+    "batched_tracking_options",
+    "batched_tracking_initial_states",
+    "BatchedTrackingResult",
+    "run_batched_tracking",
 ]
 
 Q_DIAG = 1e-2
@@ -975,3 +988,129 @@ def run_rocket_soc(problem: Problem, hover: torch.Tensor, x0s: torch.Tensor, *,
     opts = rocket_soc_options() if opts is None else opts
     return _rocket_solve(problem, hover, x0s,
                          lambda prob, st: solve_lanes(prob, st, opts, layer_seconds))
+
+
+# ---------------------------------------------------------------------------
+# Batched tracking MPC (examples/batched_mpc.py)
+# ---------------------------------------------------------------------------
+
+
+def batched_tracking_problem(*, dtype=torch.float32, device="cuda") -> Problem:
+    """examples/batched_mpc.py's problem, the reference's Scotty problem
+    (`scotty_reference_problem`) at N = 30: the kinematic bicycle with
+    midpoint integration, the diagonal tracking cost (Q = 1e-2,
+    R = 1e-3) on the first reference window, and the steering bound
+    |delta| <= 60 deg with its constant Jacobian given and no
+    diagonal-Hessian declaration, so the expansions are dense, as the
+    example's are; on the card unless `device` says otherwise."""
+    return scotty_reference_problem(load_scotty(), 30, dtype=dtype, device=device)[0]
+
+
+def batched_tracking_options(pallas_backward: bool = True) -> SolverOptions:
+    """The example's options: 10 iterations, the sequential backtracking
+    search (cubic-first, the solver's default), stationarity and
+    feasibility 1e-3; with `pallas_backward` (the default here; the
+    example leaves it off) the dense backward kernel on the card and its
+    plain version on the CPU."""
+    return SolverOptions(iterations_max=10, use_backtracking_linesearch=True,
+                         tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+                         throw_errors=False, pallas_backward=pallas_backward)
+
+
+def batched_tracking_initial_states(batch: int, *, dtype=torch.float32,
+                                    device="cuda") -> torch.Tensor:
+    """[B, 4] plant states: the Scotty path's start plus 0.05 N(0, 1) from
+    numpy's default_rng(0) (the example draws them from
+    jax.random.PRNGKey(0), which gives other numbers)."""
+    x_start = load_scotty().x[0]
+    noise = np.random.default_rng(0).standard_normal((batch, x_start.shape[0]))
+    return torch.as_tensor(x_start[None] + 0.05 * noise, dtype=dtype, device=device)
+
+
+@dataclasses.dataclass
+class BatchedTrackingResult:
+    iterations: torch.Tensor  # [T, B] int32
+    status: torch.Tensor  # [T, B] int32
+    trials: torch.Tensor  # [T, B] merit evaluations of each lane's searches per solve
+    passes: list  # [T] the per-lane machine's loop passes per tick (every lane pays them)
+    syncs: list  # [T] host reads per tick
+    x_true: torch.Tensor  # [B, 4] final plant states
+    final_ref: np.ndarray  # [4] the reference point the example measures against
+    state: SolverState  # final solver state, batch-major
+    seconds: float  # wall time of the run (synchronized on CUDA)
+
+    def metrics(self) -> dict:
+        """The example's numbers (unrounded) and the searches' counts."""
+        T, B = self.iterations.shape
+        err = torch.linalg.norm(self.x_true[:, :2].double().cpu()
+                                - torch.as_tensor(self.final_ref[:2])[None], dim=1)
+        trials = self.trials.double()
+        return {
+            "resolves_per_s": B * T / self.seconds,
+            "ms_per_tick": 1e3 * self.seconds / T,
+            "mean_iterations": float(self.iterations.double().mean()),
+            "last_tick_mean_iterations": float(self.iterations[-1].double().mean()),
+            "success_rate": float((self.status == 0).double().mean()),
+            "mean_final_tracking_error": float(err.mean()),
+            "max_final_tracking_error": float(err.max()),
+            "trials_per_solve_mean": float(trials.mean()),
+            "trials_per_solve_max": int(trials.max()),
+            "passes_per_tick": sum(self.passes) / T,
+            "syncs_per_tick": sum(self.syncs) / T,
+        }
+
+
+def run_batched_tracking(problem: Problem, x_true0: torch.Tensor, *, ticks: int = 20,
+                         opts: Optional[SolverOptions] = None,
+                         layer_seconds: Optional[dict] = None) -> BatchedTrackingResult:
+    """examples/batched_mpc.py's closed loop on the Scotty path: each tick
+    every lane gets the sliding window's linear cost rows (q = -Q x_ref,
+    c = 0.5 x_ref'Q x_ref over ref.x[t : t + N + 1], formed in the
+    problem's dtype and given per lane), one warm-started resolve per lane
+    through `parallel.batch.batched_tracking_solver`, u_0 steps each
+    lane's plant (the problem's own dynamics), and `shift_trajectory`
+    shifts the warm start, which begins as the example's (x the reference
+    window, u = (u_ref[0][0], 0)). problem: `batched_tracking_problem()`;
+    x_true0 [B, 4] (`batched_tracking_initial_states`); opts default
+    `batched_tracking_options()`. The final tracking error is
+    |x_true[:2] - ref.x[ticks][:2]|, the example's. layer_seconds: as
+    `tile_solver.lane_loop`'s."""
+    opts = batched_tracking_options() if opts is None else opts
+    ref = load_scotty()
+    N, n, m = problem.N, problem.n, problem.m
+    B = x_true0.shape[0]
+    kw = dict(dtype=problem.dtype, device=problem.device)
+    u0 = torch.tensor([ref.u[0][0], 0.0], **kw)
+    state0 = dataclasses.replace(
+        batch_init_state(problem, B), u=u0.expand(B, N, m).contiguous(),
+        x=torch.as_tensor(ref.x[: N + 1], **kw).expand(B, N + 1, n).contiguous())
+    Qd = torch.full((n,), Q_DIAG, **kw)
+    windows = torch.as_tensor(np.stack([ref.x[t: t + N + 1] for t in range(ticks)]), **kw)
+    qs = -(Qd * windows)
+    cs = 0.5 * torch.sum(Qd * windows * windows, dim=2)
+    trace = Trace(layer_seconds)
+    runner = batched_tracking_solver(problem, opts, trace=trace)
+    h = problem.h[0]
+    if x_true0.is_cuda:
+        torch.cuda.synchronize(x_true0.device)
+    t0 = time.perf_counter()
+    st, x_true = state0, x_true0
+    iters = torch.empty((ticks, B), dtype=torch.int32, device=problem.device)
+    statuses = torch.empty_like(iters)
+    trials = torch.empty_like(iters)
+    passes, syncs = [], []
+    for t in range(ticks):
+        u_first, st, stats = runner(x_true, qs[t].expand(B, N + 1, n), cs[t].expand(B, N + 1), st)
+        x_true = problem.dynamics(x_true.T, u_first.T, h, 0).T
+        st = dataclasses.replace(st, x=torch.cat([st.x[:, 1:], st.x[:, -1:]], dim=1),
+                                 u=torch.cat([st.u[:, 1:], st.u[:, -1:]], dim=1))
+        iters[t] = stats.iterations
+        statuses[t] = stats.status
+        trials[t] = trace.counts.pop("trials", 0)
+        passes.append(trace.counts.pop("passes", 0))
+        syncs.append(trace.counts.pop("syncs", 0))
+    if x_true0.is_cuda:
+        torch.cuda.synchronize(x_true0.device)
+    seconds = time.perf_counter() - t0
+    return BatchedTrackingResult(iters, statuses, trials, passes, syncs, x_true,
+                                 np.asarray(ref.x[ticks]), st, seconds)

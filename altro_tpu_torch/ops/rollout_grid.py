@@ -83,6 +83,9 @@ def ineligibility(problem: Problem) -> Optional[str]:
         return f"device step is for n={ds.n}, m={ds.m}, problem has n={problem.n}, m={problem.m}"
     if not isinstance(problem.cost, DiagonalCost):
         return "the cost is not a DiagonalCost"
+    if problem.cost.per_lane:
+        return ("per-lane cost rows (q [N+1, n, B] or c [N+1, B]; the kernel reads rows "
+                "shared by all lanes)")
     for spec in problem.constraints:
         if not (spec.affine and spec.cone is Cone.NEGATIVE_ORTHANT):
             return (f"constraint group {spec.label!r} is not an affine "
@@ -150,12 +153,13 @@ def plain_grid(stage, step, terminal, ref_x, ref_u, K, d, alphas, x0):
 
     stage(k, x, u) -> [W, B] and terminal(x) -> [W, B] are the merit
     terms, step(k, x, u) -> [W, n, B] the dynamics. ref_x [N(+1), n, B],
-    ref_u [N, m, B], K [N, m, n, B], d [N, m, B], alphas [W], x0 [n, B].
+    ref_u [N, m, B], K [N, m, n, B], d [N, m, B], x0 [n, B]; alphas [W],
+    shared by the lanes, or [W, B], each lane its own.
     Returns (phi [W, B], xstack [W, N+1, n, B]).
     """
     N = K.shape[0]
     W, (n, Bsz) = alphas.shape[0], x0.shape
-    a = alphas[:, None, None].to(x0.dtype)
+    a = (alphas[:, None, None] if alphas.ndim == 1 else alphas[:, None, :]).to(x0.dtype)
     x = x0[None].expand(W, n, Bsz)
     xs = x0.new_empty((W, N + 1, n, Bsz))
     phi = x0.new_zeros((W, Bsz))
@@ -172,7 +176,7 @@ def rollout_grid_ref(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0):
     """Plain W-trial rollout through the problem's own dynamics and AL cost.
 
     ref_x [N+1, n, B], ref_u [N, m, B], K [N, m, n, B], d [N, m, B],
-    z per group [N+1, p, B], rho [B], alphas [W], x0 [n, B].
+    z per group [N+1, p, B], rho [B], alphas [W] or [W, B] (per lane), x0 [n, B].
     Returns (phi [W, B], xstack [W, N+1, n, B]).
     """
     N, W = problem.N, alphas.shape[0]

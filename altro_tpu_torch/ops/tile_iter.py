@@ -3,7 +3,9 @@
 Counterpart: altro_tpu/ops/tile_iter.py (`cost_expansions_tiled`,
 `completion_tiled`, `light_from_xstack_tiled`, `retry_tiled`,
 `select_trial_tiled`, `select_best_tiled`) and, for the vmapped solve's
-strong-Wolfe test, altro_tpu/solver.py::merit0_derivative. The JAX module lifted
+searches, altro_tpu/solver.py's `merit0_derivative`, `merit_function`
+(`merit_tiled`: each lane at its own alpha) and `_alpha0_merit_out`
+(`alpha0_payload_tiled`), with `MeritOut` as `Payload`. The JAX module lifted
 per-lane functions over (8, 128) lane tiles with nested vmaps; here
 every array carries the lanes on its last axis ([N(+1), entry..., B]),
 the knot-parallel pieces run on whole knot stacks at once, and a
@@ -12,15 +14,23 @@ per-lane mask [B] broadcasts against any of them unchanged.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional, Tuple
+
 import torch
 
 from altro_tpu_torch import al
+from altro_tpu_torch.linesearch import Trace
+from altro_tpu_torch.ops.rollout_grid import rollout_grid_ref
 
 __all__ = [
     "cost_expansions_tiled",
     "completion_tiled",
     "light_from_xstack_tiled",
     "merit0_derivative_tiled",
+    "Payload",
+    "payload_tiled",
+    "alpha0_payload_tiled",
+    "merit_tiled",
     "retry_tiled",
     "select_trial_tiled",
     "select_best_tiled",
@@ -113,14 +123,73 @@ def merit0_derivative_tiled(A, B, K, d, lx, lu):
     return torch.sum(torch.stack(contribs), dim=0) + torch.sum(lx[N] * dx, dim=0)
 
 
-def retry_tiled(opts, attempt, reg0):
+class Payload(NamedTuple):
+    """The merit's payload at one step per lane (altro_tpu/solver.py::
+    MeritOut, lane-minor): phi, dphi [B], the trajectory x [N+1, n, B],
+    u [N, m, B], y [N+1, n, B], the dynamics expansions A, B, the AL
+    gradients lx, lu, and per group the constraint values and projected
+    duals [N+1, p, B]."""
+
+    phi: torch.Tensor
+    dphi: torch.Tensor
+    x: torch.Tensor
+    u: torch.Tensor
+    y: torch.Tensor
+    A: torch.Tensor
+    B: torch.Tensor
+    lx: torch.Tensor
+    lu: torch.Tensor
+    convals: Tuple[torch.Tensor, ...]
+    zproj: Tuple[torch.Tensor, ...]
+
+
+def payload_tiled(problem, x, alpha, phi, ref_x, ref_u, K, d, P, p, z, rho,
+                  with_dphi=True) -> Payload:
+    """The payload of a rolled-out trial x [N+1, n, B] at alpha [B] with
+    merit phi [B]: u, y, the constraint values and projected duals
+    knot-parallel (`light_from_xstack_tiled`), the expansions at (x, u)
+    (`completion_tiled`) and dphi by the forward-sensitivity recurrence
+    (NaN when with_dphi=False), as complete_merit_payload does."""
+    u, y, convals, zproj = light_from_xstack_tiled(problem, x, ref_x, ref_u, K, d, P, p, z,
+                                                   rho, alpha)
+    A, B, lx, lu = completion_tiled(problem, x, u, z, rho)
+    if with_dphi:
+        dphi = merit0_derivative_tiled(A, B, K, d, lx, lu)
+    else:
+        dphi = torch.full_like(phi, float("nan"))
+    return Payload(phi, dphi, x, u, y, A, B, lx, lu, convals, zproj)
+
+
+def alpha0_payload_tiled(problem, x, u, p, z, rho, convals, A, B, lx, lu, phi0,
+                         dphi0) -> Payload:
+    """merit(0) from cached data (altro_tpu/solver.py::_alpha0_merit_out):
+    the reference trajectory, y = p, the loop-top expansions and one
+    projection of z - rho c per group."""
+    _, zproj = al.projected_duals(problem, convals, z, rho)
+    return Payload(phi0, dphi0, x, u, p, A, B, lx, lu, convals, zproj)
+
+
+def merit_tiled(problem, ref_x, ref_u, K, d, P, p, z, rho, alpha, x0):
+    """The full merit at one alpha per lane (altro_tpu/solver.py::
+    merit_function with_derivative=True, vmapped): the closed-loop
+    rollout through the problem's own dynamics and AL cost at alpha [B]
+    (`rollout_grid_ref`, one trial a lane), then its payload with dphi.
+    Returns (phi [B], dphi [B], Payload)."""
+    phis, xs = rollout_grid_ref(problem, ref_x, ref_u, K, d, z, rho, alpha[None], x0)
+    out = payload_tiled(problem, xs[0], alpha, phis[0], ref_x, ref_u, K, d, P, p, z, rho)
+    return out.phi, out.dphi, out
+
+
+def retry_tiled(opts, attempt, reg0, trace: Optional[Trace] = None):
     """Adaptive-regularization retry over the whole batch: lanes already
     ok keep their gains; failing lanes bump reg and take the recomputed
-    values. One host sync per retry trip (the loop condition)."""
+    values. One host read per retry trip (the loop condition), counted
+    in the `Trace`."""
+    trace = trace or Trace()
     g = attempt(reg0)
     reg = reg0
     tries = 0
-    while tries < opts.reg_max_retries and bool(torch.any(~g.ok)):
+    while tries < opts.reg_max_retries and trace.read(torch.any(~g.ok)):
         need = ~g.ok
         bumped = torch.where(reg <= 0, torch.full_like(reg, opts.reg_min),
                              reg * opts.reg_scaling)

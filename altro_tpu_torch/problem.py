@@ -14,7 +14,9 @@ Conventions of the port:
   against the batch dims. One lane is the case `batch = ()`.
 * Cost methods take knot stacks in the solver's lane-minor layout,
   `x [K, n, B]`, `u [K, m, B]`, with `ks` the `[K]` knot indices; cost
-  data are shared by all lanes (`Q [N+1, n]` etc.).
+  data are shared by all lanes (`Q [N+1, n]` etc.), except that the
+  linear terms may be per lane (`q [N+1, n, B]`, `c [N+1, B]`), as
+  `parallel.batch.batched_tracking_solver` gives them.
 * Jacobians of user callables come from forward-mode automatic
   differentiation over the batch (`lane_jacobian`), the counterpart of
   `jax.jacfwd`.
@@ -77,8 +79,14 @@ def lane_jacobian(fn, x, u, *extra):
 
 
 def _rows(arr, ks):
-    """Per-knot rows [K, w] of a shared [N+1, w] stack as [K, w, 1]."""
-    return arr[ks][..., None]
+    """Per-knot rows of a stack at knots ks: a shared [N+1, w] stack as
+    [K, w, 1], a per-lane [N+1, w, B] one as [K, w, B]."""
+    return arr[ks] if arr.ndim == 3 else arr[ks][..., None]
+
+
+def _last(arr):
+    """The terminal row of a stack, [w, 1] shared or [w, B] per lane."""
+    return arr[-1] if arr.ndim == 3 else arr[-1][:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +98,10 @@ def _rows(arr, ks):
 class DiagonalCost:
     """0.5 x'diag(Q)x + q'x + 0.5 u'diag(R)u + r'u + c, stacked over knots.
 
-    Q, q: [N+1, n];  R, r: [N+1, m] (row N unused);  c: [N+1].
+    Q, q: [N+1, n];  R, r: [N+1, m] (row N unused);  c: [N+1]. On
+    lane-minor data q may be [N+1, n, B] and c [N+1, B], one row per
+    lane (altro_tpu/parallel/batch.py:45-64 vmaps them); Q, R, r stay
+    shared.
     """
 
     Q: torch.Tensor
@@ -107,12 +118,17 @@ class DiagonalCost:
             + torch.sum(q * x, dim=1)
             + 0.5 * torch.sum(u * (R * u), dim=1)
             + torch.sum(r * u, dim=1)
-            + self.c[ks][:, None]
+            + (self.c[ks] if self.c.ndim == 2 else self.c[ks][:, None])
         )
+
+    @property
+    def per_lane(self) -> bool:
+        """True when q or c holds one row per lane."""
+        return self.q.ndim == 3 or self.c.ndim == 2
 
     def term_value(self, x):
         """[K, B] terminal cost of x [K, n, B]."""
-        Q, q = self.Q[-1][:, None], self.q[-1][:, None]
+        Q, q = self.Q[-1][:, None], _last(self.q)
         return 0.5 * torch.sum(x * (Q * x), dim=1) + torch.sum(q * x, dim=1) + self.c[-1]
 
     def stage_grad(self, ks, x, u):
@@ -120,7 +136,7 @@ class DiagonalCost:
                 _rows(self.R, ks) * u + _rows(self.r, ks))
 
     def term_grad(self, x):
-        return self.Q[-1][:, None] * x + self.q[-1][:, None]
+        return self.Q[-1][:, None] * x + _last(self.q)
 
     def stage_hess(self, ks, x, u):
         """Dense (lxx [K, n, n, B], luu [K, m, m, B], lux [K, m, n, B])."""

@@ -469,18 +469,14 @@ def _alpha0_merit_out(problem: Problem, x, u, z, rho, convals, A, B, lx, lu, gai
 
 def grid_search_refusal(opts: SolverOptions) -> Optional[str]:
     """Why the batched solves (the vmapped solve of parallel/batch.py) cannot
-    run these options, or None: they search the phase-split x-only grid
-    in lockstep and report nothing along the way."""
+    run these options, or None: every line search of `jax.vmap(solve)`
+    runs but the light-payload grid, and the batch reports nothing along
+    the way."""
+    # JAX's RTI step reads ls_phase_split and ls_grid_x_only as its grid does
+    light = ((opts.rti_mode or opts.parallel_linesearch) and opts.ls_phase_split
+             and not opts.ls_grid_x_only)
     checks = (
-        (not opts.parallel_linesearch, "parallel_linesearch=False (the sequential "
-                                       "strong-Wolfe search) is not ported for the batched "
-                                       "solves (the single-lane solve runs it)"),
-        (not opts.use_backtracking_linesearch, "use_backtracking_linesearch=False is not "
-                                               "ported (the grid search backtracks)"),
-        (not opts.ls_phase_split, "ls_phase_split=False (the non-split grid) is not ported "
-                                  "for the batched solves (the single-lane solve runs it)"),
-        (not opts.ls_grid_x_only, "ls_grid_x_only=False (the light-payload grid) is not "
-                                  "ported"),
+        (light, "ls_grid_x_only=False (the light-payload grid) is not ported"),
         (opts.parallel_riccati, "parallel_riccati is not ported"),
         (opts.exact_al_hessian, "exact_al_hessian is not ported"),
         (opts.iteration_callback is not None, "iteration_callback is not ported"),
@@ -490,7 +486,7 @@ def grid_search_refusal(opts: SolverOptions) -> Optional[str]:
 
 
 def _phase_split(opts: SolverOptions) -> bool:
-    """True when the solve searches the phase-split x-only grid."""
+    """True when the solve searches the phase-split grid."""
     return opts.parallel_linesearch and opts.ls_phase_split
 
 

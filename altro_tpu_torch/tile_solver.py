@@ -18,7 +18,9 @@ update, and the per-lane freeze of lanes that stopped.
 The iteration itself is `lane_loop`, shared with the vmapped solve of
 parallel/batch.py (`vmap_solve`), which adds what `jax.vmap(solve)` has
 and `solve_tiled` lacks: dense expansions, the dense backward kernel
-(`pallas_backward`) and the strong-Wolfe test on the grid's first trial.
+(`pallas_backward`), the strong-Wolfe test on the grid's first trial,
+the strong-Wolfe cubic search and the sequential backtracking as a
+per-lane machine, the non-split grid and per-lane cost rows.
 On CUDA tensors the loop runs kernels or is refused before it starts:
 `kernel_refusal` names every kernel it would launch that cannot take the
 problem, and the entry points raise with that reason.
@@ -33,12 +35,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Optional
 
 import torch
 
 from altro_tpu_torch import al
+from altro_tpu_torch.linesearch import LineSearchOptions, Trace, _where, wolfe_line_search_lanes
 from altro_tpu_torch.ops import tile_iter as ti
 from altro_tpu_torch.ops.riccati_backward import (
     KERNEL_SHAPES,
@@ -62,7 +64,7 @@ from altro_tpu_torch.solver import (
     stationarity,
     total_cost,
 )
-from altro_tpu_torch.status import SolveStatus
+from altro_tpu_torch.status import LineSearchCode, SolveStatus
 
 __all__ = [
     "solve_tiled",
@@ -205,20 +207,20 @@ def _freeze(active, new: dict, old: dict) -> dict:
     return out
 
 
-class _Laps:
-    """Adds the host seconds since the previous lap to acc[name] (acc
-    None: records nothing)."""
-
-    __slots__ = ("acc", "t0")
-
-    def __init__(self, acc):
-        self.acc, self.t0 = acc, time.perf_counter()
-
-    def __call__(self, name):
-        if self.acc is not None:
-            t = time.perf_counter()
-            self.acc[name] = self.acc.get(name, 0.0) + t - self.t0
-            self.t0 = t
+def search_kind(opts: SolverOptions, vmapped: bool) -> str:
+    """The line search `lane_loop` runs: "rti" (the full step), and for the
+    vmapped solve "sequential" (parallel_linesearch=False: the strong-Wolfe
+    cubic search, or with use_backtracking_linesearch the sequential
+    backtracking) or "grid" (the non-split grid, ls_phase_split=False);
+    else "split" (the phase-split x-only grid, the only one `solve_tiled`
+    takes)."""
+    if opts.rti_mode:
+        return "rti"
+    if vmapped and not opts.parallel_linesearch:
+        return "sequential"
+    if vmapped and not opts.ls_phase_split:
+        return "grid"
+    return "split"
 
 
 def solve_tiled(problem: Problem, state: SolverState,
@@ -239,11 +241,11 @@ def solve_tiled(problem: Problem, state: SolverState,
             "solve_tiled supports the phase-split x-only armijo-only grid "
             "line search or rti_mode; other configurations are not ported")
     refuse_on_card("solve_tiled", problem, opts, vmapped=False)
-    return lane_loop(problem, state, opts, vmapped=False, layer_seconds=layer_seconds)
+    return lane_loop(problem, state, opts, vmapped=False, trace=Trace(layer_seconds))
 
 
 def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
-              vmapped: bool, layer_seconds: Optional[dict] = None):
+              vmapped: bool, trace: Optional[Trace] = None):
     """The lane-minor AL-iLQR iteration shared by `solve_tiled`
     (vmapped=False) and parallel.batch's vmapped solve (vmapped=True).
 
@@ -252,30 +254,60 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
     the problem is not diag-eligible (altro_tpu/solver.py:747-753); the
     backward pass through ops/riccati_dense.py (the kernel on CUDA, its
     plain version on the CPU) when `pallas_backward`, else the plain
-    recursion on any device; the plain trial grid through the problem's
-    own dynamics; trial 0 held to the strong-Wolfe test unless
-    `ls_armijo_only` (altro_tpu/linesearch.py:749-771); stats.dphi from
-    the accepted payload. vmapped=False runs the trial-grid kernel
-    (`rollout_grid`) when `pallas_rollout_tiled`, else the plain grid, as
-    altro_tpu/tile_solver.py:329-342 does. The caller checks the options
-    and the kernels' reach (`kernel_refusal`).
+    recursion on any device; every line search of `jax.vmap(solve)`
+    but the light-payload grid (`search_kind`): the strong-Wolfe cubic
+    search or the sequential backtracking as a per-lane machine
+    (`linesearch.wolfe_line_search_lanes` over `tile_iter.merit_tiled`,
+    each lane at its own alpha), the non-split grid (trial 0 held to
+    strong Wolfe, altro_tpu/linesearch.py:546-668), the phase-split grid
+    (trial 0 held to strong Wolfe unless `ls_armijo_only`), each grid
+    through the plain trial rollout; a lane takes its search's payload
+    or, failing, merit(0) (`tile_iter.alpha0_payload_tiled`), and
+    stats.dphi from it. vmapped=False runs the phase-split grid or RTI,
+    the trial-grid kernel (`rollout_grid`) when `pallas_rollout_tiled`,
+    else the plain grid, as altro_tpu/tile_solver.py:329-342 does, and
+    completes the blended trajectory. The caller checks the options and
+    the kernels' reach (`kernel_refusal`).
 
-    layer_seconds: a dict to accumulate host seconds into, by layer, each
-    exclusive of the others: open_loop_rollout, expansions, backward
+    trace: a `linesearch.Trace` to accumulate into. Its seconds, by layer,
+    each exclusive of the others: open_loop_rollout, expansions, backward
     (with its retry syncs), grid (the trial rollouts, with the syncs of
     extra blocks), wolfe_completion (trial 0's payload and dphi),
-    select, completion (the accepted payload), update and sync (the wait
-    on the loop condition).
+    sequential_search (the per-lane machine: its merit evaluations and
+    one host read a pass), select, completion (the accepted payload),
+    update and sync (the wait on the loop condition).
+
+    Its counts: "syncs" (host reads: the loop condition, retries, grid
+    blocks, machine passes), "passes" (the machine's loop passes) and,
+    when vmapped, "trials" ([B], each lane's ls_iterations summed over the
+    iterations it ran).
     """
-    lap = _Laps(layer_seconds)
+    trace = trace or Trace()
+    trace.start()
+    lap = trace.lap
     N = problem.N
     dtype, dev = state.x.dtype, state.x.device
     Bsz = state.x.shape[-1]
     lane = dict(dtype=dtype, device=dev)
     fused = vmapped and opts.pallas_backward
     diag = opts.diag_expansion and al.diag_expansion_eligible(problem) and not fused
-    wolfe = vmapped and not (opts.rti_mode or opts.ls_armijo_only)
-    with_dphi = vmapped and not opts.ls_armijo_only
+    search = search_kind(opts, vmapped)
+    # trial 0 of a grid passes on Armijo and strong Wolfe: the non-split grid
+    # always, the phase-split one in the vmapped solve unless ls_armijo_only
+    wolfe_first = search == "grid" or (search == "split" and vmapped
+                                       and not opts.ls_armijo_only)
+    # the payload's dphi is NaN where JAX skips the sensitivity scan
+    # (ls_armijo_only on a phase-split path) and in solve_tiled's stats
+    skip_dphi = opts.ls_armijo_only and (
+        search == "split" or (search == "rti" and opts.ls_phase_split))
+    with_dphi = vmapped and not skip_dphi
+    fallback = search == "split" and opts.ls_best_decrease_fallback
+    ls_opts = LineSearchOptions(
+        c1=opts.ls_c1, c2=opts.ls_c2, max_iters=opts.ls_max_iters,
+        alpha_max=opts.ls_alpha_max, beta_increase=opts.ls_beta_increase,
+        beta_decrease=opts.ls_beta_decrease, min_interval_size=opts.ls_min_interval_size,
+        try_cubic_first=opts.ls_try_cubic_first,
+        use_backtracking=opts.use_backtracking_linesearch, armijo_slack=opts.ls_armijo_slack)
 
     def full(v, dt=None):
         return torch.full((Bsz,), v, dtype=dt or dtype, device=dev)
@@ -296,7 +328,6 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
     c1 = opts.ls_c1
     c2 = opts.ls_c2
     slack = opts.ls_armijo_slack
-    fallback = opts.ls_best_decrease_fallback
     kernel_grid = not vmapped and opts.pallas_rollout_tiled
     stacks = affine_constraint_stacks(problem) if x0.is_cuda and kernel_grid else None
 
@@ -334,7 +365,7 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
 
     active = lane_active(c)
     lap("expansions")
-    while bool(torch.any(active)):
+    while trace.read(torch.any(active)):
         lap("sync")
         # 1-2. expansions + backward pass with adaptive reg retry
         lx, lu, lxx, luu, lux, phi0 = ti.cost_expansions_tiled(
@@ -357,7 +388,7 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
                 return riccati_backward(*ops, reg.contiguous(), lux=lux, diag_cost=diag,
                                         symmetrize=opts.symmetrize_ctg)
 
-        g, reg_used = ti.retry_tiled(opts, attempt, c["reg"])
+        g, reg_used = ti.retry_tiled(opts, attempt, c["reg"], trace)
         bp_failed = ~g.ok
         lap("backward")
 
@@ -365,16 +396,37 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
         dphi0 = g.delta_V[0]
         grad_small = torch.abs(dphi0) < opts.tol_meritfun_gradient
 
-        # 4. line search: parallel x-only grid, or the RTI full step
-        if opts.rti_mode:
+        def payload_at(x, alpha, phi, with_dphi=with_dphi):
+            return ti.payload_tiled(problem, x, alpha, phi, c["x"], c["u"], g.K, g.d, g.P,
+                                    g.p, c["z"], c["rho"], with_dphi)
+
+        payload0 = None
+        if vmapped:  # merit(0) from the cached data, the payload of failed searches
+            payload0 = ti.alpha0_payload_tiled(problem, c["x"], c["u"], g.p, c["z"], c["rho"],
+                                               c["convals"], c["A"], c["B"], lx, lu, phi0,
+                                               dphi0)
+
+        # 4. line search: the sequential machine, a grid, or the RTI full step;
+        #    each gives per lane (alpha, code, n_iters, aux_alpha) and the trial
+        #    it took (x_sel, alpha_sel, phi_sel), or the machine its payload
+        payload_ls = None
+        if search == "rti":
             # one trial at alpha = 1 through the same rollout (W = 1)
             phi1, xs1 = grid(torch.ones(1, **lane), c, g)
             lap("grid")
-            phi_acc, xsel = phi1[0], xs1[0]
-            alpha_acc = full(1.0)
-            use_ls = torch.ones(Bsz, dtype=torch.bool, device=dev)
-            ls_failed = ~use_ls
-            ls_iters = full(1, torch.int32)
+            x_sel, alpha_sel, phi_sel = xs1[0], full(1.0), phi1[0]
+            ls_alpha, code = alpha_sel, full(int(LineSearchCode.MINIMUM_FOUND), torch.int32)
+            n_iters, aux_alpha = full(1, torch.int32), alpha_sel
+        elif search == "sequential":
+            def merit_full(alpha):
+                return ti.merit_tiled(problem, c["x"], c["u"], g.K, g.d, g.P, g.p, c["z"],
+                                      c["rho"], alpha, x0)
+
+            ls = wolfe_line_search_lanes(merit_full, phi0, dphi0, 1.0, ls_opts, aux0=payload0,
+                                         active=active, trace=trace)
+            lap("sequential_search")
+            payload_ls = ls.aux
+            ls_alpha, code, n_iters, aux_alpha = ls.alpha, ls.code, ls.n_iters, ls.aux_alpha
         else:
             def eval_block(block):
                 ks = block * W + torch.arange(W, device=dev)
@@ -383,7 +435,7 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
                 lap("grid")
                 armijo = phis <= (phi0[None] + c1 * alphas[:, None] * dphi0[None]
                                   + slack * torch.abs(phi0)[None])
-                if block == 0 and wolfe:
+                if block == 0 and wolfe_first:
                     # trial 0 passes on Armijo and strong Wolfe, the rest on Armijo
                     dphi_first = dphi_at(xstacks[0], alphas[0], c, g)
                     armijo[0] &= torch.abs(dphi_first) <= -c2 * dphi0
@@ -392,17 +444,19 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
                 best = ti.select_best_tiled(alphas, phis, xstacks) if fallback else ()
                 return sel, best
 
-            (found, k_acc, alpha_acc, phi_acc, xsel), best = eval_block(0)
+            (found, k_acc, alpha_sel, phi_sel, x_sel), best = eval_block(0)
             if fallback:
                 balpha, bphi, bx = best
             blk = 1
-            while blk < n_blocks and bool(torch.any(~found)):
+            while blk < n_blocks and trace.read(torch.any(~found & active)):
                 (f2, idx2, a2, p2, x2), best2 = eval_block(blk)
-                take = torch.logical_and(~found, f2)
-                k_acc = torch.where(take, blk * W + idx2, k_acc)
-                alpha_acc = torch.where(take, a2, alpha_acc)
-                phi_acc = torch.where(take, p2, phi_acc)
-                xsel = torch.where(take, x2, xsel)
+                # a lane still searching takes this block's first passing trial,
+                # or its first trial (the JAX loop's body runs for it)
+                upd = ~found
+                k_acc = torch.where(upd, blk * W + idx2, k_acc)
+                alpha_sel = torch.where(upd, a2, alpha_sel)
+                phi_sel = torch.where(upd, p2, phi_sel)
+                x_sel = torch.where(upd, x2, x_sel)
                 found = torch.logical_or(found, f2)
                 if fallback:
                     ba2, bp2, bx2 = best2
@@ -413,37 +467,61 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
                 blk += 1
 
             not_descent = dphi0 >= 0
-            ls_ok = torch.logical_and(found, ~not_descent)
-            ls_failed = torch.logical_and(~grad_small, ~ls_ok)
-            if fallback:
-                fb = torch.logical_and(~ls_ok, bphi < phi0)
-                alpha_acc = torch.where(fb, balpha, alpha_acc)
-                phi_acc = torch.where(fb, bphi, phi_acc)
-                xsel = torch.where(fb, bx, xsel)
-            else:
-                fb = torch.zeros_like(ls_ok)
-            use_ls = torch.logical_and(torch.logical_or(ls_ok, fb), ~grad_small)
-            ls_iters = torch.where(ls_ok, k_acc + 1,
-                                   torch.full_like(k_acc, opts.ls_max_iters)).to(torch.int32)
-            zero_alpha = torch.logical_and(
-                torch.logical_or(grad_small, not_descent),
-                ~torch.logical_and(fb, ~grad_small))
-            alpha_acc = torch.where(zero_alpha, torch.zeros_like(alpha_acc), alpha_acc)
+            ok = torch.logical_and(found, ~not_descent)
+            fb = torch.zeros_like(ok)
+            if fallback:  # the lowest-merit trial when it decreases the merit
+                fb = torch.logical_and(~ok, bphi < phi0)
+                alpha_sel = torch.where(fb, balpha, alpha_sel)
+                phi_sel = torch.where(fb, bphi, phi_sel)
+                x_sel = torch.where(fb, bx, x_sel)
+            def code_of(c):
+                return full(int(c), torch.int32)
 
-        lap("select")
-        # 5. accepted payload on the blended trajectory (failed lanes at
-        #    alpha = 0, x = reference)
-        x_m = torch.where(use_ls, xsel, c["x"])
-        alpha_m = torch.where(use_ls, alpha_acc, torch.zeros_like(alpha_acc))
-        phi_m = torch.where(use_ls, phi_acc, phi0)
-        u_m, y_m, convals_m, zproj_m = ti.light_from_xstack_tiled(
-            problem, x_m, c["x"], c["u"], g.K, g.d, g.P, g.p, c["z"], c["rho"], alpha_m)
-        A_m, B_m, lx_m, lu_m = ti.completion_tiled(problem, x_m, u_m, c["z"], c["rho"])
-        if with_dphi:  # the accepted step's payload completed with its dphi
-            dphi_m = torch.where(use_ls, ti.merit0_derivative_tiled(
-                A_m, B_m, g.K, g.d, lx_m, lu_m), dphi0)
+            code = torch.where(ok, code_of(LineSearchCode.MINIMUM_FOUND),
+                               torch.where(fb, code_of(LineSearchCode.BEST_DECREASE),
+                                           torch.where(not_descent,
+                                                       code_of(LineSearchCode.NOT_DESCENT_DIRECTION),
+                                                       code_of(LineSearchCode.NO_ERROR))))
+            take = ok | fb
+            if search == "grid":  # no trial passes: the first of the last block
+                ls_alpha = torch.where(not_descent, torch.zeros_like(alpha_sel), alpha_sel)
+            else:
+                ls_alpha = torch.where(take, alpha_sel, torch.zeros_like(alpha_sel))
+            aux_alpha = torch.where(take, alpha_sel, full(math.nan))
+            n_iters = torch.where(ok, k_acc + 1,
+                                  torch.full_like(k_acc, opts.ls_max_iters)).to(torch.int32)
+
+        # acceptance (altro_tpu/solver.py:986-1019): MINIMUM_FOUND or
+        # HIT_MAX_STEPSIZE pass; BEST_DECREASE is taken but fails the status;
+        # a lane takes its search's payload only at the alpha it returns
+        if search == "rti":
+            alpha_st = ls_alpha
+            use_ls = torch.ones(Bsz, dtype=torch.bool, device=dev)
+            ls_failed = ~use_ls
         else:
-            dphi_m = torch.where(use_ls, full(math.nan), dphi0)
+            alpha_st = torch.where(grad_small, torch.zeros_like(ls_alpha), ls_alpha)
+            ls_ok = (code == int(LineSearchCode.MINIMUM_FOUND)) | (
+                code == int(LineSearchCode.HIT_MAX_STEPSIZE))
+            ls_failed = ~grad_small & (torch.isnan(alpha_st) | ~ls_ok)
+            accepted = ls_ok | (code == int(LineSearchCode.BEST_DECREASE))
+            use_ls = accepted & ~grad_small & (aux_alpha == alpha_st)
+        ls_iters = n_iters
+        lap("select")
+
+        # 5. the accepted payload, else merit(0); solve_tiled completes the
+        #    blended trajectory (failed lanes at alpha = 0, x = reference), as
+        #    altro_tpu/tile_solver.py:517-529 does
+        if vmapped:
+            if payload_ls is None:
+                payload_ls = payload_at(x_sel, alpha_sel, phi_sel)
+            m = ti.Payload(*_where(use_ls, tuple(payload_ls), tuple(payload0)))
+        else:
+            m = payload_at(torch.where(use_ls, x_sel, c["x"]),
+                           torch.where(use_ls, alpha_sel, torch.zeros_like(alpha_sel)),
+                           torch.where(use_ls, phi_sel, phi0), with_dphi=False)
+            m = m._replace(dphi=torch.where(use_ls, m.dphi, dphi0))
+        x_m, u_m, y_m, phi_m, dphi_m = m.x, m.u, m.y, m.phi, m.dphi
+        A_m, B_m, lx_m, lu_m, convals_m, zproj_m = m.A, m.B, m.lx, m.lu, m.convals, m.zproj
         lap("completion")
 
         # 6. optimality criteria
@@ -522,9 +600,11 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
             x=x_m, u=u_m, y=y_m, z=z_new, rho=rho_new, K=g.K, d=g.d, P=g.P,
             p=g.p, reg=reg_used, convals=convals_m, A=A_m, B=B_m,
             iter=c["iter"] + 1, status=status, stop=stop, phi=phi_m, dphi=dphi_m,
-            alpha=alpha_m, stat=stat, feas=feas, ls_iters=ls_iters,
+            alpha=alpha_st, stat=stat, feas=feas, ls_iters=ls_iters,
             ls_fails=ls_fails_new, bp_fail_index=g.fail_index.to(torch.int32),
         )
+        if vmapped:
+            trace.add("trials", torch.where(active, ls_iters, torch.zeros_like(ls_iters)))
         c = _freeze(active, new, c)
         active = lane_active(c)
         lap("update")

@@ -260,3 +260,58 @@ def test_other_models_rows_take_their_kernels_and_the_rocket_grid_is_refused():
     with pytest.raises(NotImplementedError,
                        match="solve_tiled: the trial-grid kernel.*column-form"):
         tsv.solve_tiled(on_card, None, with_grid)
+
+
+def _per_lane_costs(prob, lanes=3):
+    """The problem with q [N+1, n, B] and c [N+1, B], one row per lane (as
+    batched_tracking_solver gives them)."""
+    cost = prob.cost
+    q = cost.q[..., None] + 0.01 * torch.arange(lanes, dtype=cost.q.dtype)
+    c = cost.c[:, None].expand(-1, lanes).contiguous()
+    return dataclasses.replace(prob, cost=dataclasses.replace(cost, q=q, c=c))
+
+
+def test_per_lane_costs_refuse_the_trial_grid_kernel():
+    """The trial-grid kernel reads cost rows shared by all lanes: with
+    per-lane q and c, `solve_tiled` on the card is refused under
+    `pallas_rollout_tiled` before anything runs, with the reason and the
+    plain grid's switch; without it (and in the vmapped solve, which runs
+    the plain grid) nothing is refused."""
+    prob = _per_lane_costs(_bicycle(2))
+    why = tsv.kernel_refusal(prob, OPTS, vmapped=False)
+    assert "rollout_grid" in why and "per-lane cost rows" in why
+    assert "pallas_rollout_tiled=False" in why
+    assert tsv.kernel_refusal(prob, OPTS.replace(pallas_rollout_tiled=False),
+                              vmapped=False) is None
+    assert tsv.kernel_refusal(prob, OPTS.replace(pallas_backward=True), vmapped=True) is None
+    with pytest.raises(NotImplementedError, match="solve_tiled: .*per-lane cost rows"):
+        tsv.solve_tiled(dataclasses.replace(prob, x0=_OnCard()), None, OPTS)
+
+
+@pytest.mark.parametrize("change", [dict(parallel_linesearch=False), dict(ls_phase_split=False),
+                                    {"use_backtracking_linesearch": False,
+                                     "parallel_linesearch": False}],
+                         ids=["sequential_backtracking", "non_split_grid", "strong_wolfe"])
+def test_solve_tiled_keeps_refusing_the_other_searches(change):
+    """As JAX's solve_tiled (altro_tpu/tile_solver.py:286-291), the port's
+    takes the phase-split x-only Armijo-only grid or RTI only: the
+    searches the vmapped solve now runs are a ValueError there."""
+    with pytest.raises(ValueError, match="solve_tiled supports"):
+        tsv.solve_tiled(_bicycle(2), None, OPTS.replace(**change))
+
+
+def test_default_options_vmap_solve_refuses_a_shape_before_launching():
+    """Default SolverOptions() (the strong-Wolfe search) with
+    `pallas_backward` on a shape the dense kernel lacks: refused by
+    `vmap_solve` and `batched_tracking_solver` on the card, by name,
+    before anything runs."""
+    from altro_tpu_torch.options import SolverOptions
+
+    prob = _linear_problem(n=4)
+    opts = SolverOptions(pallas_backward=True)
+    with pytest.raises(NotImplementedError, match="vmap_solve: .*riccati_dense.*n=4, m=1"):
+        batch.vmap_solve(prob, opts)(_OnCard(), None)
+    with pytest.raises(NotImplementedError,
+                       match="batched_tracking_solver: .*riccati_dense.*n=4, m=1"):
+        batch.batched_tracking_solver(prob, opts)(_OnCard(), None, None, None)
+    assert tsv.kernel_refusal(prob, SolverOptions(), vmapped=True) is None

@@ -797,3 +797,127 @@ def test_other_models_rows_launch_their_kernels(dev):
                                  opts=mpc.rocket_soc_options().replace(pallas_rollout_tiled=True))
     torch.cuda.synchronize()
     assert _kernel_launches() == before
+
+
+# ---------------------------------------------------------------------------
+# The batched solve under the reference's line searches: the per-lane
+# machine on the card, and examples/batched_mpc.py's tick on riccati_dense.cu
+# ---------------------------------------------------------------------------
+
+def _merit_lanes(Bsz=96, seed=4):
+    """Per-lane 1-D merits phi(a) = k0 + k1 a + k2 a^2 + k3 a^3: quadratics
+    (either curvature, min at 0.05-2.5), cubics and an ascent lane, away
+    from the ties where f32 and f64 part ways."""
+    rng = np.random.default_rng(seed)
+    k = np.zeros((4, Bsz))
+    for b in range(Bsz):
+        c = rng.uniform(0.05, 2.5)
+        if b % 3 == 0:
+            a = rng.choice([-1.0, 1.0]) * rng.uniform(0.5, 2.0)
+            k[:3, b] = [a * c * c, -2 * a * c, a]
+        elif b % 3 == 1:
+            k[:, b] = [c * c + c ** 3, -2 * c - 3 * c * c, 1 + 3 * c, -1]
+        else:
+            k[:, b] = [1.0, 2.0, 1.0, 0.0]  # (a + 1)^2: not a descent direction
+    return k
+
+
+def _lane_machine(k, opts, device, dtype):
+    from altro_tpu_torch import linesearch as tls
+
+    kt = torch.as_tensor(k, dtype=dtype, device=device)
+
+    def merit(a):
+        return ((kt[3] * a + kt[2]) * a + kt[1]) * a + kt[0], (3 * kt[3] * a + 2 * kt[2]) * a + kt[1]
+
+    zero = torch.zeros(k.shape[1], dtype=dtype, device=device)
+    phi0, dphi0 = merit(zero)
+    return tls.wolfe_line_search_lanes(lambda a: (*merit(a), torch.stack([a, merit(a)[0]])),
+                                       phi0, dphi0, 1.0, opts,
+                                       aux0=torch.stack([zero, phi0]))
+
+
+@pytest.mark.parametrize("use_backtracking", [False, True], ids=["wolfe", "backtracking"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_lane_machine_on_card_matches_cpu(dev, dtype, use_backtracking):
+    """`wolfe_line_search_lanes` on CUDA tensors against its CPU f64 run:
+    codes and trial counts equal, alpha, phi, dphi and the payload to
+    1e-12 in f64 and 1e-4 relative in f32."""
+    from altro_tpu_torch import linesearch as tls
+
+    k = _merit_lanes()
+    opts = tls.LineSearchOptions(use_backtracking=use_backtracking)
+    ref = _lane_machine(k, opts, "cpu", torch.float64)
+    got = _lane_machine(k, opts, dev, dtype)
+    assert torch.equal(got.code.cpu(), ref.code)
+    assert torch.equal(got.n_iters.cpu(), ref.n_iters)
+    tol = dict(rtol=1e-12, atol=1e-12) if dtype == torch.float64 else dict(rtol=1e-4, atol=1e-5)
+    for name in ("alpha", "phi", "dphi"):
+        np.testing.assert_allclose(getattr(got, name).double().cpu().numpy(),
+                                   getattr(ref, name).numpy(), err_msg=name, **tol)
+    np.testing.assert_allclose(got.aux.double().cpu().numpy(), ref.aux.numpy(), **tol)
+    assert len(set(ref.n_iters.tolist())) >= 2
+
+
+def test_batched_tracking_tick_launches_riccati_dense(dev):
+    """One tick of examples/batched_mpc.py's loop through
+    `batched_tracking_solver` (per-lane q and c, the sequential
+    backtracking, f32): the dense backward kernel runs, and every lane
+    matches the same tick on the plain backward on the card."""
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch.ops import riccati_dense as rd
+
+    prob = mpc.batched_tracking_problem(dtype=torch.float32, device=dev)
+    x0 = mpc.batched_tracking_initial_states(64, dtype=torch.float32, device=dev)
+    out = []
+    for pallas in (True, False):
+        before = rd.LAUNCHES
+        out.append(mpc.run_batched_tracking(prob, x0, ticks=1,
+                                            opts=mpc.batched_tracking_options(pallas)))
+        assert (rd.LAUNCHES > before) == pallas
+    a, b = out
+    assert torch.equal(a.status, b.status) and torch.equal(a.iterations, b.iterations)
+    assert bool(torch.isfinite(a.x_true).all())
+    assert float((a.x_true - b.x_true).abs().max()) < 1e-4
+    assert float((a.state.u - b.state.u).abs().max()) < 1e-3
+
+
+def test_refused_batched_tracking_launches_nothing(dev):
+    """On the card, `batched_tracking_solver` at a shape the dense kernel
+    lacks and `solve_tiled` with per-lane cost rows under
+    `pallas_rollout_tiled` are refused before anything launches."""
+    import dataclasses
+
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch import tile_solver as tsv
+    from altro_tpu_torch.io.scotty import load_scotty
+    from altro_tpu_torch.options import SolverOptions
+    from altro_tpu_torch.parallel.batch import batch_init_state, batched_tracking_solver
+    from altro_tpu_torch.problem import Problem, lqr_cost_from_reference
+
+    N, Bsz, n = 6, 4, 4
+    kw = dict(dtype=torch.float32, device=dev)
+
+    def step(x, u, h, k):
+        return torch.stack([x[i] + h * x[i + 1] for i in range(n - 1)] + [x[n - 1] + h * u[0]])
+
+    cost = lqr_cost_from_reference(torch.ones((N + 1, n), **kw), torch.ones((N + 1, 1), **kw),
+                                   torch.zeros((N + 1, n), **kw), torch.zeros((N + 1, 1), **kw))
+    prob = Problem(N=N, n=n, m=1, dynamics=step, dynamics_jac=None, constraints=(), cost=cost,
+                   h=torch.full((N,), 0.1, **kw), x0=torch.zeros(n, **kw))
+    before = _kernel_launches()
+    with pytest.raises(NotImplementedError, match="riccati_dense.*n=4, m=1"):
+        batched_tracking_solver(prob, SolverOptions(pallas_backward=True))(
+            torch.zeros((Bsz, n), **kw), torch.zeros((Bsz, N + 1, n), **kw),
+            torch.zeros((Bsz, N + 1), **kw), batch_init_state(prob, Bsz))
+    scotty = mpc.scotty_problem(load_scotty(), N=N, device=dev)
+    lanes_cost = dataclasses.replace(
+        scotty.cost, q=scotty.cost.q[..., None].expand(-1, -1, Bsz).contiguous(),
+        c=scotty.cost.c[:, None].expand(-1, Bsz).contiguous())
+    tiled = dataclasses.replace(scotty, cost=lanes_cost, x0=scotty.x0[:, None].expand(-1, Bsz)
+                                .contiguous())
+    with pytest.raises(NotImplementedError, match="per-lane cost rows"):
+        tsv.solve_tiled(tiled, tsv.state_to_lanes(batch_init_state(scotty, Bsz)),
+                        mpc.bench_options()[0])
+    torch.cuda.synchronize()
+    assert _kernel_launches() == before

@@ -11,6 +11,10 @@ the lane loop it shares with `solve_tiled`.
 * With `ls_armijo_only=True` the vmapped solve equals `solve_tiled` lane
   for lane (the same loop), and its dphi follows jax.vmap(solve): NaN on
   lanes that took a step, dphi(0) on the others.
+* The options that were refused until the batched solves ran the
+  reference's line searches (parallel_linesearch=False: the sequential
+  backtracking; ls_phase_split=False: the non-split grid) now hold
+  against `jax.vmap(solve)` with the same checks.
 * The options it does not port are refused by name.
 """
 
@@ -66,8 +70,8 @@ def _windows():
     return qs, cs
 
 
-def _jax_run():
-    j_opts = JOpts(**{f.name: getattr(OPTS, f.name) for f in dataclasses.fields(OPTS)})
+def _jax_run(opts=OPTS):
+    j_opts = JOpts(**{f.name: getattr(opts, f.name) for f in dataclasses.fields(opts)})
     jprob = JProblem(
         N=N, n=n, m=m, dynamics=DYN, dynamics_jac=None,
         constraints=(JSpec(fn=lambda x, u, k: jnp.stack([x[3] - DM, -DM - x[3]]),
@@ -114,13 +118,14 @@ def _tick_problem(prob, t, x_true):
     return dataclasses.replace(prob, cost=cost, x0=x_true)
 
 
-def test_steering_bound_matches_jax_vmapped_solve():
-    j_run = _jax_run()
+def _assert_port_matches(j_run, opts):
+    """The port's vmapped closed loop against JAX's, tick for tick; returns
+    whether some lane escalated its penalty (the bound bit)."""
     prob, st = _port_start()
     xt = torch.as_tensor(_x_true0())
     saw_penalty = False
     for t, (j_xt, j_st, j_stats) in enumerate(j_run):
-        st, stats = vmap_solve(_tick_problem(prob, t, None), OPTS)(xt, st)
+        st, stats = vmap_solve(_tick_problem(prob, t, None), opts)(xt, st)
         xt = prob.dynamics(xt.T, st.u[:, 0].T, prob.h[0], 0).T
         st = dataclasses.replace(st, x=torch.cat([st.x[:, 1:], st.x[:, -1:]], dim=1),
                                  u=torch.cat([st.u[:, 1:], st.u[:, -1:]], dim=1))
@@ -133,7 +138,26 @@ def test_steering_bound_matches_jax_vmapped_solve():
         np.testing.assert_allclose(st.u.numpy(), j_st.u, rtol=0, atol=1e-8)
         np.testing.assert_allclose(st.rho.numpy(), j_st.rho, rtol=1e-12)
         saw_penalty |= bool((stats.rho > 1.0).any())
-    assert saw_penalty  # the bound bit: some lane escalated its penalty
+    return saw_penalty
+
+
+def test_steering_bound_matches_jax_vmapped_solve():
+    assert _assert_port_matches(_jax_run(), OPTS)  # the bound bit: some lane escalated
+
+
+@pytest.mark.parametrize("change", [dict(parallel_linesearch=False), dict(ls_phase_split=False)],
+                         ids=["parallel_linesearch", "ls_phase_split"])
+def test_vmap_solve_runs_formerly_refused_options(change):
+    """The sequential backtracking (parallel_linesearch=False with the
+    bench's use_backtracking_linesearch, without cubic-first) and the
+    non-split grid (ls_phase_split=False) now solve, lane for lane as
+    jax.vmap(solve) does on the steering-bound problem. (The real-time
+    iteration without the phase split is held to JAX on the double
+    integrator, test_torch_vmap_solve_default_rti.py: its full steps
+    diverge here on the lanes started past the bound, where f64 roundoff
+    grows to O(1) within a few iterations in both packages.)"""
+    opts = OPTS.replace(**change)
+    _assert_port_matches(_jax_run(opts), opts)
 
 
 def test_armijo_only_vmapped_solve_equals_solve_tiled():
@@ -157,9 +181,8 @@ def test_armijo_only_vmapped_solve_equals_solve_tiled():
 
 
 @pytest.mark.parametrize("change, name", [
-    (dict(parallel_linesearch=False), "parallel_linesearch"),
-    (dict(ls_phase_split=False), "ls_phase_split"),
     (dict(ls_grid_x_only=False), "ls_grid_x_only"),
+    (dict(rti_mode=True, parallel_linesearch=False, ls_grid_x_only=False), "ls_grid_x_only"),
     (dict(parallel_riccati=True, pallas_backward=False), "parallel_riccati"),
     (dict(exact_al_hessian=True), "exact_al_hessian"),
     (dict(iteration_callback=print), "iteration_callback"),

@@ -3,6 +3,7 @@
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py [--tol-stationarity T]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --quadrotor [--lanes B]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --pendulum --rocket [--lanes B]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --batched-tracking [--lanes B]
 
 Runs altro_tpu (the reference package, not the port) in float32 on the
 CPU: the three double integrator oracles of
@@ -38,6 +39,16 @@ iterations, mean distance from upright) and the rocket landing
 (`rocket_soc_tiled_B1024`, bench_all.py:732-843, one solve; success
 rate, mean iterations, mean touchdown distance): what chip_smoke.py's
 gates of the port's two rows rest on.
+
+With --batched-tracking it runs examples/batched_mpc.py's loop through
+altro_tpu's `batched_tracking_solver` in f32 (the example's problem,
+options and tick; B lanes from the port's starts, ref.x[0] + 0.05 N(0, 1)
+with numpy seed 0): 20 ticks under the example's sequential backtracking,
+5 ticks each under the strong-Wolfe search and the non-split grid, and
+prints each run's success rate, mean iterations and mean final tracking
+error; then each search's first 5 ticks in f32 against the same ticks in
+f64 (the largest plant-state difference, status agreement): what
+chip_smoke.py's `batched_tracking` gates rest on.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ import argparse
 import dataclasses
 import json
 import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -336,6 +348,96 @@ def rocket_row(lanes):
                       "cpu_seconds_with_compile": time.perf_counter() - t0}), flush=True)
 
 
+BT_SEARCHES = {  # search: (option overrides, ticks) of the batched tracking runs
+    "sequential_backtracking": (dict(use_backtracking_linesearch=True), 20),
+    "strong_wolfe": (dict(use_backtracking_linesearch=False), 5),
+    "non_split_grid": (dict(use_backtracking_linesearch=True, parallel_linesearch=True,
+                            ls_phase_split=False), 5),
+}
+
+
+def _batched_tracking_loop(lanes, kw, ticks, dtype):
+    """examples/batched_mpc.py's loop in dtype under the option overrides
+    kw, from the port's starts (mpc.batched_tracking_initial_states:
+    ref.x[0] + 0.05 N(0, 1), numpy seed 0). Returns (iterations [T, B],
+    statuses [T, B], ls_iterations [T, B], final plant states [B, 4],
+    the reference, seconds)."""
+    from altro_tpu.parallel.batch import batch_init_state, batched_tracking_solver
+
+    ref = load_scotty()
+    N, n, m = 30, 4, 2
+    h = float(np.float32(ref.tf / ref.N))
+    Qd, Rd = np.full(n, 1e-2), np.full(m, 1e-3)
+    cost = lqr_cost_from_reference(
+        jnp.asarray(np.tile(Qd, (N + 1, 1)), dtype), jnp.asarray(np.tile(Rd, (N + 1, 1)), dtype),
+        jnp.asarray(ref.x[: N + 1], dtype), jnp.asarray(ref.u[: N + 1], dtype))
+    dm = float(np.deg2rad(60.0))  # a weak scalar: the f32 run stays f32 under x64
+    steering = ConstraintSpec(fn=lambda x, u, k: jnp.stack([x[3] - dm, -dm - x[3]]),
+                              cone=Cone.NEGATIVE_ORTHANT, dim=2, active=jnp.ones(N + 1, bool),
+                              label="steering")
+    dyn = midpoint(bicycle_continuous())
+    problem = Problem(N=N, n=n, m=m, dynamics=dyn, dynamics_jac=None, constraints=(steering,),
+                      cost=cost, h=jnp.full(N, h, dtype), x0=jnp.asarray(ref.x[0], dtype))
+    x_true = jnp.asarray(ref.x[0][None] + 0.05 * np.random.default_rng(0).standard_normal(
+        (lanes, n)), dtype)
+    shift = jax.jit(jax.vmap(shift_trajectory))
+    step = jax.jit(jax.vmap(lambda x, u: dyn(x, u, h, 0)))
+    opts = SolverOptions(iterations_max=10, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+                         throw_errors=False, **kw)
+    runner = batched_tracking_solver(problem, opts)
+    states = dataclasses.replace(
+        batch_init_state(problem, lanes),
+        u=jnp.tile(jnp.asarray([ref.u[0][0], 0.0], dtype), (lanes, N, 1)),
+        x=jnp.tile(jnp.asarray(ref.x[: N + 1], dtype), (lanes, 1, 1)))
+    iters, statuses, ls_iters = [], [], []
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        window = jnp.asarray(ref.x[t: t + N + 1], dtype)
+        q = jnp.broadcast_to(-(jnp.asarray(Qd, dtype) * window), (lanes, N + 1, n))
+        c = jnp.broadcast_to(0.5 * jnp.sum(jnp.asarray(Qd, dtype) * window * window, 1),
+                             (lanes, N + 1))
+        u0, states, stats = runner(x_true, q, c, states)
+        x_true = step(x_true, u0)
+        states = shift(states)
+        iters.append(np.asarray(stats.iterations))
+        statuses.append(np.asarray(stats.status))
+        ls_iters.append(np.asarray(stats.ls_iterations))
+    return (np.stack(iters), np.stack(statuses), np.stack(ls_iters),
+            np.asarray(x_true, np.float64), ref, time.perf_counter() - t0)
+
+
+def batched_tracking_rows(lanes, ref_ticks=5):
+    """examples/batched_mpc.py's loop in f32 under each search of
+    BT_SEARCHES, and each search's first ref_ticks ticks in f32 against
+    f64 (what the algorithm itself does in f32 on this loop)."""
+    jax.config.update("jax_enable_x64", True)  # the f64 runs; every f32 array is typed
+    for name, (kw, ticks) in BT_SEARCHES.items():
+        iters, statuses, ls_iters, x_true, ref, seconds = _batched_tracking_loop(
+            lanes, kw, ticks, F32)
+        err = np.linalg.norm(x_true[:, :2] - ref.x[ticks][None, :2], axis=1)
+        print(json.dumps({"row": "batched_tracking", "search": name, "lanes": lanes,
+                          "ticks": ticks, "dtype": "float32",
+                          "success_rate": float((statuses == 0).mean()),
+                          "mean_iterations": float(iters.mean()),
+                          "last_tick_mean_iterations": float(iters[-1].mean()),
+                          "max_iterations": int(iters.max()),
+                          "mean_final_tracking_error": float(err.mean()),
+                          "max_final_tracking_error": float(err.max()),
+                          "mean_last_ls_iterations": float(ls_iters.mean()),
+                          "statuses": {str(k): int(v) for k, v in
+                                       zip(*np.unique(statuses, return_counts=True))},
+                          "seconds": seconds}), flush=True)
+        runs = [_batched_tracking_loop(lanes, kw, ref_ticks, dt) for dt in (F32, jnp.float64)]
+        dx = np.abs(runs[0][3] - runs[1][3])
+        print(json.dumps({"row": "batched_tracking_f32_vs_f64", "search": name, "lanes": lanes,
+                          "ticks": ref_ticks, "max_abs_dx_true": float(dx.max()),
+                          "max_abs_dx_true_by_component": dx.max(0).tolist(),
+                          "lanes_over_1e-3": int((dx.max(1) > 1e-3).sum()),
+                          "status_agreement": float((runs[0][1] == runs[1][1]).mean()),
+                          "iteration_agreement": float((runs[0][0] == runs[1][0]).mean())}),
+              flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tol-stationarity", type=float, default=1e-4)
@@ -344,6 +446,8 @@ def main():
     ap.add_argument("--pendulum", action="store_true",
                     help="run the pendulum swing-up MPC row")
     ap.add_argument("--rocket", action="store_true", help="run the rocket landing row")
+    ap.add_argument("--batched-tracking", action="store_true",
+                    help="run examples/batched_mpc.py's loop under three searches")
     ap.add_argument("--lanes", type=int, default=1024,
                     help="lanes of the batched rows (the tiled quadrotor row: a multiple "
                          "of 1024)")
@@ -354,7 +458,9 @@ def main():
         pendulum_row(args.lanes)
     if args.rocket:
         rocket_row(args.lanes)
-    if args.quadrotor or args.pendulum or args.rocket:
+    if args.batched_tracking:
+        batched_tracking_rows(args.lanes)
+    if args.quadrotor or args.pendulum or args.rocket or args.batched_tracking:
         return
     tol = args.tol_stationarity
     for case, x0, kinds, kw in (
