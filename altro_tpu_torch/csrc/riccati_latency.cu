@@ -1,5 +1,6 @@
 // Single-lane Riccati backward pass (latency kernel) for Hopper (sm_90a):
-// one warp (five at (12, 4)) computes each knot together, three warps copy.
+// one warp (two at (6, 3), five at (12, 4)) computes each knot together,
+// three warps copy.
 //
 // Replaces: altro_tpu/ops/pallas_packed.py::riccati_backward_pallas_packed
 // (its Pallas `_kernel` / `_knot_body`): the whole N-knot backward chain of
@@ -39,18 +40,24 @@
 // gradient rows) and 90 phase-B items (78 + 12), so five compute warps
 // hold a thread per item (256 threads in all) and meet between the phases
 // at a named barrier (BAR_COMPUTE) instead of __syncwarp(); each thread
-// runs the same code on its one item. Each lane's operands of the next
-// knot (its two columns of [A B] or f, and its cost term) are read from
-// the staged chunk into registers while phase B runs. (n, m), diag_x,
-// diag_u, lux and f are template parameters (16 instantiations per shape,
-// chosen once on the host; shapes (4, 2), (2, 1) and (12, 4)) and every
-// layout offset is a compile-time constant. Every per-chunk array of
-// shared memory holds CH knots, 64, or 32 at (12, 4), where one 64-knot
-// buffer of dense operands takes 109.6 KB; a multiple of 4, so each array
-// starts on a 16-byte boundary at any (n, m). The copy warps stage the
-// operands in chunks of CH knots, double-buffered, with 16-byte cp.async
-// where a slice is 16-byte aligned (one float a copy where not), and write
-// the outputs of the chunk before back from their staging. Chunks are
+// runs the same code on its one item. At (6, 3) (the rocket's) 54 phase-A
+// items (21 + 18 + 6 + 9) take two compute warps on the same barrier (160
+// threads in all, whole warps, as bar.sync counts them); at (4, 1) (the
+// cartpole's) 20 items take one warp, on the m = 1 code of (2, 1). Each
+// lane's operands of the next knot (its two columns of [A B] or f, and its
+// cost term) are read from the staged chunk into registers while phase B
+// runs. (n, m), diag_x, diag_u, lux and f are template parameters (16
+// instantiations per shape, chosen once on the host; shapes (4, 2),
+// (2, 1), (12, 4), (6, 3) and (4, 1)) and every layout offset is a
+// compile-time constant. Every per-chunk array of shared memory holds CH
+// knots, 64, or 32 at n > 4: at (12, 4) one 64-knot buffer of dense
+// operands takes 109.6 KB, and at (6, 3) the 32-knot buffers, dense with
+// lux and f, take 50.5 KB in all (over 48 KB: `launch` opts in); CH is a
+// multiple of 4, so each array starts on a 16-byte boundary at any (n, m).
+// The copy warps stage the operands in chunks of CH knots, double-buffered,
+// with 16-byte cp.async where a slice is 16-byte aligned (one float a copy
+// where not), and write the outputs of the chunk before back from their
+// staging. Chunks are
 // handed over by named barriers: the copy warps arrive at FULL(b) when
 // buffer b holds a chunk and the compute warps sync on it; they arrive at
 // DONE(b) when they have finished with buffer b and the copy warps sync
@@ -530,8 +537,8 @@ int launch_shape(const Args& a, cudaStream_t s, bool dx, bool du) {
 
 }  // namespace
 
-// (n, m) is (4, 2), (2, 1) or (12, 4); lux and f may be null (a zero cross term, the
-// affine term elided); reg is one float on the device.
+// (n, m) is (4, 2), (2, 1), (12, 4), (6, 3) or (4, 1); lux and f may be null (a zero
+// cross term, the affine term elided); reg is one float on the device.
 extern "C" int riccati_latency_f32(
     const float* A, const float* Bm, const float* lxx, const float* luu,
     const float* lux, const float* f, const float* lx, const float* lu,
@@ -543,5 +550,7 @@ extern "C" int riccati_latency_f32(
   if (n == 4 && m == 2) return launch_shape<4, 2>(a, s, diag_x != 0, diag_u != 0);
   if (n == 2 && m == 1) return launch_shape<2, 1>(a, s, diag_x != 0, diag_u != 0);
   if (n == 12 && m == 4) return launch_shape<12, 4>(a, s, diag_x != 0, diag_u != 0);
+  if (n == 6 && m == 3) return launch_shape<6, 3>(a, s, diag_x != 0, diag_u != 0);
+  if (n == 4 && m == 1) return launch_shape<4, 1>(a, s, diag_x != 0, diag_u != 0);
   return (int)cudaErrorInvalidValue;
 }

@@ -66,6 +66,18 @@ bench.py's closed loop (`child_main`, its problem, options, rescue and
   Scotty path, each tick one `parallel.batch.batched_tracking_solver`
   call with per-lane cost rows, under the sequential backtracking search
   and the dense backward kernel.
+* The single-lane rows, each one `solver.solve` on the single-lane
+  backward kernel (`SingleSolveResult`): `rocket_landing_options` and
+  `run_rocket_landing` (examples/rocket_landing.py:114-149, at (6, 3)),
+  `cartpole_swingup_options` and `run_cartpole_swingup`
+  (tests/test_models_extra.py::test_cartpole_swing_up, at (4, 1)), and
+  three single-lane rows of scripts/bench_all.py with its `f32opts`
+  (:47-50): `double_integrator_goal_options` / `run_double_integrator_goal`
+  (`double_integrator_goal_N100`, (4, 2)), `baseline_f32_options` /
+  `run_pendulum_bounded` (`pendulum_swingup_bounded`, (2, 1)) and
+  `bicycle_window_options` / `run_bicycle_window`
+  (`bicycle_scotty_window_N30`, (4, 2)). Their problems are in
+  reference_problems.py (the bicycle row's is `scotty_reference_problem`).
 """
 
 from __future__ import annotations
@@ -107,7 +119,7 @@ from altro_tpu_torch.problem import (
     Problem,
     lqr_cost_from_reference,
 )
-from altro_tpu_torch.solver import SolverState, init_state, solve
+from altro_tpu_torch.solver import SolverState, SolveStats, init_state, solve
 
 __all__ = [
     "shift_trajectory",
@@ -156,6 +168,19 @@ __all__ = [
     "batched_tracking_initial_states",
     "BatchedTrackingResult",
     "run_batched_tracking",
+    "SingleSolveResult",
+    "run_single_solve",
+    "rocket_landing_options",
+    "rocket_metrics",
+    "run_rocket_landing",
+    "cartpole_swingup_options",
+    "run_cartpole_swingup",
+    "baseline_f32_options",
+    "double_integrator_goal_options",
+    "run_double_integrator_goal",
+    "run_pendulum_bounded",
+    "bicycle_window_options",
+    "run_bicycle_window",
 ]
 
 Q_DIAG = 1e-2
@@ -1114,3 +1139,166 @@ def run_batched_tracking(problem: Problem, x_true0: torch.Tensor, *, ticks: int 
     seconds = time.perf_counter() - t0
     return BatchedTrackingResult(iters, statuses, trials, passes, syncs, x_true,
                                  np.asarray(ref.x[ticks]), st, seconds)
+
+
+# ---------------------------------------------------------------------------
+# Single-lane rows: the rocket landing, the cart-pole swing-up and the
+# single-lane rows of scripts/bench_all.py (:100-209)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SingleSolveResult:
+    state: SolverState  # the solved state, one lane
+    stats: SolveStats
+    seconds: float  # wall time of the solve (synchronized on CUDA)
+
+    def metrics(self) -> dict:
+        """Status, iterations, the solve's own measures and x_N, unrounded."""
+        s = self.stats
+        return {"status": int(s.status), "iterations": int(s.iterations),
+                "ls_iterations": int(s.ls_iterations),
+                "objective": float(s.objective_value), "stationarity": float(s.stationarity),
+                "primal_feasibility": float(s.primal_feasibility),
+                "x_N": self.state.x[-1].double().cpu().tolist(),
+                "finite": bool(torch.isfinite(self.state.x).all()
+                               and torch.isfinite(self.state.u).all()),
+                "ms_per_solve": 1e3 * self.seconds}
+
+
+def run_single_solve(problem: Problem, state: SolverState, opts: SolverOptions,
+                     layer_seconds: Optional[dict] = None) -> SingleSolveResult:
+    """One `solver.solve`, timed (synchronized on CUDA)."""
+    if problem.device.type == "cuda":
+        torch.cuda.synchronize(problem.device)
+    t0 = time.perf_counter()
+    st, stats = solve(problem, state, opts, layer_seconds)
+    if problem.device.type == "cuda":
+        torch.cuda.synchronize(problem.device)
+    return SingleSolveResult(st, stats, time.perf_counter() - t0)
+
+
+def rocket_landing_options(dtype=torch.float32) -> SolverOptions:
+    """examples/rocket_landing.py's options (:135-140): 120 iterations,
+    penalty 10 scaled by 10, the reference's tolerance 1e-4 in float64 and
+    the bench's 1e-3 in float32, relative stationarity 1e-5, the
+    sequential backtracking."""
+    tol = 1e-4 if dtype == torch.float64 else 1e-3
+    return SolverOptions(iterations_max=120, penalty_initial=10.0, penalty_scaling=10.0,
+                         tol_stationarity=tol, tol_primal_feasibility=tol,
+                         tol_stationarity_rel=1e-5, use_backtracking_linesearch=True,
+                         throw_errors=False)
+
+
+def rocket_metrics(res: SingleSolveResult, *, theta_max_deg: float = 25.0,
+                   gamma_deg: float = 45.0, u_max: float = 20.0, u_min: float = 2.0) -> dict:
+    """The example's numbers (:151-158) for `reference_problems.
+    rocket_landing_problem`'s defaults: |r_N|, |v_N|, the largest thrust
+    ball ratio ||u|| / u_max and pointing ratio ||(ux, uy)|| / (tan(theta)
+    uz), and the largest excess over any cone (pointing, ball, min thrust,
+    glide slope; tests/test_rocket.py holds it to 1e-4)."""
+    x = res.state.x.double().cpu()
+    u = res.state.u.double().cpu()
+    tan_th = math.tan(math.radians(theta_max_deg))
+    tan_ga = math.tan(math.radians(gamma_deg))
+    uxy = torch.linalg.norm(u[:, :2], dim=1)
+    excess = torch.cat([uxy - tan_th * u[:, 2], torch.linalg.norm(u, dim=1) - u_max,
+                        u_min - u[:, 2], torch.linalg.norm(x[:, :2], dim=1) - tan_ga * x[:, 2]])
+    return {**res.metrics(), "r_N": float(torch.linalg.norm(x[-1, :3])),
+            "v_N": float(torch.linalg.norm(x[-1, 3:])),
+            "max_thrust_ratio": float((torch.linalg.norm(u, dim=1) / u_max).max()),
+            "max_pointing_ratio": float((uxy / (tan_th * u[:, 2])).max()),
+            "max_cone_excess": float(excess.max())}
+
+
+def run_rocket_landing(problem: Problem, hover: torch.Tensor,
+                       opts: Optional[SolverOptions] = None,
+                       layer_seconds: Optional[dict] = None) -> SingleSolveResult:
+    """examples/rocket_landing.py's solve (:142-149): one `solver.solve`
+    from the cold start with u = hover. problem, hover: from
+    `reference_problems.rocket_landing_problem`; opts default
+    `rocket_landing_options(problem.dtype)`. On CUDA tensors in float32 the
+    backward runs on riccati_latency.cu at (6, 3) (dense expansions with
+    lux: the SOC groups have no diagonal Hessian). `rocket_metrics` reads
+    the result."""
+    opts = rocket_landing_options(problem.dtype) if opts is None else opts
+    st = dataclasses.replace(init_state(problem),
+                             u=hover.expand(problem.N, problem.m).contiguous())
+    return run_single_solve(problem, st, opts, layer_seconds)
+
+
+def cartpole_swingup_options(iterations_max: int = 300) -> SolverOptions:
+    """The cart-pole oracle's options (tests/test_models_extra.py:63-66):
+    300 iterations, the sequential backtracking, every other option at its
+    default."""
+    return SolverOptions(iterations_max=iterations_max, use_backtracking_linesearch=True)
+
+
+def run_cartpole_swingup(problem: Problem, state: SolverState,
+                         opts: Optional[SolverOptions] = None,
+                         layer_seconds: Optional[dict] = None) -> SingleSolveResult:
+    """The cart-pole swing-up: one `solver.solve`. problem, state: from
+    `reference_problems.cartpole_swingup_problem`; opts default
+    `cartpole_swingup_options()`. On CUDA tensors in float32 the backward
+    runs on riccati_latency.cu at (4, 1) (diagonal expansions). The oracle
+    reads x_N: |theta_N - pi| < 0.05, |x_N| < 0.1."""
+    opts = cartpole_swingup_options() if opts is None else opts
+    return run_single_solve(problem, state, opts, layer_seconds)
+
+
+def baseline_f32_options() -> SolverOptions:
+    """scripts/bench_all.py's `f32opts` (:47-50): 30 iterations, tolerances
+    1e-3, the default strong-Wolfe search."""
+    return SolverOptions(iterations_max=30, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+                         throw_errors=False)
+
+
+def double_integrator_goal_options() -> SolverOptions:
+    """`double_integrator_goal_N100`'s options (bench_all.py:117-118):
+    `f32opts` with penalty_scaling 100."""
+    return baseline_f32_options().replace(penalty_scaling=100.0)
+
+
+def run_double_integrator_goal(problem: Problem, state: SolverState,
+                               opts: Optional[SolverOptions] = None,
+                               layer_seconds: Optional[dict] = None) -> SingleSolveResult:
+    """`double_integrator_goal_N100`: one `solver.solve` of
+    `reference_problems.double_integrator_goal_problem` (on CUDA in
+    float32, riccati_latency.cu at (4, 2), dense expansions with lux: the
+    ZERO goal has no diagonal Hessian); opts default
+    `double_integrator_goal_options()`."""
+    opts = double_integrator_goal_options() if opts is None else opts
+    return run_single_solve(problem, state, opts, layer_seconds)
+
+
+def run_pendulum_bounded(problem: Problem, state: SolverState,
+                         opts: Optional[SolverOptions] = None,
+                         layer_seconds: Optional[dict] = None) -> SingleSolveResult:
+    """`pendulum_swingup_bounded`: one `solver.solve` of
+    `reference_problems.pendulum_bounded_problem` (on CUDA in float32,
+    riccati_latency.cu at (2, 1), dense expansions with lux); opts default
+    `baseline_f32_options()`, the row's (bench_all.py:141)."""
+    opts = baseline_f32_options() if opts is None else opts
+    return run_single_solve(problem, state, opts, layer_seconds)
+
+
+def bicycle_window_options() -> SolverOptions:
+    """`bicycle_scotty_window_N30`'s options (bench_all.py:183-206 at
+    N=30): `f32opts` with the sequential backtracking, cubic first, 25
+    trials, no grid (parallel_linesearch off, so the trial-rollout grid is
+    not run)."""
+    return baseline_f32_options().replace(
+        use_backtracking_linesearch=True, iterations_max=30, symmetrize_ctg=False,
+        parallel_linesearch=False, ls_phase_split=False, ls_try_cubic_first=True,
+        ls_armijo_only=False, ls_max_iters=25)
+
+
+def run_bicycle_window(problem: Problem, state: SolverState,
+                       opts: Optional[SolverOptions] = None,
+                       layer_seconds: Optional[dict] = None) -> SingleSolveResult:
+    """`bicycle_scotty_window_N30`: one `solver.solve` of the Scotty window
+    (`scotty_reference_problem(ref, N=30)`: the row's model, cost, steering
+    bound and warm start; on CUDA in float32 riccati_latency.cu at (4, 2),
+    dense expansions with lux); opts default `bicycle_window_options()`."""
+    opts = bicycle_window_options() if opts is None else opts
+    return run_single_solve(problem, state, opts, layer_seconds)

@@ -5,9 +5,9 @@ Counterpart: altro_tpu/ops/pallas_packed.py::riccati_backward_pallas_packed
 The TPU kernel packed each knot's operands into one (8, 128) tile and ran
 the N-knot chain as a sequential grid; csrc/riccati_latency.cu runs it in
 one thread block: three copy warps stage chunks of knots through shared
-memory (double-buffered) while the compute warps (one, or five at
-(12, 4)) compute each knot together, a thread per entry of the Q blocks
-and then of the new (P, p).
+memory (double-buffered) while the compute warps (one; two at (6, 3),
+five at (12, 4)) compute each knot together, a thread per entry of the Q
+blocks and then of the new (P, p).
 
 Contract, for ONE lane (unbatched, the JAX layout): A [N, n, n],
 B [N, n, m]; lxx [N+1, n, n] or diagonals [N+1, n]; luu [N, m, m] or
@@ -35,8 +35,9 @@ __all__ = ["LAUNCHES", "KERNEL_SHAPES", "riccati_latency_ref", "output_views", "
 LAUNCHES = 0
 
 # (n, m) pairs the CUDA kernel is instantiated for (csrc/riccati_latency.cu's
-# entry guard and dispatch).
-KERNEL_SHAPES = ((4, 2), (2, 1), (12, 4))
+# entry guard and dispatch): the bicycle and double integrator, the
+# pendulum, the quadrotor, the rocket and the cartpole.
+KERNEL_SHAPES = ((4, 2), (2, 1), (12, 4), (6, 3), (4, 1))
 
 
 def _lane(t):

@@ -70,13 +70,14 @@ DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): ("bicycle_midpoint", KERNE
                 (MODEL_QUADROTOR, INTEGRATOR_RK4): ("quadrotor_rk4", (0,))}
 
 
-def problem_ineligibility(problem) -> Optional[str]:
+def problem_ineligibility(problem, rows: bool = True) -> Optional[str]:
     """Why the single-lane solve cannot run this problem's grid through the
     trial rollout, or None when it can: it needs a block step, a diagonal
     cost, only affine NEGATIVE_ORTHANT groups (unconstrained problems
-    qualify) and a row count the kernel is instantiated for (KERNEL_P).
-    The JAX `rollout_constraints_eligible` with the solver's own checks
-    (altro_tpu/solver.py:924-930), as a reason."""
+    qualify) and, with `rows`, a row count the kernel is instantiated for
+    (KERNEL_P). The JAX `rollout_constraints_eligible` with the solver's
+    own checks (altro_tpu/solver.py:924-930), as a reason; rows=False
+    asks only what JAX asks (the plain version takes any row count)."""
     if problem.dynamics_tile is None:
         return "the problem has no block step (Problem.dynamics_tile)"
     if not isinstance(problem.cost, DiagonalCost):
@@ -85,9 +86,9 @@ def problem_ineligibility(problem) -> Optional[str]:
         if not (spec.affine and spec.cone is Cone.NEGATIVE_ORTHANT):
             return (f"constraint group {spec.label!r} is not an affine "
                     "NEGATIVE_ORTHANT group")
-    rows = sum(spec.dim for spec in problem.constraints)
-    if rows not in KERNEL_P:
-        return f"{rows} constraint rows (the kernel takes {KERNEL_P})"
+    count = sum(spec.dim for spec in problem.constraints)
+    if rows and count not in KERNEL_P:
+        return f"{count} constraint rows (the kernel takes {KERNEL_P})"
     return None
 
 

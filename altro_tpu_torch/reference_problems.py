@@ -11,6 +11,14 @@ double_integrator_test.cpp), tests/test_pendulum.py (`make_problem`,
 orthant row and touchdown equality the SOC rows of scripts/bench_all.py
 solve. The Scotty MPC problem is `mpc.scotty_reference_problem`.
 
+The single-lane rows of scripts/bench_all.py and the JAX package's
+cart-pole oracle have theirs here too: `cartpole_swingup_problem`
+(tests/test_models_extra.py::test_cartpole_swing_up),
+`double_integrator_goal_problem` (`double_integrator_goal_N100`,
+bench_all.py:100-118) and `pendulum_bounded_problem`
+(`pendulum_swingup_bounded`, :120-141); the row
+`bicycle_scotty_window_N30` solves `mpc.scotty_reference_problem`.
+
 Every function here makes its tensors on the card unless `device` says
 otherwise. Constraint functions broadcast over trailing batch dims
 (component-first, the port's convention).
@@ -18,12 +26,15 @@ otherwise. Constraint functions broadcast over trailing batch dims
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from altro_tpu_torch.cones import Cone
+from altro_tpu_torch.models.cartpole import cartpole_continuous
 from altro_tpu_torch.models.double_integrator import double_integrator_dynamics
-from altro_tpu_torch.models.integrators import midpoint
+from altro_tpu_torch.models.integrators import midpoint, rk4
 from altro_tpu_torch.models.pendulum import pendulum_continuous
 from altro_tpu_torch.models.rocket import GRAVITY, rocket_continuous
 from altro_tpu_torch.problem import (
@@ -32,6 +43,7 @@ from altro_tpu_torch.problem import (
     Problem,
     lqr_cost_from_reference,
 )
+from altro_tpu_torch.solver import init_state
 
 __all__ = [
     "DI_N",
@@ -42,6 +54,9 @@ __all__ = [
     "pendulum_problem",
     "pendulum_goal_constraint",
     "rocket_landing_problem",
+    "cartpole_swingup_problem",
+    "double_integrator_goal_problem",
+    "pendulum_bounded_problem",
 ]
 
 DI_N, DI_DIM, DI_H = 10, 2, 0.5  # tf = 5
@@ -170,3 +185,57 @@ def rocket_landing_problem(N: int = 60, tf: float = 6.0, *, theta_max_deg: float
                       constraints=constraints, cost=cost, h=torch.full((N,), h, **kw),
                       x0=torch.tensor([20.0, -10.0, 50.0, 1.0, 2.0, -8.0], **kw))
     return problem, hover
+
+
+def cartpole_swingup_problem(N: int = 100, *, dtype=torch.float32, device="cuda"):
+    """tests/test_models_extra.py::test_cartpole_swing_up: the cart-pole
+    (rk4, h = 0.05) from rest hanging down to xf = (0, pi, 0, 0), Q = 1e-2
+    (terminal (10, 400, 10, 10)), R = 1e-3, no constraints. Returns
+    (problem, state) with u = 0.2 at every knot."""
+    n, m = 4, 1
+    kw = dict(dtype=dtype, device=device)
+    xf = np.array([0.0, np.pi, 0.0, 0.0])
+    Qd = np.tile(np.full(n, 1e-2), (N + 1, 1))
+    Qd[N] = [10.0, 400.0, 10.0, 10.0]
+    cost = lqr_cost_from_reference(torch.as_tensor(Qd, **kw), torch.full((N + 1, m), 1e-3, **kw),
+                                   torch.as_tensor(np.tile(xf, (N + 1, 1)), **kw),
+                                   torch.zeros((N + 1, m), **kw))
+    problem = Problem(N=N, n=n, m=m, dynamics=rk4(cartpole_continuous()), dynamics_jac=None,
+                      constraints=(), cost=cost, h=torch.full((N,), 0.05, **kw),
+                      x0=torch.zeros(n, **kw))
+    st = init_state(problem)
+    return problem, dataclasses.replace(st, u=torch.full((N, m), 0.2, **kw))
+
+
+def double_integrator_goal_problem(N: int = 100, *, dtype=torch.float32, device="cuda"):
+    """`double_integrator_goal_N100` (bench_all.py:100-118): the 2D double
+    integrator, h = 0.05, from x0 = (1, 2, 0, 0) to the origin, Q = 1,
+    R = 1e-2, the goal x_N = 0 (ZERO cone, terminal knot). Returns
+    (problem, state), the state at init_state's zeros."""
+    n, m = 2 * DI_DIM, DI_DIM
+    kw = dict(dtype=dtype, device=device)
+    cost = lqr_cost_from_reference(torch.ones((N + 1, n), **kw),
+                                   torch.full((N + 1, m), 1e-2, **kw),
+                                   torch.zeros((N + 1, n), **kw), torch.zeros((N + 1, m), **kw))
+    xf = torch.zeros(n, **kw)
+    goal = ConstraintSpec(fn=lambda x, u, k: x - _column(xf, x), cone=Cone.ZERO, dim=n,
+                          active=_mask(N, device, terminal=True), label="goal")
+    problem = Problem(N=N, n=n, m=m, dynamics=double_integrator_dynamics(DI_DIM),
+                      dynamics_jac=None, constraints=(goal,), cost=cost,
+                      h=torch.full((N,), 0.05, **kw),
+                      x0=torch.tensor([1.0, 2.0, 0.0, 0.0], **kw))
+    return problem, init_state(problem)
+
+
+def pendulum_bounded_problem(N: int = 50, u_bound: float = 8.0, *, dtype=torch.float32,
+                             device="cuda"):
+    """`pendulum_swingup_bounded` (bench_all.py:120-141): the pendulum
+    swing-up of `pendulum_problem` (tf = 3, terminal Q = 1) with the torque
+    bound |u| <= u_bound as two NEGATIVE_ORTHANT rows on every stage knot.
+    Returns (problem, state) with u = 0.1 at every knot."""
+    torque = ConstraintSpec(fn=lambda x, u, k: torch.cat([u - u_bound, -u_bound - u]),
+                            cone=Cone.NEGATIVE_ORTHANT, dim=2,
+                            active=_mask(N, device, terminal=False), label="torque bound")
+    problem = pendulum_problem(N, 3.0, (torque,), dtype=dtype, device=device)
+    st = init_state(problem)
+    return problem, dataclasses.replace(st, u=torch.full_like(st.u, 0.1))

@@ -29,8 +29,9 @@ adaptive-regularization retry; then one of
     dynamics and AL cost;
   * the phase-split x-only grid (linesearch.
     parallel_backtracking_search_split) through the single-lane trial
-    rollout (ops/trial_rollout.py) when `pallas_rollout`, else through
-    the problem's own dynamics and AL cost;
+    rollout (ops/trial_rollout.py) when `pallas_rollout` and the problem
+    has what it needs (`_trial_grid`), else through the problem's own
+    dynamics and AL cost;
 and the status chain, the dual/penalty update and ls_failure_recovery.
 The JAX `lax.while_loop` becomes a Python loop with one host sync per
 iteration on `stop` (plus one per backward retry, per extra grid block
@@ -490,11 +491,24 @@ def _phase_split(opts: SolverOptions) -> bool:
     return opts.parallel_linesearch and opts.ls_phase_split
 
 
+def _trial_grid(problem: Problem, opts: SolverOptions) -> bool:
+    """True when the phase-split grid runs through the trial rollout: with
+    `pallas_rollout`, a block step, a diagonal cost and affine
+    NEGATIVE_ORTHANT groups, as JAX asks (altro_tpu/solver.py:770-790,
+    :924-930); else the problem's own grid, as JAX falls back to its scan
+    grid. A CUDA problem that would fall back is refused instead
+    (`single_lane_refusal`)."""
+    return (_phase_split(opts) and opts.pallas_rollout
+            and problem_ineligibility(problem, rows=False) is None)
+
+
 def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
     """Why `solve` does not run this configuration, or None: an option it
     does not implement, or, on a CUDA problem, a kernel that cannot take
     it (checked before anything launches; the plain paths are selected by
-    pallas_latency_backward=False and pallas_rollout=False)."""
+    pallas_latency_backward=False and pallas_rollout=False). A CPU problem
+    that the trial rollout cannot take runs the problem's own grid, as
+    JAX's solve does."""
     checks = (
         (opts.rti_mode, "rti_mode (the real-time iteration) is not ported for the "
                         "single-lane solve"),
@@ -508,7 +522,7 @@ def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
          "ls_grid_x_only=False (the light-payload grid) is not ported"),
     )
     why = next((why for bad, why in checks if bad), None)
-    if why is not None:
+    if why is not None or problem.device.type != "cuda":
         return why
     kernel_grid = _phase_split(opts) and opts.pallas_rollout
     if kernel_grid:
@@ -516,8 +530,6 @@ def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
         if grid_why is not None:
             return (f"pallas_rollout (the trial-rollout grid) cannot take this problem: "
                     f"{grid_why}; pallas_rollout=False selects the problem's own grid")
-    if problem.device.type != "cuda":
-        return None
     f32 = problem.dtype == torch.float32
     if opts.pallas_latency_backward:
         bad = []
@@ -551,10 +563,11 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
     On CUDA tensors the backward pass and the trial rollout run their
     kernels (float32) or the solve is refused before it starts
     (`single_lane_refusal`); on CPU tensors their plain versions run.
-    The phase-split grid with `pallas_rollout` needs a problem with a
-    block step, a diagonal cost and only affine NEGATIVE_ORTHANT groups on
-    every device (the JAX solve falls back to the plain grid instead; here
-    that is refused with its reason). `pallas_latency_backward=False` and
+    The phase-split grid with `pallas_rollout` runs the trial rollout on
+    a problem with a block step, a diagonal cost and only affine
+    NEGATIVE_ORTHANT groups; on the CPU any other problem runs its own
+    grid, as the JAX solve falls back to it, and on CUDA it is refused
+    with its reason. `pallas_latency_backward=False` and
     `pallas_rollout=False` select the plain paths on any device. The
     strong-Wolfe search and the non-split grid evaluate the merit through
     the problem's own dynamics and AL cost (`merit_function`), as JAX's do.
@@ -611,11 +624,10 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
     diag_mode = opts.diag_expansion and al.diag_expansion_eligible(problem)
     expand = _cost_expansions_and_cost_diag if diag_mode else _cost_expansions_and_cost
 
-    # the trial-rollout grid (single_lane_refusal checked that the problem
-    # has its block step, diagonal cost and affine NEGATIVE_ORTHANT groups;
-    # their rows are extracted once)
+    # the trial-rollout grid (a problem with its block step, diagonal cost
+    # and affine NEGATIVE_ORTHANT groups; their rows are extracted once)
     cost = problem.cost
-    kernel_grid = _phase_split(opts) and opts.pallas_rollout
+    kernel_grid = _trial_grid(problem, opts)
     rollout_con = None
     if kernel_grid and problem.constraints:
         ax, au, g_raw, act = affine_constraint_stacks(problem)

@@ -120,7 +120,6 @@ def supported_options(opts: SolverOptions) -> bool:
     return (
         ls_ok
         and not opts.parallel_riccati
-        and not opts.symmetrize_ctg
         and not opts.exact_al_hessian
         and opts.iteration_callback is None
     )
@@ -385,8 +384,9 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
                 return riccati_backward_ref(*ops, reg, lux=lux)
         else:
             def attempt(reg):
-                return riccati_backward(*ops, reg.contiguous(), lux=lux, diag_cost=diag,
-                                        symmetrize=opts.symmetrize_ctg)
+                # symmetrize_ctg is not passed: P is symmetric by construction,
+                # as JAX's tiled kernel accepts and ignores it
+                return riccati_backward(*ops, reg.contiguous(), lux=lux, diag_cost=diag)
 
         g, reg_used = ti.retry_tiled(opts, attempt, c["reg"], trace)
         bp_failed = ~g.ok

@@ -23,7 +23,11 @@ from altro_tpu_torch import tile_solver as tsv  # noqa: E402
 from altro_tpu_torch.io.scotty import load_scotty  # noqa: E402
 from altro_tpu_torch.parallel import batch  # noqa: E402
 from altro_tpu_torch.problem import Problem, lqr_cost_from_reference  # noqa: E402
-from altro_tpu_torch.reference_problems import rocket_landing_problem  # noqa: E402
+from altro_tpu_torch.options import SolverOptions  # noqa: E402
+from altro_tpu_torch.reference_problems import (  # noqa: E402
+    cartpole_swingup_problem,
+    rocket_landing_problem,
+)
 
 OPTS, OPTS_R = mpc.bench_options(iterations_max=3)
 
@@ -31,7 +35,8 @@ OPTS, OPTS_R = mpc.bench_options(iterations_max=3)
 def _linear_problem(dtype=torch.float32, N=4, n=2):
     """A chain of n integrators driven by one input, written here (no
     column-form step): n = 2 the pendulum's (2, 1), n = 4 the cartpole's
-    (4, 1), a shape the backward kernels still lack."""
+    (4, 1), a shape the batched backward kernels still lack (the
+    single-lane one has it), n = 3 a shape no backward kernel has."""
     kw = dict(dtype=dtype, device="cpu")
 
     def step(x, u, h, k):
@@ -214,6 +219,35 @@ def test_single_lane_refusal_on_the_card(name, kw, words):
         return
     for word in words:
         assert word in why, (word, why)
+
+
+# (problem, options, words the single-lane refusal names on the card); ()
+# means no refusal
+LATENCY_SHAPE_CASES = [
+    ("rocket_6x3", lambda: rocket_landing_problem(N=4, device="cpu")[0],
+     mpc.rocket_landing_options(), ()),
+    ("cartpole_4x1", lambda: cartpole_swingup_problem(N=4, device="cpu")[0],
+     mpc.cartpole_swingup_options(), ()),
+    ("linear_3x1", lambda: _linear_problem(n=3), SolverOptions(),
+     ("riccati_latency", "n=3, m=1", "pallas_latency_backward=False")),
+]
+
+
+@pytest.mark.parametrize("name, make, opts, words", LATENCY_SHAPE_CASES,
+                         ids=[c[0] for c in LATENCY_SHAPE_CASES])
+def test_single_lane_refusal_reads_the_latency_shapes(name, make, opts, words):
+    """The single-lane backward kernel takes the rocket's (6, 3) and the
+    cart-pole's (4, 1) under their rows' options; a shape it lacks is
+    refused on the card, naming the kernel and the plain backward, and
+    runs there with pallas_latency_backward=False."""
+    prob = dataclasses.replace(make(), x0=_OnCard())
+    why = solver.single_lane_refusal(prob, opts)
+    if not words:
+        assert why is None, why
+        return
+    for word in words:
+        assert word in why, (word, why)
+    assert solver.single_lane_refusal(prob, opts.replace(pallas_latency_backward=False)) is None
 
 
 def test_tiled_row_options_take_the_full_quadrotor():

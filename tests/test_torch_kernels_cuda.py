@@ -346,9 +346,10 @@ def test_riccati_latency_kernel_refuses_what_it_does_not_implement(dev):
         rl.riccati_latency(args[0].transpose(1, 2), *args[1:], 0.01)
     with pytest.raises(ValueError, match=r"reg has shape \(2,\), expected \(1,\)"):
         rl.riccati_latency(*args, torch.zeros(2, device=dev))
-    with pytest.raises(NotImplementedError, match="n=4, m=1"):
-        rl.riccati_latency(args[0], args[1][:, :, :1], args[2], args[3][:, :1], args[4],
-                           args[5][:, :1], 0.01)
+    c = lambda t: t.contiguous()  # noqa: E731
+    with pytest.raises(NotImplementedError, match="n=3, m=1"):
+        rl.riccati_latency(c(args[0][:, :3, :3]), c(args[1][:, :3, :1]), c(args[2][:, :3]),
+                           c(args[3][:, :1]), c(args[4][:, :3]), c(args[5][:, :1]), 0.01)
 
 
 def _trial_inputs(dev, Nk, W, P, frame, seed=3):
@@ -921,3 +922,75 @@ def test_refused_batched_tracking_launches_nothing(dev):
                         mpc.bench_options()[0])
     torch.cuda.synchronize()
     assert _kernel_launches() == before
+
+
+# ---------------------------------------------------------------------------
+# The single-lane models: riccati_latency.cu at the rocket's (6, 3) (two
+# compute warps) and the cart-pole's (4, 1), both paths on the card, and
+# `solve_tiled` with symmetrize_ctg
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("diag_x, diag_u, with_lux, with_f", LATENCY_VARIANTS)
+@pytest.mark.parametrize("Nk", [1, 31, 32, 33, 60, 64, 65, 100])
+@pytest.mark.parametrize("n, m", [(6, 3), (4, 1)])
+def test_riccati_latency_kernel_6x3_4x1_matches_plain(dev, n, m, diag_x, diag_u, with_lux,
+                                                      with_f, Nk):
+    """The (6, 3) instantiations (two compute warps meeting at the named
+    barrier, 32-knot chunks, shared memory opted in above 48 KB) and the
+    (4, 1) ones (one warp, 64-knot chunks): every (diag_x, diag_u, lux, f)
+    variant at the chunk edges and the paths' N (60, 100), with planted
+    failing knots."""
+    _check_latency(dev, Nk, diag_x, diag_u, with_lux, with_f, n, m)
+
+
+def test_single_lane_models_launch_the_latency_kernel(dev):
+    """The rocket landing (N=60) and 30 iterations of the cart-pole
+    swing-up on the card in f32: neither is refused, each launches the
+    latency kernel (the rocket's dense with lux, the cart-pole's
+    diagonal), and the rocket touches down."""
+    from altro_tpu_torch import mpc, solver
+    from altro_tpu_torch import reference_problems as rp
+    from altro_tpu_torch.ops import riccati_latency as rl
+
+    prob, hover = rp.rocket_landing_problem(N=60, device=dev)
+    assert solver.single_lane_refusal(prob, mpc.rocket_landing_options()) is None
+    before = rl.LAUNCHES
+    res = mpc.run_rocket_landing(prob, hover)
+    assert rl.LAUNCHES > before
+    m = mpc.rocket_metrics(res)
+    assert m["finite"] and m["r_N"] < 1e-4 and m["v_N"] < 1e-4, m
+
+    prob, st = rp.cartpole_swingup_problem(device=dev)
+    opts = mpc.cartpole_swingup_options(30)
+    assert solver.single_lane_refusal(prob, opts) is None
+    before = rl.LAUNCHES
+    res = mpc.run_cartpole_swingup(prob, st, opts)
+    assert rl.LAUNCHES >= before + 30 and res.metrics()["finite"]
+
+
+def test_solve_tiled_symmetrize_on_card_equals_plain_option(dev):
+    """`solve_tiled` with symmetrize_ctg=True on the card (the main path's
+    problem, 64 lanes, f32) launches the backward kernel and gives the
+    symmetrize_ctg=False run bit for bit."""
+    import dataclasses
+
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch import tile_solver as tsv
+    from altro_tpu_torch.io.scotty import load_scotty
+    from altro_tpu_torch.ops import riccati_backward as rb
+    from altro_tpu_torch.parallel.batch import batch_init_state
+
+    ref = load_scotty()
+    prob = mpc.scotty_problem(ref, N=12, device=dev)
+    x0 = mpc.perturbed_initial_states(ref, 64, seed=1, device=dev)
+    state = tsv.state_to_lanes(batch_init_state(prob, 64))
+    prob = dataclasses.replace(prob, x0=tsv.batch_to_lanes(x0))
+    opts = mpc.bench_options(iterations_max=4)[0]
+    out = []
+    for sym in (True, False):
+        before = rb.LAUNCHES
+        out.append(tsv.solve_tiled(prob, state, opts.replace(symmetrize_ctg=sym)))
+        assert rb.LAUNCHES > before
+    (sa, ta), (sb, tb) = out
+    assert torch.equal(ta.status, tb.status) and torch.equal(ta.iterations, tb.iterations)
+    assert torch.equal(sa.x, sb.x) and torch.equal(sa.u, sb.u)

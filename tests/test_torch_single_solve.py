@@ -16,7 +16,9 @@ agree.
 The options the solve refuses, each by name, and the three it ran
 only after the strong-Wolfe search, the non-split grid and dense
 expansions were ported (the sequential backtracking, the non-split grid,
-dense expansions), each against the JAX solve.
+dense expansions), each against the JAX solve. Problems the trial
+rollout cannot take: refused on the card, and on the CPU solved on the
+grid JAX falls back to, against the JAX solve.
 
 `linesearch.parallel_backtracking_search_split` against the JAX search
 on synthetic merits: one that first passes Armijo in block 2 (with and
@@ -70,16 +72,24 @@ STARTS = [("steering_bound", (0.0, 0.0, 0.3, 0.6), {}),
           ("steering_bound_wolfe_first", (0.0, 0.0, 0.3, 0.6), {"ls_armijo_only": False})]
 
 
-def _jax_solve(constrained, x0, opts):
+def _jax_solve(constrained, x0, opts, case=None):
+    """JAX's solve of the Scotty problem; `case` alters it as
+    test_solve_refuses_ineligible_trial_grid does."""
     steering = JSpec(fn=lambda x, u, k: jnp.stack([x[3] - DM, -DM - x[3]]),
                      cone=JCone.NEGATIVE_ORTHANT, dim=2, active=jnp.ones(N + 1, bool),
                      diag_hessian=True, affine=True)
+    groups = (steering,) if constrained else ()
+    if case == "non_affine_group":
+        groups = (dataclasses.replace(steering, affine=False),)
+    elif case == "four_rows":
+        groups = (steering, steering)
     prob = JProblem(
         N=N, n=n, m=m, dynamics=jmidpoint(jbicycle()), dynamics_jac=None,
-        constraints=(steering,) if constrained else (),
+        constraints=groups,
         cost=jlqr(jnp.full((N + 1, n), 1e-2), jnp.full((N + 1, m), 1e-3),
                   jnp.asarray(REF.x[: N + 1]), jnp.asarray(REF.u[: N + 1])),
-        h=jnp.full(N, H), x0=jnp.asarray(x0), dynamics_tile=jmidpoint_tile(jbicycle_tile()))
+        h=jnp.full(N, H), x0=jnp.asarray(x0),
+        dynamics_tile=None if case == "no_block_step" else jmidpoint_tile(jbicycle_tile()))
     st = dataclasses.replace(jinit(prob),
                              u=jnp.tile(jnp.asarray([REF.u[0][0], 0.0]), (N, 1)),
                              x=jnp.asarray(REF.x[: N + 1]))
@@ -162,16 +172,30 @@ def test_solve_runs_formerly_refused_options(kw):
     np.testing.assert_allclose(state.u.numpy(), np.asarray(j_state.u), rtol=0, atol=1e-8)
 
 
+class _OnCard:
+    """Stands in for an x0 on a CUDA device: anything past the refusal
+    that touched it would fail with another error."""
+
+    is_cuda = True
+    dtype = torch.float32
+    device = torch.device("cuda", 0)  # a name only: nothing is allocated there
+
+
 @pytest.mark.parametrize("case,word", [("no_block_step", "no block step"),
                                        ("non_affine_group", "steering bound.*not an affine"),
                                        ("four_rows", r"4 constraint rows \(the kernel takes")])
 def test_solve_refuses_ineligible_trial_grid(case, word):
-    """pallas_rollout needs the block step, affine NEGATIVE_ORTHANT groups
-    and a row count the trial-rollout kernel is instantiated for, on every
-    device: `single_lane_refusal` names what is missing before the solve
-    starts, and pallas_rollout=False runs the problem's own grid instead."""
+    """pallas_rollout on a problem without the block step, with a
+    non-affine group or with a row count the trial-rollout kernel lacks:
+    on the card `single_lane_refusal` names what is missing before the
+    solve starts; on the CPU the solve runs the grid JAX's solve runs
+    (its scan grid without the block step or with a non-affine group, the
+    trial rollout's plain version with four rows) and equals it: status,
+    iterations and ls_iterations, x and u to 1e-8."""
     ref = load_scotty()
-    prob = mpc.scotty_problem(ref, N=6, dtype=torch.float64, device="cpu")
+    x0 = REF.x[0] + np.asarray(STARTS[0][1])
+    prob = dataclasses.replace(mpc.scotty_problem(ref, N=N, dtype=torch.float64, device="cpu"),
+                               x0=torch.as_tensor(x0))
     steering = prob.constraints[0]
     if case == "no_block_step":
         prob = dataclasses.replace(prob, dynamics_tile=None)
@@ -182,12 +206,21 @@ def test_solve_refuses_ineligible_trial_grid(case, word):
         prob = dataclasses.replace(
             prob, constraints=(steering, dataclasses.replace(steering, label="again")))
     st = mpc.long_horizon_state(prob, ref)
-    opts = T_OPTS.replace(iterations_max=2)
-    assert re.search("pallas_rollout.*" + word, solver.single_lane_refusal(prob, opts))
+    on_card = dataclasses.replace(prob, x0=_OnCard())
+    assert re.search("pallas_rollout.*" + word, solver.single_lane_refusal(on_card, T_OPTS))
     with pytest.raises(NotImplementedError, match="pallas_rollout.*" + word):
-        solver.solve(prob, st, opts)
-    _, stats = solver.solve(prob, st, opts.replace(pallas_rollout=False))
-    assert int(stats.iterations) >= 1 and np.isfinite(float(stats.objective_value))
+        solver.solve(on_card, st, T_OPTS)
+    assert solver.single_lane_refusal(on_card, T_OPTS.replace(pallas_rollout=False)) is None
+
+    assert solver.single_lane_refusal(prob, T_OPTS) is None
+    j_state, j_stats = _jax_solve(True, x0, T_OPTS, case)
+    before = (rl.LAUNCHES, tr.LAUNCHES)
+    state, stats = solver.solve(prob, st, T_OPTS)
+    assert (rl.LAUNCHES, tr.LAUNCHES) == before  # CPU: plain versions only
+    for k in ("status", "iterations", "ls_iterations", "bp_fail_index"):
+        assert int(getattr(stats, k)) == int(getattr(j_stats, k)), k
+    np.testing.assert_allclose(state.x.numpy(), np.asarray(j_state.x), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(state.u.numpy(), np.asarray(j_state.u), rtol=0, atol=1e-8)
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,7 @@
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --quadrotor [--lanes B]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --pendulum --rocket [--lanes B]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --batched-tracking [--lanes B]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --single-lane-rows
 
 Runs altro_tpu (the reference package, not the port) in float32 on the
 CPU: the three double integrator oracles of
@@ -49,6 +50,20 @@ prints each run's success rate, mean iterations and mean final tracking
 error; then each search's first 5 ticks in f32 against the same ticks in
 f64 (the largest plant-state difference, status agreement): what
 chip_smoke.py's `batched_tracking` gates rest on.
+
+With --single-lane-rows it runs the single-lane solves of the port's
+`single_lane_models` phase in float32, each one `solve` from its cold
+start with its own options: the rocket landing of
+examples/rocket_landing.py (N=60, tolerance 1e-3; status, iterations,
+|r_N|, |v_N|, the largest thrust-ball and pointing ratios, the largest
+cone excess), the cart-pole swing-up of tests/test_models_extra.py (300
+iterations; theta_N and x_N; and its first 30 iterations in float32
+against the same in float64, the largest state difference) and the
+single-lane rows of scripts/bench_all.py with its `f32opts`
+(`double_integrator_goal_N100`, `pendulum_swingup_bounded`,
+`bicycle_scotty_window_N30`; status, iterations, objective, feasibility,
+x_N), each beside the same solve in float64: what chip_smoke.py's gates
+of those solves rest on.
 """
 
 from __future__ import annotations
@@ -438,6 +453,132 @@ def batched_tracking_rows(lanes, ref_ticks=5):
               flush=True)
 
 
+def _single_lane_problems(dt):
+    """The five single-lane solves in dtype dt: name -> (problem, state,
+    options)."""
+    import sys
+
+    from altro_tpu.models.cartpole import cartpole_continuous
+    from altro_tpu.models.integrators import rk4
+    from altro_tpu.models.pendulum import pendulum_continuous
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    from rocket_landing import build_problem
+
+    f32opts = SolverOptions(iterations_max=30, tol_stationarity=1e-3,
+                            tol_primal_feasibility=1e-3, throw_errors=False)
+    out = {}
+    tol = 1e-3 if dt == F32 else 1e-4
+    problem, hover = build_problem(dtype=dt)
+    out["rocket_landing"] = (problem, dataclasses.replace(
+        init_state(problem), u=jnp.tile(hover, (problem.N, 1))), SolverOptions(
+        iterations_max=120, penalty_initial=10.0, penalty_scaling=10.0, tol_stationarity=tol,
+        tol_primal_feasibility=tol, tol_stationarity_rel=1e-5,
+        use_backtracking_linesearch=True, throw_errors=False))
+
+    N, n = 100, 4
+    Qd = np.tile(np.full(n, 1e-2), (N + 1, 1))
+    Qd[N] = [10.0, 400.0, 10.0, 10.0]
+    cost = lqr_cost_from_reference(
+        jnp.asarray(Qd, dt), jnp.full((N + 1, 1), 1e-3, dt),
+        jnp.asarray(np.tile([0.0, np.pi, 0.0, 0.0], (N + 1, 1)), dt), jnp.zeros((N + 1, 1), dt))
+    problem = Problem(N=N, n=n, m=1, dynamics=rk4(cartpole_continuous()), dynamics_jac=None,
+                      constraints=(), cost=cost, h=jnp.full(N, 0.05, dt), x0=jnp.zeros(n, dt))
+    out["cartpole_swingup"] = (problem, dataclasses.replace(
+        init_state(problem), u=jnp.full((N, 1), 0.2, dt)),
+        SolverOptions(iterations_max=300, use_backtracking_linesearch=True))
+
+    N = 100
+    goal = ConstraintSpec(fn=lambda x, u, k: x, cone=Cone.ZERO, dim=4,
+                          active=jnp.zeros(N + 1, bool).at[N].set(True), label="goal")
+    problem = Problem(
+        N=N, n=4, m=2, dynamics=double_integrator_dynamics(2), dynamics_jac=None,
+        constraints=(goal,), cost=lqr_cost_from_reference(
+            jnp.ones((N + 1, 4), dt), jnp.full((N + 1, 2), 1e-2, dt),
+            jnp.zeros((N + 1, 4), dt), jnp.zeros((N + 1, 2), dt)),
+        h=jnp.full(N, 0.05, dt), x0=jnp.asarray([1.0, 2.0, 0.0, 0.0], dt))
+    out["double_integrator_goal_N100"] = (problem, init_state(problem),
+                                          dataclasses.replace(f32opts, penalty_scaling=100.0))
+
+    N = 50
+    Qd = np.concatenate([np.full((N, 2), 1e-2), np.full((1, 2), 1.0)])
+    torque = ConstraintSpec(fn=lambda x, u, k: jnp.concatenate([u - 8.0, -8.0 - u]),
+                            cone=Cone.NEGATIVE_ORTHANT, dim=2,
+                            active=jnp.ones(N + 1, bool).at[N].set(False), label="torque bound")
+    problem = Problem(
+        N=N, n=2, m=1, dynamics=midpoint(pendulum_continuous()), dynamics_jac=None,
+        constraints=(torque,), cost=lqr_cost_from_reference(
+            jnp.asarray(Qd, dt), jnp.full((N + 1, 1), 1e-3, dt),
+            jnp.asarray(np.tile([np.pi, 0.0], (N + 1, 1)), dt), jnp.zeros((N + 1, 1), dt)),
+        h=jnp.full(N, np.float32(3.0 / N), dt), x0=jnp.zeros(2, dt))
+    st = init_state(problem)
+    out["pendulum_swingup_bounded"] = (problem, dataclasses.replace(
+        st, u=jnp.full_like(st.u, 0.1)), f32opts)
+
+    ref = load_scotty()
+    N = 30
+    dm = float(np.deg2rad(60.0))
+    steering = ConstraintSpec(fn=lambda x, u, k: jnp.stack([x[3] - dm, -dm - x[3]]),
+                              cone=Cone.NEGATIVE_ORTHANT, dim=2, active=jnp.ones(N + 1, bool),
+                              label="steering")
+    problem = Problem(
+        N=N, n=4, m=2, dynamics=midpoint(bicycle_continuous()), dynamics_jac=None,
+        constraints=(steering,), cost=lqr_cost_from_reference(
+            jnp.full((N + 1, 4), 1e-2, dt), jnp.full((N + 1, 2), 1e-3, dt),
+            jnp.asarray(ref.x[: N + 1], dt), jnp.asarray(ref.u[: N + 1], dt)),
+        h=jnp.full(N, float(np.float32(ref.tf / ref.N)), dt), x0=jnp.asarray(ref.x[0], dt))
+    st = dataclasses.replace(init_state(problem),
+                             u=jnp.tile(jnp.asarray([ref.u[0][0], 0.0], dt), (N, 1)),
+                             x=jnp.asarray(ref.x[: N + 1], dt))
+    out["bicycle_scotty_window_N30"] = (problem, st, dataclasses.replace(
+        f32opts, use_backtracking_linesearch=True, ls_try_cubic_first=True, ls_max_iters=25))
+    return out
+
+
+def single_lane_rows(cartpole_ref_iterations=30):
+    """The single-lane solves in float32, each beside float64 (see the
+    module docstring)."""
+    jax.config.update("jax_enable_x64", True)  # the f64 runs; every f32 array is typed
+    runs = {dt: _single_lane_problems(dt) for dt in (F32, jnp.float64)}
+    tan_th, tan_ga = np.tan(np.deg2rad(25.0)), np.tan(np.deg2rad(45.0))
+    for name in runs[F32]:
+        row = {"row": name}
+        for dt, tag in ((F32, "f32"), (jnp.float64, "f64")):
+            problem, state, opts = runs[dt][name]
+            t0 = time.perf_counter()
+            st, stats = jax.block_until_ready(jax.jit(lambda s: solve(problem, s, opts))(state))
+            x, u = np.asarray(st.x, np.float64), np.asarray(st.u, np.float64)
+            r = {"status": int(stats.status), "iterations": int(stats.iterations),
+                 "objective": float(stats.objective_value),
+                 "primal_feasibility": float(stats.primal_feasibility),
+                 "stationarity": float(stats.stationarity), "x_N": x[-1].tolist(),
+                 "finite": bool(np.isfinite(x).all() and np.isfinite(u).all()),
+                 "cpu_seconds_with_compile": time.perf_counter() - t0}
+            if name == "rocket_landing":
+                uxy = np.linalg.norm(u[:, :2], axis=1)
+                excess = np.concatenate([uxy - tan_th * u[:, 2],
+                                         np.linalg.norm(u, axis=1) - 20.0, 2.0 - u[:, 2],
+                                         np.linalg.norm(x[:, :2], axis=1) - tan_ga * x[:, 2]])
+                r.update(r_N=float(np.linalg.norm(x[-1, :3])),
+                         v_N=float(np.linalg.norm(x[-1, 3:])),
+                         max_thrust_ratio=float((np.linalg.norm(u, axis=1) / 20.0).max()),
+                         max_pointing_ratio=float((uxy / (tan_th * u[:, 2])).max()),
+                         max_cone_excess=float(excess.max()))
+            if name == "cartpole_swingup":
+                r.update(theta_N_err=float(abs(x[-1, 1] - np.pi)), x_N_abs=float(abs(x[-1, 0])))
+            row[tag] = r
+        if name == "cartpole_swingup":
+            xs = []
+            for dt in (F32, jnp.float64):
+                problem, state, opts = runs[dt][name]
+                cut = dataclasses.replace(opts, iterations_max=cartpole_ref_iterations)
+                st, _ = jax.jit(lambda s: solve(problem, s, cut))(state)
+                xs.append(np.asarray(st.x, np.float64))
+            row["first_iterations"] = cartpole_ref_iterations
+            row["max_abs_dx_f32_vs_f64_first_iterations"] = float(np.abs(xs[0] - xs[1]).max())
+        print(json.dumps(row), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tol-stationarity", type=float, default=1e-4)
@@ -448,6 +589,8 @@ def main():
     ap.add_argument("--rocket", action="store_true", help="run the rocket landing row")
     ap.add_argument("--batched-tracking", action="store_true",
                     help="run examples/batched_mpc.py's loop under three searches")
+    ap.add_argument("--single-lane-rows", action="store_true",
+                    help="run the rocket, the cart-pole and the single-lane BASELINE rows")
     ap.add_argument("--lanes", type=int, default=1024,
                     help="lanes of the batched rows (the tiled quadrotor row: a multiple "
                          "of 1024)")
@@ -460,7 +603,10 @@ def main():
         rocket_row(args.lanes)
     if args.batched_tracking:
         batched_tracking_rows(args.lanes)
-    if args.quadrotor or args.pendulum or args.rocket or args.batched_tracking:
+    if args.single_lane_rows:
+        single_lane_rows()
+    if (args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
+            or args.single_lane_rows):
         return
     tol = args.tol_stationarity
     for case, x0, kinds, kw in (
