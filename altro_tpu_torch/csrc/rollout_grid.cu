@@ -38,16 +38,12 @@
 //
 // The dynamics are a step of csrc/device_steps.cuh: BicycleFrame<FRAME>,
 // the twin of models/tile_steps.py::midpoint_cols(bicycle_cols(frame,
-// length, rear)) (P = 0 or 2), and QuadrotorRK4, the twin of
-// rk4_cols(quadrotor_cols(...)) (P = 0). The quadrotor's lane data is 68
-// floats a knot (K 48, d 4, x_ref 12, u_ref 4): two 8-knot chunks take
-// 71,808 bytes, above the 48 KB default, so its launch opts in. Its
-// thread keeps x, the RK4 stage and the stage sum (36 floats) live
-// through the step; at B=1024, W=8 it runs 64 blocks of 128 threads.
-// PendulumMidpoint, the twin of midpoint_cols(pendulum_cols(...)) (P = 0
-// or 2), has the smallest chunks (8 floats a lane and knot at P = 2, 9,344
-// bytes for the two); its torque bound's two rows lie on u (wau), not on
-// x as the bicycle's steering rows do.
+// length, rear)) (P = 0 or 2), and PendulumMidpoint, the twin of
+// midpoint_cols(pendulum_cols(...)) (P = 0 or 2), with the smallest chunks
+// (8 floats a lane and knot at P = 2, 9,344 bytes for the two); its torque
+// bound's two rows lie on u (wau), not on x as the bicycle's steering rows
+// do. The quadrotor's RK4 step (QuadrotorAxisRK4, P = 0) runs in a kernel
+// of its own, three threads a (lane, trial) (its note below).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -59,7 +55,6 @@ namespace {
 using altro_dev::BicycleFrame;
 using altro_dev::neg_part;
 using altro_dev::PendulumMidpoint;
-using altro_dev::QuadrotorRK4;
 
 constexpr int LANES = 16;       // lanes per block (threadIdx.x)
 constexpr int MAX_TRIALS = 8;   // trials per block (threadIdx.y)
@@ -261,6 +256,241 @@ __global__ void __launch_bounds__(LANES * MAX_TRIALS) rollout_grid_kernel(const 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The quadrotor's RK4 column step (rk4_cols(quadrotor_cols())), P = 0:
+// three threads a (lane, trial).
+//
+// What bounds it on this card: the chain, as for the bicycle, but four
+// times longer a knot: an RK4 step is four evaluations of the model (a
+// sine-cosine pair of each angle, an IEEE divide by cos(pitch) on the path)
+// behind the policy, about 85 dependent instructions a knot, and one thread
+// that runs the whole knot issues about a thousand. The grid moves about
+// 21 MB at B=1024, W=8, N=30 (6 us at 3.35 TB/s, the state stacks most of
+// it). The one-thread design ran 256 warps, one a scheduler on 64 SMs,
+// each waiting on its own chain.
+//
+// What the design does about it: a group of G = 3 threads runs a (lane,
+// trial), one body axis each (QuadrotorAxisRK4 and `axis_policy` of
+// csrc/device_steps.cuh: a third of the sines, cosines, divides, stage
+// updates and policy columns, the group's other values by shuffle), so a
+// thread makes a third of the model's library calls and two warps share a
+// scheduler. A warp is ten lanes b of one trial (threads 30, 31 mirror
+// the tenth), a block TRIALS = 8 such warps: B=1024, W=8 runs 103 blocks
+// of 256 threads, 824 warps. That leaves 29 SMs idle, but with 824 warps
+// for 528 schedulers the busiest scheduler runs two warps at any block
+// size, and a block of all eight trials stages each lane's operands once:
+// on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --compare against
+// the variant tree) this geometry beat four trial warps a block (206
+// blocks, every SM) by 8% and five lanes of two trials a warp (205 blocks)
+// by 7%. At every knot the group adds its three
+// shares of the cost's sums Q.x.x and q.x (three shuffles each), and each
+// thread adds the knot's terms to phi in the one-thread design's order:
+// the expanded cost 0.5 x'Qx - wp'Qx + c cancels within a knot, so summing
+// each axis's share over the knots first would leave terms of hundreds to
+// cancel at the end, and their rounding reaches the Armijo test's margin
+// (it took the tiled quadrotor row's success from 0.998 to 0.974). Each thread
+// stores its four entries of x at every knot, ten neighbouring b a store.
+// The block stages its lanes' operands in chunks of QCHUNK knots with
+// cp.async (double-buffered): K's columns and x_ref permuted by axis (one
+// axis's 20 floats of a lane contiguous, the axis blocks padded so that a
+// quarter warp's float4 loads share no bank), u_ref and d, and the
+// lane-shared rows, each thread a few fixed positions of a knot walked
+// down the chunk (an address's 64-bit products once a position and chunk,
+// not once a float); each thread reads the next knot's policy operands
+// into registers a knot ahead. 49,664 bytes of dynamic shared memory (opted in above 48 KB).
+
+namespace quad {
+
+using altro_dev::AxisPolicy;
+using altro_dev::QuadrotorAxisRK4;
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int S = QuadrotorAxisRK4::NS, I = QuadrotorAxisRK4::NI, G = QuadrotorAxisRK4::G;
+constexpr int GROUPS = 10;  // lanes b a warp, three threads each
+constexpr int TRIALS = 8;   // warps a block, one trial each
+constexpr int QCHUNK = 8;   // knots per staged chunk
+constexpr int AXW = 20;     // one axis's policy operands a knot and lane: Kc (16), x_ref (4)
+constexpr int AXS = 220;    // an axis's [GROUPS][AXW] block, 200 floats padded: AXS / 4 = 7 mod 8
+// One knot's floats: the three axis blocks, [GROUPS][8] (u_ref, d), then
+// the lane-shared row: [3][8] (Q and q at the axis's entries), R, r, c, h.
+constexpr int UD = 3 * AXS;
+constexpr int ROW = UD + GROUPS * 8;
+constexpr int RR = 24, RRL = RR + I, RC = RRL + I, RH = RC + 1, ROW_FLOATS = RH + 1;
+constexpr int KNOT = ROW + 36;
+constexpr int BUF = QCHUNK * KNOT;
+static_assert(AXS % 4 == 0 && UD % 4 == 0 && ROW % 4 == 0 && KNOT % 4 == 0 &&
+              ROW_FLOATS <= 36, "16-byte aligned arrays");
+
+// Positions of one knot's staged floats: the axis blocks (ax, f, g), u_ref
+// and d (f, g), then the lane-shared row.
+constexpr int LANE_POS = 3 * AXW * GROUPS;
+constexpr int UD_POS = 8 * GROUPS;
+constexpr int POS = LANE_POS + UD_POS + ROW_FLOATS;
+
+// Copy chunk ch (knots ch * QCHUNK ...) of the block's lanes b0 ..
+// b0 + GROUPS - 1 into buf with cp.async, one float a copy: thread t takes
+// positions t, t + nt, ... of a knot, finds each one's source once and
+// walks it down the chunk's knots; neighbouring threads take neighbouring
+// lanes (lanes past B copy lane B - 1).
+__device__ __forceinline__ void stage(float* buf, const Ops& o, int ch, int b0, int t, int nt) {
+  const long B = o.Bsz;
+  const int N = o.N, k0 = ch * QCHUNK;
+  const int kn = min(QCHUNK, N - k0);      // knots with a policy
+  const int kr = min(QCHUNK, N + 1 - k0);  // knots with rows (the terminal one too)
+  for (int p = t; p < POS; p += nt) {
+    const float* src;  // the float at knot k0
+    long step;         // floats a knot in the source
+    int dst, count;
+    if (p < LANE_POS) {
+      const int g = p % GROUPS, r = p / GROUPS, f = r % AXW, ax = r / AXW;
+      const long bl = min(b0 + g, o.Bsz - 1);
+      if (f < 16) {
+        src = o.K + ((long)k0 * I * S + (f / 4) * S + ax + 3 * (f % 4)) * B + bl;
+        step = I * S * B;
+      } else {
+        src = o.xref + ((long)k0 * S + ax + 3 * (f - 16)) * B + bl;
+        step = S * B;
+      }
+      dst = ax * AXS + g * AXW + f;
+      count = kn;
+    } else if (p < LANE_POS + UD_POS) {
+      const int g = (p - LANE_POS) % GROUPS, f = (p - LANE_POS) / GROUPS;
+      const long bl = min(b0 + g, o.Bsz - 1);
+      src = (f < I ? o.uref + ((long)k0 * I + f) * B : o.d + ((long)k0 * I + f - I) * B) + bl;
+      step = I * B;
+      dst = UD + g * 8 + f;
+      count = kn;
+    } else {
+      const int f = p - LANE_POS - UD_POS;
+      if (f < RR) {
+        src = (f % 8 < 4 ? o.Q : o.q) + (long)k0 * S + f / 8 + 3 * (f % 4);
+        step = S;
+      } else if (f < RC) {
+        src = f < RRL ? o.R + (long)k0 * I + f - RR : o.r + (long)k0 * I + f - RRL;
+        step = I;
+      } else {
+        src = (f == RC ? o.c : o.h) + k0;
+        step = 1;
+      }
+      dst = ROW + f;
+      count = f == RH ? kn : kr;  // h has no terminal entry
+    }
+    for (int kk = 0; kk < count; ++kk, src += step)
+      __pipeline_memcpy_async(buf + kk * KNOT + dst, src, sizeof(float));
+  }
+}
+
+__device__ __forceinline__ AxisPolicy load_policy(const float* buf, int kk, int g, int ax) {
+  const float* knot = buf + kk * KNOT;
+  const float4* kx = reinterpret_cast<const float4*>(knot + ax * AXS + g * AXW);
+  const float4* ud = reinterpret_cast<const float4*>(knot + UD + g * 8);
+  AxisPolicy o;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) o.Kc[q] = kx[q];
+  o.xr = kx[4];
+  o.ur = ud[0];
+  o.d = ud[1];
+  o.h = knot[ROW + RH];
+  o.h6 = o.h / 6.0f;
+  return o;
+}
+
+__global__ void __launch_bounds__(32 * TRIALS)
+    rollout_grid_quadrotor_kernel(const Ops o, const QuadrotorAxisRK4 model) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, lane = tid % 32, nt = blockDim.x;
+  const int g = min(lane / G, GROUPS - 1), ax = lane % G, base = G * g;
+  const int N = o.N;
+  const long B = o.Bsz;
+  const int b0 = blockIdx.x * GROUPS, b = b0 + g;
+  const int w = blockIdx.y * (nt / 32) + tid / 32;
+  const bool valid = b < o.Bsz && w < o.W && lane < G * GROUPS;
+  const long bl = min(b, o.Bsz - 1);  // lanes past B and trials past W compute copies
+  const float alpha = o.alphas[min(w, o.W - 1)];
+  const QuadrotorAxisRK4::Axis axis = model.axis(ax, base);
+  float* const xs = o.xstack + (long)min(w, o.W - 1) * (N + 1) * S * B + b;
+
+  float s[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) s[c] = o.x0[(ax + 3 * c) * B + bl];
+  QuadrotorAxisRK4::Trig tr = QuadrotorAxisRK4::trig(s[1]);
+  float phi = 0.0f;
+
+  const int nchunks = (N + QCHUNK) / QCHUNK;  // knots 0..N
+  stage(smem, o, 0, b0, tid, nt);
+  __pipeline_commit();
+  for (int ch = 0; ch < nchunks; ++ch) {
+    // the buffers by offset, not from an array of pointers, so that the
+    // loads stay shared-memory loads
+    if (ch + 1 < nchunks) stage(smem + ((ch + 1) & 1) * BUF, o, ch + 1, b0, tid, nt);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
+    __syncthreads();  // chunk ch is in place
+
+    const float* buf = smem + (ch & 1) * BUF;
+    const int k0 = ch * QCHUNK, kend = min(QCHUNK, N + 1 - k0);
+    AxisPolicy cur;
+    if (k0 < N) cur = load_policy(buf, 0, g, ax);
+    for (int kk = 0; kk < kend; ++kk) {
+      const int k = k0 + kk;
+      const float* row = buf + kk * KNOT + ROW;
+      const float4 Qv = reinterpret_cast<const float4*>(row)[2 * ax];
+      const float4 qv = reinterpret_cast<const float4*>(row)[2 * ax + 1];
+      const float Qa[4] = {Qv.x, Qv.y, Qv.z, Qv.w}, qa[4] = {qv.x, qv.y, qv.z, qv.w};
+      float sqa = 0.0f, sla = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sqa += Qa[c] * s[c] * s[c];
+        sla += qa[c] * s[c];
+      }
+      // the knot's whole sums, in every lane of the group: the merit then
+      // adds a knot's terms as the one-thread design did, so the expanded
+      // cost's large terms cancel within the knot
+      const float sq = (__shfl_sync(FULL, sqa, base) + __shfl_sync(FULL, sqa, base + 1)) +
+                       __shfl_sync(FULL, sqa, base + 2);
+      const float sl = (__shfl_sync(FULL, sla, base) + __shfl_sync(FULL, sla, base + 1)) +
+                       __shfl_sync(FULL, sla, base + 2);
+      if (valid) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) xs[((long)k * S + ax + 3 * c) * B] = s[c];
+      }
+      if (k < N) {
+        float u[I];
+        altro_dev::axis_policy(cur, s, alpha, base, u);
+        float su = 0.0f, sr = 0.0f;
+#pragma unroll
+        for (int q = 0; q < I; ++q) {
+          su += row[RR + q] * u[q] * u[q];
+          sr += row[RRL + q] * u[q];
+        }
+        phi = phi + 0.5f * sq + sl + 0.5f * su + sr + row[RC];
+        const float h = cur.h, h6 = cur.h6;
+        if (kk + 1 < kend && k + 1 < N) cur = load_policy(buf, kk + 1, g, ax);
+        model.step(s, tr, u, h, h6, axis);
+      } else {  // terminal knot: the state-only cost
+        phi = phi + 0.5f * sq + sl + row[RC];
+      }
+    }
+    __syncthreads();  // before this buffer takes chunk ch + 2
+  }
+  if (valid && ax == 0) o.phi[(long)w * B + b] = phi;
+}
+
+int launch(const Ops& o, const QuadrotorAxisRK4& model, cudaStream_t s) {
+  const int trials = o.W < TRIALS ? o.W : TRIALS;
+  const dim3 grid((o.Bsz + GROUPS - 1) / GROUPS, (o.W + trials - 1) / trials);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const size_t bytes = 2 * (size_t)BUF * sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(
+      rollout_grid_quadrotor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  rollout_grid_quadrotor_kernel<<<grid, 32 * trials, bytes, s>>>(o, model);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace quad
+
 template <class Model, int P>
 int launch(const Ops& o, const Model& model, cudaStream_t s) {
   auto kern = rollout_grid_kernel<Model, P>;
@@ -268,7 +498,7 @@ int launch(const Ops& o, const Model& model, cudaStream_t s) {
   const dim3 block(LANES, trials);
   const dim3 grid((o.Bsz + LANES - 1) / LANES, (o.W + trials - 1) / trials);
   const size_t bytes = 2 * (size_t)Chunk<Model::NS, Model::NI, P>::BUF * sizeof(float);
-  if (bytes > 48 * 1024) {  // the quadrotor's two chunks (71,808 bytes) opt in
+  if (bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
@@ -308,9 +538,9 @@ extern "C" int rollout_grid_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (model == 1 && integrator == 1) {
     if (P != 0) return (int)cudaErrorInvalidValue;
-    const QuadrotorRK4 m{params[0], params[1], params[2], params[3],
-                         params[4], params[5], params[6], params[7]};
-    return launch<QuadrotorRK4, 0>(o, m, s);
+    const altro_dev::QuadrotorAxisRK4 m{params[0], params[1], params[2], params[3],
+                                        params[4], params[5], params[6], params[7]};
+    return quad::launch(o, m, s);
   }
   if (model == 2 && integrator == 0)
     return launch_p(o, PendulumMidpoint{params[0], params[1], params[2], params[3]}, P, s);

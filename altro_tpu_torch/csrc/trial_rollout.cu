@@ -52,7 +52,9 @@
 // The dynamics are a __device__ step from csrc/device_steps.cuh, the twin
 // of models/tile_steps.py::midpoint_tile(bicycle_tile(frame, length,
 // rear)). The quadrotor's RK4 step (rk4_tile(quadrotor_tile())) runs in a
-// second, plain kernel at the end of this file: one thread a trial. The merit follows ops/trial_rollout.py::trial_rollout_ref term
+// second kernel at the end of this file, on the same pipeline with three
+// lanes a trial (its own note there). The merit follows
+// ops/trial_rollout.py::trial_rollout_ref term
 // for term: phi += 0.5 Q.x.x + q.x + 0.5 R.u.u + r.u + c, then
 // + rhoi * sum_e min(w_e, 0)^2.
 
@@ -378,121 +380,258 @@ int launch_p(const Args& a, int P, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// One thread a trial: the kernel of a step without a split of its own (the
-// quadrotor's RK4), P = 0.
+// The quadrotor's RK4 block step (rk4_tile(quadrotor_tile())), P = 0:
+// three lanes a trial.
 //
-// What bounds it: the chain, as above. A quadrotor RK4 step is four
-// evaluations of the model (three sine-cosine pairs and three IEEE
-// divides each) behind the 48 multiply-adds of the policy; one knot's
-// operands are 102 floats.
+// What bounds it on this card: the chain again. An RK4 step is four
+// evaluations of the model behind the policy; one evaluation's path is a
+// sine-cosine pair (13 dependent instructions on its fast path), an IEEE
+// divide by cos(pitch) and the angle-rate update (about 85 dependent
+// instructions a knot in all). One knot's operands are 102 floats, read
+// once: 12 KB at N=30 (4 ns at 3.35 TB/s). With one warp of chains the
+// time is a lane's instruction stream a knot, nearly in order: each
+// accurate sincosf and IEEE divide ends a basic block at its slow-path
+// branch, and the compiler does not schedule across one (on an NVIDIA
+// H100 80GB HBM3 at 700 W, swapping in the approximate __sincosf and
+// __fdividef, not allowed here, took 42% off this kernel, 25% off the
+// grid's).
 //
-// The design is the plain one: one warp, lane w runs trial w (lanes past
-// W run a copy of the last trial and store nothing) and does the whole
-// knot: the policy, the merit, the store of x and the step. The warp
-// copies chunks of SCH knots of the operands into shared memory together
-// (coalesced), then each lane walks the chunk, every lane reading one
-// address at a time (a broadcast). No copy overlaps the chain.
+// What the design does about it: one block; chain warps of ten trial groups
+// of G = 3 lanes (lanes 30, 31 mirror the tenth), as many as W needs (W <=
+// 32: four), then a merit warp and a copy warp, the bicycle kernel's
+// pipeline above. Each lane of a group runs one body axis of
+// QuadrotorAxisRK4 (csrc/device_steps.cuh): a third of the model's sines,
+// cosines, divides and stage updates, with the group's other values by
+// shuffle, and a third of the policy's columns (`axis_policy`), so W = 8
+// trials take one warp and a lane's stream is a third of the model's
+// library calls. The next knot's policy operands (K's four columns of the
+// lane's axis, its x_ref, u_ref, d, h and h / 6) are read from shared
+// memory into registers a knot ahead. Per knot the chain stores its state
+// (a float4 a lane) and u to a staging buffer; the merit warp, one chunk
+// behind, reads them back, accumulates phi in the plain version's term
+// order and writes xstack; the copy warp stages the operands in chunks of
+// QCH knots with cp.async, K and x_ref permuted by axis (one axis's 20
+// floats a knot contiguous, the three at offsets that share no bank), and
+// computes h / 6 for the chain. Dynamic shared memory: 3 x operands + 2 x
+// states of a chunk (47,264 bytes at W = 32).
 
-constexpr int SCH = 32;  // knots per staged chunk
+namespace quad {
 
-template <class Model>
-struct StepLayout {
-  static constexpr int S = Model::NS, I = Model::NI;
-  static constexpr int XREF = 0;
-  static constexpr int UREF = XREF + SCH * S;
-  static constexpr int K = UREF + SCH * I;
-  static constexpr int D = K + SCH * I * S;
-  static constexpr int H = D + SCH * I;
-  static constexpr int Q = H + SCH;
-  static constexpr int QL = Q + SCH * S;
-  static constexpr int R = QL + SCH * S;
-  static constexpr int RL = R + SCH * I;
-  static constexpr int C = RL + SCH * I;
-  static constexpr int FLOATS = C + SCH;
-};
+using altro_dev::AxisPolicy;
+using altro_dev::QuadrotorAxisRK4;
 
-__device__ __forceinline__ void warp_copy(float* dst, const float* src, int count, int lane) {
-  for (int i = lane; i < count; i += 32) dst[i] = src[i];
+constexpr int S = QuadrotorAxisRK4::NS, I = QuadrotorAxisRK4::NI, G = QuadrotorAxisRK4::G;
+constexpr int GROUPS = 10;          // trial groups a chain warp
+constexpr int QCH = 8;              // knots per staged chunk
+constexpr int AX = 20;              // one axis's policy operands a knot: Kc (16), x_ref (4)
+constexpr int MAX_CHAIN_WARPS = (MAX_W + GROUPS - 1) / GROUPS;
+// Float offsets of one chunk's operands (each array [QCH][width]), three
+// such buffers, then two state buffers [W][TSTRIDE] and the final states
+// [W][12] (each knot's record: the three axes' float4, then u).
+constexpr int KX = 0;  // [QCH][3][AX]
+constexpr int UR = KX + QCH * 3 * AX;
+constexpr int D = UR + QCH * I;
+constexpr int Q = D + QCH * I;
+constexpr int QL = Q + QCH * S;
+constexpr int R = QL + QCH * S;
+constexpr int RL = R + QCH * I;
+constexpr int H = RL + QCH * I;
+constexpr int H6 = H + QCH;  // h / 6, computed by the copy warp
+constexpr int C = H6 + QCH;
+constexpr int IN = C + QCH;
+constexpr int REC = 16;
+constexpr int TSTRIDE = QCH * REC + 12;  // 12 floats of padding: a phase's float4 stores share no bank
+constexpr int XS = 3 * IN;
+static_assert(IN % 4 == 0 && TSTRIDE % 4 == 0, "16-byte aligned arrays");
+inline int floats(int W) { return XS + 2 * W * TSTRIDE + W * S; }
+
+__device__ __forceinline__ void chunk_range(int c, int N, int& kbeg, int& cnt) {
+  kbeg = c * QCH;
+  cnt = (N - kbeg < QCH) ? N - kbeg : QCH;
 }
 
-template <class Model>
-__global__ void __launch_bounds__(32, 1) trial_rollout_step_kernel(const Args a, const Model model) {
-  constexpr int S = Model::NS, I = Model::NI;
-  using Ly = StepLayout<Model>;
-  __shared__ float sm[Ly::FLOATS];
-  const int lane = threadIdx.x, N = a.N, W = a.W;
-  const bool mine = lane < W;
-  const int w = mine ? lane : W - 1;
-  const float alpha = a.alphas[w];
-  float* const xs = a.xstack + (long)w * (N + 1) * S;
-  float x[S];
-#pragma unroll
-  for (int i = 0; i < S; ++i) x[i] = a.x0[i];
-  float phi = 0.0f;
-  for (int k0 = 0; k0 < N; k0 += SCH) {
-    const int cnt = N - k0 < SCH ? N - k0 : SCH;
-    const long kb = k0;
-    __syncwarp();  // every lane has left the previous chunk
-    warp_copy(sm + Ly::XREF, a.xref + kb * S, cnt * S, lane);
-    warp_copy(sm + Ly::UREF, a.uref + kb * I, cnt * I, lane);
-    warp_copy(sm + Ly::K, a.K + kb * I * S, cnt * I * S, lane);
-    warp_copy(sm + Ly::D, a.d + kb * I, cnt * I, lane);
-    warp_copy(sm + Ly::H, a.h + kb, cnt, lane);
-    warp_copy(sm + Ly::Q, a.Q + kb * S, cnt * S, lane);
-    warp_copy(sm + Ly::QL, a.q + kb * S, cnt * S, lane);
-    warp_copy(sm + Ly::R, a.R + kb * I, cnt * I, lane);
-    warp_copy(sm + Ly::RL, a.r + kb * I, cnt * I, lane);
-    warp_copy(sm + Ly::C, a.c + kb, cnt, lane);
-    __syncwarp();
-    for (int j = 0; j < cnt; ++j) {
-      const float* xr = sm + Ly::XREF + j * S;
-      const float* Kj = sm + Ly::K + j * I * S;
-      float u[I];
-#pragma unroll
-      for (int q = 0; q < I; ++q) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int i = 0; i < S; ++i) acc += Kj[q * S + i] * (x[i] - xr[i]);
-        u[q] = sm[Ly::UREF + j * I + q] + alpha * sm[Ly::D + j * I + q] - acc;
-      }
-      float sq = 0.0f, sl = 0.0f, su = 0.0f, sr = 0.0f;
-#pragma unroll
-      for (int i = 0; i < S; ++i) {
-        sq += sm[Ly::Q + j * S + i] * x[i] * x[i];
-        sl += sm[Ly::QL + j * S + i] * x[i];
-      }
-#pragma unroll
-      for (int q = 0; q < I; ++q) {
-        su += sm[Ly::R + j * I + q] * u[q] * u[q];
-        sr += sm[Ly::RL + j * I + q] * u[q];
-      }
-      phi = phi + 0.5f * sq + sl + 0.5f * su + sr + sm[Ly::C + j];
-      if (mine) {
-#pragma unroll
-        for (int i = 0; i < S; ++i) xs[(kb + j) * S + i] = x[i];
-      }
-      model.step(x, u, sm[Ly::H + j]);
-    }
+// Stage chunk c: K and x_ref one float at a time into the axis order,
+// the rest with copy_in; then h / 6 (the RK4 update's weight, off the
+// chain).
+__device__ void stage(float* buf, const Args& a, int c, int t) {
+  int kbeg, cnt;
+  chunk_range(c, a.N, kbeg, cnt);
+  const long k0 = kbeg;
+  for (int e = t; e < cnt * 3 * AX; e += COPIERS) {
+    const int j = e / (3 * AX), r = e % (3 * AX), ax = r / AX, f = r % AX;
+    const long k = k0 + j;
+    const float* src = f < 16 ? a.K + (k * I + f / 4) * S + ax + 3 * (f % 4)
+                              : a.xref + k * S + ax + 3 * (f - 16);
+    __pipeline_memcpy_async(buf + KX + e, src, sizeof(float));
   }
-  // terminal knot: the state-only cost
+  copy_in(buf + UR, a.uref + k0 * I, cnt * I, t);
+  copy_in(buf + D, a.d + k0 * I, cnt * I, t);
+  copy_in(buf + Q, a.Q + k0 * S, cnt * S, t);
+  copy_in(buf + QL, a.q + k0 * S, cnt * S, t);
+  copy_in(buf + R, a.R + k0 * I, cnt * I, t);
+  copy_in(buf + RL, a.r + k0 * I, cnt * I, t);
+  copy_in(buf + H, a.h + k0, cnt, t);
+  copy_in(buf + C, a.c + k0, cnt, t);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  if (t < cnt) buf[H6 + t] = buf[H + t] / 6.0f;
+}
+
+__device__ __forceinline__ AxisPolicy load_policy(const float* in, int j, int ax) {
+  AxisPolicy o;
+  const float4* kx = reinterpret_cast<const float4*>(in + KX + (j * 3 + ax) * AX);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) o.Kc[q] = kx[q];
+  o.xr = kx[4];
+  o.ur = reinterpret_cast<const float4*>(in + UR)[j];
+  o.d = reinterpret_cast<const float4*>(in + D)[j];
+  o.h = in[H + j];
+  o.h6 = in[H6 + j];
+  return o;
+}
+
+// The merit's terms at one knot in the plain version's order; x in entry
+// order, u null at the terminal knot.
+__device__ __forceinline__ float merit(float phi, const float* Qd, const float* ql,
+                                       const float* Rd, const float* rl, float c,
+                                       const float x[S], const float* u) {
   float sq = 0.0f, sl = 0.0f;
 #pragma unroll
   for (int i = 0; i < S; ++i) {
-    sq += a.Q[(long)N * S + i] * x[i] * x[i];
-    sl += a.q[(long)N * S + i] * x[i];
+    sq += Qd[i] * x[i] * x[i];
+    sl += ql[i] * x[i];
   }
-  if (mine) {
+  if (u == nullptr) return phi + 0.5f * sq + sl + c;
+  float su = 0.0f, sr = 0.0f;
 #pragma unroll
-    for (int i = 0; i < S; ++i) xs[(long)N * S + i] = x[i];
-    a.phi[lane] = phi + 0.5f * sq + sl + a.c[N];
+  for (int q = 0; q < I; ++q) {
+    su += Rd[q] * u[q] * u[q];
+    sr += rl[q] * u[q];
+  }
+  return phi + 0.5f * sq + sl + 0.5f * su + sr + c;
+}
+
+// A record's three axis float4s back in entry order (entry a + 3c at
+// axis a, slot c).
+__device__ __forceinline__ void unpermute(const float4* v, float x[S]) {
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    x[ax] = v[ax].x;
+    x[ax + 3] = v[ax].y;
+    x[ax + 6] = v[ax].z;
+    x[ax + 9] = v[ax].w;
   }
 }
 
-template <class Model>
-int launch_step(const Args& a, const Model& model, cudaStream_t s) {
-  trial_rollout_step_kernel<Model><<<1, 32, 0, s>>>(a, model);
+__global__ void __launch_bounds__(32 * (MAX_CHAIN_WARPS + 2), 1)
+    trial_rollout_quadrotor_kernel(const Args a, const QuadrotorAxisRK4 model) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int N = a.N, W = a.W, nch = (N + QCH - 1) / QCH;
+  const int chain_warps = blockDim.x / 32 - 2;
+  float* const xsbuf = smem + XS;  // states of chunk s at xsbuf + (s & 1) * W * TSTRIDE
+  float* const xfinal = xsbuf + 2 * W * TSTRIDE;
+
+  if (warp == chain_warps + 1) stage(smem, a, 0, lane);
+  __syncthreads();
+
+  if (warp < chain_warps) {  // the chain: three lanes a trial
+    const int g = min(lane / G, GROUPS - 1), ax = lane % G, base = G * g;
+    const int w = warp * GROUPS + g;
+    const bool mine = w < W && lane < G * GROUPS;  // the lanes that store trial w's states
+    const int wt = w < W ? w : W - 1;              // groups past W run a copy of the last trial
+    const float alpha = a.alphas[wt];
+    const QuadrotorAxisRK4::Axis axis = model.axis(ax, base);
+    float s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[c] = a.x0[ax + 3 * c];
+    QuadrotorAxisRK4::Trig tr = QuadrotorAxisRK4::trig(s[1]);
+    for (int st = 0; st <= nch; ++st) {
+      if (st < nch) {
+        int kbeg, cnt;
+        chunk_range(st, N, kbeg, cnt);
+        const float* in = smem + (st % 3) * IN;
+        float* xs = xsbuf + (st & 1) * W * TSTRIDE + wt * TSTRIDE;
+        AxisPolicy cur = load_policy(in, 0, ax);
+        for (int j = 0; j < cnt; ++j) {
+          float u[I];
+          altro_dev::axis_policy(cur, s, alpha, base, u);
+          if (mine) {
+            reinterpret_cast<float4*>(xs + j * REC)[ax] = make_float4(s[0], s[1], s[2], s[3]);
+            if (ax == 0) reinterpret_cast<float4*>(xs + j * REC)[3] = make_float4(u[0], u[1], u[2], u[3]);
+          }
+          const float h = cur.h, h6 = cur.h6;
+          cur = load_policy(in, j + 1 < cnt ? j + 1 : j, ax);
+          model.step(s, tr, u, h, h6, axis);
+        }
+        if (st == nch - 1 && mine)
+          reinterpret_cast<float4*>(xfinal + wt * S)[ax] = make_float4(s[0], s[1], s[2], s[3]);
+      }
+      __syncthreads();
+    }
+  } else if (warp == chain_warps) {  // the merit of chunk s - 1, and its states out
+    const bool trial = lane < W;
+    const bool vec = aligned16(a.xstack);
+    float phi = 0.0f;
+    for (int st = 0; st <= nch; ++st) {
+      if (st >= 1 && trial) {
+        int kbeg, cnt;
+        chunk_range(st - 1, N, kbeg, cnt);
+        const float* in = smem + ((st - 1) % 3) * IN;
+        const float* xs = xsbuf + ((st - 1) & 1) * W * TSTRIDE + lane * TSTRIDE;
+        float* xout = a.xstack + ((long)lane * (N + 1) + kbeg) * S;
+        for (int j = 0; j < cnt; ++j) {
+          const float4* rec = reinterpret_cast<const float4*>(xs + j * REC);
+          float x[S];
+          unpermute(rec, x);
+          const float4 uv = rec[3];
+          const float u[I] = {uv.x, uv.y, uv.z, uv.w};
+          phi = merit(phi, in + Q + j * S, in + QL + j * S, in + R + j * I, in + RL + j * I,
+                      in[C + j], x, u);
+          if (vec) {
+#pragma unroll
+            for (int v = 0; v < 3; ++v)
+              reinterpret_cast<float4*>(xout + j * S)[v] =
+                  make_float4(x[4 * v], x[4 * v + 1], x[4 * v + 2], x[4 * v + 3]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < S; ++i) xout[j * S + i] = x[i];
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (trial) {  // terminal knot: the state-only cost
+      float x[S];
+      unpermute(reinterpret_cast<const float4*>(xfinal + lane * S), x);
+      a.phi[lane] = merit(phi, a.Q + (long)N * S, a.q + (long)N * S, nullptr, nullptr, a.c[N],
+                          x, nullptr);
+#pragma unroll
+      for (int i = 0; i < S; ++i) a.xstack[((long)lane * (N + 1) + N) * S + i] = x[i];
+    }
+  } else {  // the copies: chunk s + 1 in
+    for (int st = 0; st <= nch; ++st) {
+      if (st + 1 < nch) stage(smem + ((st + 1) % 3) * IN, a, st + 1, lane);
+      __syncthreads();
+    }
+  }
+}
+
+int launch(const Args& a, const QuadrotorAxisRK4& model, cudaStream_t s) {
+  const int chain_warps = (a.W + GROUPS - 1) / GROUPS;
+  const size_t bytes = (size_t)floats(a.W) * sizeof(float);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        trial_rollout_quadrotor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  trial_rollout_quadrotor_kernel<<<1, 32 * (chain_warps + 2), bytes, s>>>(a, model);
   return (int)cudaGetLastError();
 }
+
+}  // namespace quad
 
 }  // namespace
 
@@ -513,9 +652,9 @@ extern "C" int trial_rollout_f32(
     if (P != 0) return (int)cudaErrorInvalidValue;
     const Args a{xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg, rhoi,
                  alphas, x0, phi, xstack, N, W, 0.0f, 0.0f};
-    const altro_dev::QuadrotorRK4 m{params[0], params[1], params[2], params[3],
-                                    params[4], params[5], params[6], params[7]};
-    return launch_step(a, m, s);
+    const altro_dev::QuadrotorAxisRK4 m{params[0], params[1], params[2], params[3],
+                                        params[4], params[5], params[6], params[7]};
+    return quad::launch(a, m, s);
   }
   if (!(model == 0 && integrator == 0)) return (int)cudaErrorInvalidValue;
   const Args a{xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg, rhoi,

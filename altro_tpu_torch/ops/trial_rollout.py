@@ -21,7 +21,8 @@ rho-premultiplied as the solver builds it. The kernel
 (csrc/trial_rollout.cu) runs one block: for the bicycle, two lanes per
 trial walk the state chain, splitting the model's steering-angle terms
 between them, and a lane of another warp per trial accumulates the merit
-behind them; for the quadrotor's RK4 step, one warp, one lane a trial.
+behind them; for the quadrotor's RK4 step, three lanes per trial (one a
+body axis) walk the chain on the same pipeline.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ KERNEL_P = (0, 2)
 
 # (model, integrator) pairs the CUDA kernel has a __device__ step for, and
 # the constraint row counts each step is instantiated with (the bicycle in
-# the two-lanes-a-trial kernel, the quadrotor in the one-thread-a-trial
+# the two-lanes-a-trial kernel, the quadrotor in the three-lanes-a-trial
 # kernel).
 DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): ("bicycle_midpoint", KERNEL_P),
                 (MODEL_QUADROTOR, INTEGRATOR_RK4): ("quadrotor_rk4", (0,))}

@@ -575,9 +575,10 @@ def test_vmap_solve_on_card_tracks_plain_path(dev):
 
 
 # ---------------------------------------------------------------------------
-# The quadrotor (n=12, m=4, rk4): its column step in rollout_grid.cu, its
-# block step in trial_rollout.cu's one-thread-a-trial kernel, and the
-# (12, 4) instantiations of riccati_latency.cu
+# The quadrotor (n=12, m=4, rk4): its column step in rollout_grid.cu's
+# three-threads-a-(lane, trial) kernel, its block step in trial_rollout.cu's
+# three-lanes-a-trial kernel, and the (12, 4) instantiations of
+# riccati_latency.cu
 # ---------------------------------------------------------------------------
 
 def _quad_rollout_inputs(dev, Bsz, Nk, W, seed=7):
@@ -598,24 +599,37 @@ def _quad_rollout_inputs(dev, Bsz, Nk, W, seed=7):
     return prob, (t(xr), t(ur), t(K), t(d), (), t(rho), t(0.5 ** np.arange(W)), t(x0))
 
 
-@pytest.mark.parametrize("W", [1, 8])
-@pytest.mark.parametrize("Bsz", [1, 33, 1024])
-def test_rollout_kernel_quadrotor_matches_plain(dev, Bsz, W):
-    """The <QuadrotorRK4, 0> instantiation (its two 8-knot chunks opt in
-    above 48 KB of shared memory): ragged lane tiles and the row's
-    B=1024, 30 knots (four staged chunks, the last one ragged)."""
+def _check_quad_grid(dev, Bsz, Nk, W):
     from altro_tpu_torch.ops import rollout_grid as rg
 
-    prob, args = _quad_rollout_inputs(dev, Bsz, 30, W)
+    prob, args = _quad_rollout_inputs(dev, Bsz, Nk, W)
     before = rg.LAUNCHES
     pk, xk = rg.rollout_grid(prob, *args)
     pr, xr = rg.rollout_grid_ref(prob, *args)
     torch.cuda.synchronize()
     assert rg.LAUNCHES == before + 1
-    assert pk.shape == (W, Bsz) and xk.shape == (W, 31, 12, Bsz)
+    assert pk.shape == (W, Bsz) and xk.shape == (W, Nk + 1, 12, Bsz)
     assert bool(torch.isfinite(pk).all())
     assert float(((pk - pr).abs() / pr.abs().clamp(min=1.0)).max()) < 1e-4
     assert float((xk - xr).abs().max()) < 1e-4 * max(1.0, float(xr.abs().max()))
+
+
+@pytest.mark.parametrize("W", [1, 8, 9, 16])
+@pytest.mark.parametrize("Bsz", [1, 7, 33, 1024, 2048])
+def test_rollout_kernel_quadrotor_matches_plain(dev, Bsz, W):
+    """The quadrotor's kernel (ten lanes of three threads a warp, four
+    trial warps a block, 8-knot chunks opted in above 48 KB): ragged lane
+    groups and blocks (B not a multiple of ten), trials past one block
+    (W = 9, 16), the row's B=1024 and the main path's 2048, 30 knots (four
+    staged chunks, the last one ragged)."""
+    _check_quad_grid(dev, Bsz, 30, W)
+
+
+@pytest.mark.parametrize("Nk", [1, 7, 8, 9, 15, 16, 17])
+def test_rollout_kernel_quadrotor_chunk_edges(dev, Nk):
+    """The same kernel with N + 1 knots at its 8-knot chunk edges (N=8:
+    the last chunk holds only the terminal knot)."""
+    _check_quad_grid(dev, 33, Nk, 8)
 
 
 def _quad_trial_inputs(dev, Nk, W, seed=8):
@@ -634,12 +648,13 @@ def _quad_trial_inputs(dev, Nk, W, seed=8):
     return prob.dynamics_tile, args
 
 
-@pytest.mark.parametrize("W", [1, 8])
-@pytest.mark.parametrize("Nk", [1, 30, 31, 32, 33, 64, 65])
+@pytest.mark.parametrize("W", [1, 3, 8, 16, 32])
+@pytest.mark.parametrize("Nk", [1, 7, 8, 9, 16, 17, 30, 31, 32, 33, 64, 65])
 def test_trial_rollout_kernel_quadrotor_matches_plain(dev, W, Nk):
-    """The one-thread-a-trial kernel on the quadrotor's block step, N at
-    its 32-knot chunk edges and the row's N=30 (an open-loop quadrotor
-    leaves hover within a few seconds, so the horizons stay short)."""
+    """The three-lanes-a-trial kernel on the quadrotor's block step: W from
+    one group to four chain warps (ten groups a warp), N at its 8-knot chunk
+    edges and the row's N=30 (an open-loop quadrotor leaves hover within a
+    few seconds, so the horizons stay short)."""
     from altro_tpu_torch.ops import trial_rollout as tr
 
     step, args = _quad_trial_inputs(dev, Nk, W)

@@ -7,7 +7,7 @@ against the JAX portable scan `ops/pallas_rollout._scan_rollout` in f64
 (W=8, N=30, rtol 1e-10) and against the packed Pallas kernel
 `_pallas_rollout(interpret=True)` in f32 at N=12 (phi and states to 1e-5
 of their scale). P = 0: the quadrotor rows have no constraint. The
-one-thread-a-trial kernel of csrc/trial_rollout.cu is held against the
+three-lanes-a-trial kernel of csrc/trial_rollout.cu is held against the
 plain version on the card (tests/test_torch_kernels_cuda.py).
 """
 
