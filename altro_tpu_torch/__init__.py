@@ -10,8 +10,15 @@ ops/_build.py on first use). Later slices added the single-lane
 `solver.solve` (the N=500 latency path, and under default SolverOptions()
 the strong-Wolfe search on the reference's own test problems,
 `reference_problems`, with `mpc`'s functional MPC API) and the vmapped
-solve (`parallel.batch`).
+solve (`parallel.batch`), and the stateful facade `api.ALTROSolver`,
+which the JAX package's README Quick start drives.
 
 Internal layout is lane-minor, [N(+1), entry..., B]; public functions
 keep the JAX batch-major layout [B, ...].
 """
+
+from altro_tpu_torch.api import ALL_INDICES, LAST_INDEX, ALTROSolver
+from altro_tpu_torch.cones import Cone
+from altro_tpu_torch.options import SolverOptions, Verbosity
+
+__all__ = ["ALTROSolver", "LAST_INDEX", "ALL_INDICES", "Cone", "SolverOptions", "Verbosity"]

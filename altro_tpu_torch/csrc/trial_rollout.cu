@@ -52,8 +52,9 @@
 // The dynamics are a __device__ step from csrc/device_steps.cuh, the twin
 // of models/tile_steps.py::midpoint_tile(bicycle_tile(frame, length,
 // rear)). The quadrotor's RK4 step (rk4_tile(quadrotor_tile())) runs in a
-// second kernel at the end of this file, on the same pipeline with three
-// lanes a trial (its own note there). The merit follows
+// second kernel, on the same pipeline with three lanes a trial, and the
+// pendulum's midpoint step (midpoint_tile(pendulum_tile())) in a third, one
+// lane a trial (each with its own note below). The merit follows
 // ops/trial_rollout.py::trial_rollout_ref term
 // for term: phi += 0.5 Q.x.x + q.x + 0.5 R.u.u + r.u + c, then
 // + rhoi * sum_e min(w_e, 0)^2.
@@ -77,28 +78,37 @@ constexpr int COPIERS = 32;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int MAX_W = 32;
 
-// Float offsets of one chunk's operands in shared memory (each array
-// [CH][width], 16-byte aligned); three such buffers, then two state
-// buffers [W][CH][NS] and the final states [W][NS].
-template <int P>
-struct Layout {
+// Float offsets of one chunk's operands in shared memory for a model of
+// S states and I inputs, chunks of CHK knots and P rows (each array
+// [CHK][width], 16-byte aligned); three such buffers, then a kernel's own
+// state buffers from XS on. The bicycle's and the pendulum's kernels
+// stage through it (`stage`).
+template <int S_, int I_, int CHK_, int P_>
+struct OperandLayout {
+  static constexpr int S = S_, I = I_, CHK = CHK_, P = P_;
   static constexpr int XREF = 0;
-  static constexpr int UREF = XREF + CH * NS;
-  static constexpr int K = UREF + CH * NI;
-  static constexpr int D = K + CH * NI * NS;
-  static constexpr int H = D + CH * NI;
-  static constexpr int Q = H + CH;
-  static constexpr int QL = Q + CH * NS;
-  static constexpr int R = QL + CH * NS;
-  static constexpr int RL = R + CH * NI;
-  static constexpr int C = RL + CH * NI;
-  static constexpr int WA = C + CH;
-  static constexpr int WU = WA + CH * P * NS;
-  static constexpr int WG = WU + CH * P * NI;
-  static constexpr int IN = WG + CH * P;
+  static constexpr int UREF = XREF + CHK * S;
+  static constexpr int K = UREF + CHK * I;
+  static constexpr int D = K + CHK * I * S;
+  static constexpr int H = D + CHK * I;
+  static constexpr int Q = H + CHK;
+  static constexpr int QL = Q + CHK * S;
+  static constexpr int R = QL + CHK * S;
+  static constexpr int RL = R + CHK * I;
+  static constexpr int C = RL + CHK * I;
+  static constexpr int WA = C + CHK;
+  static constexpr int WU = WA + CHK * P * S;
+  static constexpr int WG = WU + CHK * P * I;
+  static constexpr int IN = WG + CHK * P;
   static constexpr int XS = 3 * IN;
-  static_assert(IN % 4 == 0 && CH % 4 == 0, "16-byte aligned arrays");
-  static int floats(int W) { return XS + 2 * W * CH * NS + W * NS; }
+  static_assert(IN % 4 == 0 && CHK % 4 == 0, "16-byte aligned arrays");
+};
+
+// The bicycle's: then two state buffers [W][CH][NS] and the final states
+// [W][NS].
+template <int P>
+struct Layout : OperandLayout<NS, NI, CH, P> {
+  static int floats(int W) { return Layout::XS + 2 * W * CH * NS + W * NS; }
 };
 
 struct Args {
@@ -126,31 +136,33 @@ __device__ __forceinline__ void copy_in(float* dst, const float* src, int count,
   for (int i = done + t; i < count; i += COPIERS) __pipeline_memcpy_async(dst + i, src + i, 4);
 }
 
-// Chunk c covers knots [kbeg, kbeg + cnt), walked forward.
+// Chunk c of CHK knots covers knots [kbeg, kbeg + cnt), walked forward.
+template <int CHK>
 __device__ __forceinline__ void chunk_range(int c, int N, int& kbeg, int& cnt) {
-  kbeg = c * CH;
-  cnt = (N - kbeg < CH) ? N - kbeg : CH;
+  kbeg = c * CHK;
+  cnt = (N - kbeg < CHK) ? N - kbeg : CHK;
 }
 
-template <int P>
+// Stage chunk c's operands into buf at an OperandLayout's offsets.
+template <class Ly>
 __device__ void stage(float* buf, const Args& a, int c, int t) {
-  using Ly = Layout<P>;
+  constexpr int S = Ly::S, I = Ly::I, P = Ly::P;
   int kbeg, cnt;
-  chunk_range(c, a.N, kbeg, cnt);
+  chunk_range<Ly::CHK>(c, a.N, kbeg, cnt);
   const long k0 = kbeg;
-  copy_in(buf + Ly::XREF, a.xref + k0 * NS, cnt * NS, t);
-  copy_in(buf + Ly::UREF, a.uref + k0 * NI, cnt * NI, t);
-  copy_in(buf + Ly::K, a.K + k0 * NI * NS, cnt * NI * NS, t);
-  copy_in(buf + Ly::D, a.d + k0 * NI, cnt * NI, t);
+  copy_in(buf + Ly::XREF, a.xref + k0 * S, cnt * S, t);
+  copy_in(buf + Ly::UREF, a.uref + k0 * I, cnt * I, t);
+  copy_in(buf + Ly::K, a.K + k0 * I * S, cnt * I * S, t);
+  copy_in(buf + Ly::D, a.d + k0 * I, cnt * I, t);
   copy_in(buf + Ly::H, a.h + k0, cnt, t);
-  copy_in(buf + Ly::Q, a.Q + k0 * NS, cnt * NS, t);
-  copy_in(buf + Ly::QL, a.q + k0 * NS, cnt * NS, t);
-  copy_in(buf + Ly::R, a.R + k0 * NI, cnt * NI, t);
-  copy_in(buf + Ly::RL, a.r + k0 * NI, cnt * NI, t);
+  copy_in(buf + Ly::Q, a.Q + k0 * S, cnt * S, t);
+  copy_in(buf + Ly::QL, a.q + k0 * S, cnt * S, t);
+  copy_in(buf + Ly::R, a.R + k0 * I, cnt * I, t);
+  copy_in(buf + Ly::RL, a.r + k0 * I, cnt * I, t);
   copy_in(buf + Ly::C, a.c + k0, cnt, t);
   if (P > 0) {
-    copy_in(buf + Ly::WA, a.wa + k0 * P * NS, cnt * P * NS, t);
-    copy_in(buf + Ly::WU, a.wu + k0 * P * NI, cnt * P * NI, t);
+    copy_in(buf + Ly::WA, a.wa + k0 * P * S, cnt * P * S, t);
+    copy_in(buf + Ly::WU, a.wu + k0 * P * I, cnt * P * I, t);
     copy_in(buf + Ly::WG, a.wg + k0 * P, cnt * P, t);
   }
   __pipeline_commit();
@@ -204,7 +216,7 @@ __global__ void __launch_bounds__(THREADS, 1) trial_rollout_kernel(const Args a)
   float* const xsbuf = smem + Ly::XS;  // states of chunk s at xsbuf + (s & 1) * W * CH * NS
   float* const xfinal = xsbuf + 2 * W * CH * NS;
 
-  if (warp == 3) stage<P>(smem, a, 0, tid - 96);
+  if (warp == 3) stage<Ly>(smem, a, 0, tid - 96);
   __syncthreads();
 
   if (warp < 2) {  // the chain: x through the N steps, two lanes a trial
@@ -222,7 +234,7 @@ __global__ void __launch_bounds__(THREADS, 1) trial_rollout_kernel(const Args a)
     for (int s = 0; s <= nch; ++s) {
       if (s < nch && busy) {
         int kbeg, cnt;
-        chunk_range(s, N, kbeg, cnt);
+        chunk_range<CH>(s, N, kbeg, cnt);
         const float* in = smem + (s % 3) * Ly::IN;
         float4* xs = reinterpret_cast<float4*>(xsbuf + (s & 1) * W * CH * NS + w * CH * NS);
         Policy cur = load_policy<P>(in, 0);
@@ -278,7 +290,7 @@ __global__ void __launch_bounds__(THREADS, 1) trial_rollout_kernel(const Args a)
     for (int s = 0; s <= nch; ++s) {
       if (s >= 1 && trial) {
         int kbeg, cnt;
-        chunk_range(s - 1, N, kbeg, cnt);
+        chunk_range<CH>(s - 1, N, kbeg, cnt);
         const float* in = smem + ((s - 1) % 3) * Ly::IN;
         const float4* xs =
             reinterpret_cast<const float4*>(xsbuf + ((s - 1) & 1) * W * CH * NS + lane * CH * NS);
@@ -353,7 +365,7 @@ __global__ void __launch_bounds__(THREADS, 1) trial_rollout_kernel(const Args a)
     }
   } else {  // the copies: chunk s + 1 in
     for (int s = 0; s <= nch; ++s) {
-      if (s + 1 < nch) stage<P>(smem + ((s + 1) % 3) * Ly::IN, a, s + 1, tid - 96);
+      if (s + 1 < nch) stage<Ly>(smem + ((s + 1) % 3) * Ly::IN, a, s + 1, tid - 96);
       __syncthreads();
     }
   }
@@ -445,17 +457,12 @@ constexpr int XS = 3 * IN;
 static_assert(IN % 4 == 0 && TSTRIDE % 4 == 0, "16-byte aligned arrays");
 inline int floats(int W) { return XS + 2 * W * TSTRIDE + W * S; }
 
-__device__ __forceinline__ void chunk_range(int c, int N, int& kbeg, int& cnt) {
-  kbeg = c * QCH;
-  cnt = (N - kbeg < QCH) ? N - kbeg : QCH;
-}
-
 // Stage chunk c: K and x_ref one float at a time into the axis order,
 // the rest with copy_in; then h / 6 (the RK4 update's weight, off the
 // chain).
 __device__ void stage(float* buf, const Args& a, int c, int t) {
   int kbeg, cnt;
-  chunk_range(c, a.N, kbeg, cnt);
+  chunk_range<QCH>(c, a.N, kbeg, cnt);
   const long k0 = kbeg;
   for (int e = t; e < cnt * 3 * AX; e += COPIERS) {
     const int j = e / (3 * AX), r = e % (3 * AX), ax = r / AX, f = r % AX;
@@ -551,7 +558,7 @@ __global__ void __launch_bounds__(32 * (MAX_CHAIN_WARPS + 2), 1)
     for (int st = 0; st <= nch; ++st) {
       if (st < nch) {
         int kbeg, cnt;
-        chunk_range(st, N, kbeg, cnt);
+        chunk_range<QCH>(st, N, kbeg, cnt);
         const float* in = smem + (st % 3) * IN;
         float* xs = xsbuf + (st & 1) * W * TSTRIDE + wt * TSTRIDE;
         AxisPolicy cur = load_policy(in, 0, ax);
@@ -578,7 +585,7 @@ __global__ void __launch_bounds__(32 * (MAX_CHAIN_WARPS + 2), 1)
     for (int st = 0; st <= nch; ++st) {
       if (st >= 1 && trial) {
         int kbeg, cnt;
-        chunk_range(st - 1, N, kbeg, cnt);
+        chunk_range<QCH>(st - 1, N, kbeg, cnt);
         const float* in = smem + ((st - 1) % 3) * IN;
         const float* xs = xsbuf + ((st - 1) & 1) * W * TSTRIDE + lane * TSTRIDE;
         float* xout = a.xstack + ((long)lane * (N + 1) + kbeg) * S;
@@ -633,13 +640,222 @@ int launch(const Args& a, const QuadrotorAxisRK4& model, cudaStream_t s) {
 
 }  // namespace quad
 
+// ---------------------------------------------------------------------------
+// The pendulum's midpoint block step (midpoint_tile(pendulum_tile())), P = 0
+// or 2 (the torque bound's two rows on u): one lane a trial.
+//
+// What bounds it on this card: the chain. A knot is the policy (two
+// multiply-adds behind x), two evaluations of the pendulum (a sine and an
+// IEEE divide each) and the two updates; one knot's operands are 14 + 4P
+// floats, read once: 2.6 KB at N = 30, P = 2 (under 1 ns at 3.35 TB/s).
+// With W <= 32 trials on one warp the time is one lane's instruction
+// stream, N knots long, nearly in order (the accurate sinf and the divide
+// end a basic block at their slow-path branches).
+//
+// What the design does about it: one block of three warps, launched once.
+// Warp 0 (the chain) runs trial w on lane w (lanes past W run a copy of the
+// last trial and store nothing); per knot it forms u, stores (x, u) as one
+// float4 to a staging buffer in shared memory, and takes the step of
+// altro_dev::PendulumMidpoint (csrc/device_steps.cuh, the step
+// rollout_grid.cu runs), with the next knot's K, x_ref, u_ref, d and h read
+// from shared memory a knot ahead. Warp 1 (the merit) walks each chunk one
+// step behind: from the staged (x, u) it accumulates phi in
+// trial_rollout_ref's term order (the cost terms, then rhoi * sum_e
+// min(w_e, 0)^2 over the rows) and writes x to xstack; it adds the terminal
+// knot's state-only terms at the end. Warp 2 stages the operands in chunks
+// of PCH knots with cp.async. P is a template parameter, so the row loops
+// unroll. Dynamic shared memory: 3 x operands + 2 x staged records of a
+// chunk + the final states (16,704 bytes at W = 8, P = 2; 41,472 at W = 32).
+
+namespace pend {
+
+using altro_dev::PendulumMidpoint;
+
+constexpr int S = PendulumMidpoint::NS, I = PendulumMidpoint::NI;
+constexpr int PCH = 32;      // knots per staged chunk
+constexpr int PTHREADS = 96;  // warp 0: the chain; warp 1: the merit; warp 2: copies
+
+// The operands at OperandLayout's offsets (chunks of PCH knots), then two
+// record buffers [W][PCH] of float4 (x0, x1, u, 0) and the final states
+// [W] of float2.
+template <int P>
+struct Layout : OperandLayout<S, I, PCH, P> {
+  static int floats(int W) { return Layout::XS + 2 * W * PCH * 4 + W * S; }
+};
+
+// The policy's operands at one knot.
+struct Policy {
+  float2 K, xr;
+  float ur, d, h;
+};
+
+template <int P>
+__device__ __forceinline__ Policy load_policy(const float* in, int j) {
+  using Ly = Layout<P>;
+  Policy o;
+  o.K = reinterpret_cast<const float2*>(in + Ly::K)[j];
+  o.xr = reinterpret_cast<const float2*>(in + Ly::XREF)[j];
+  o.ur = in[Ly::UREF + j];
+  o.d = in[Ly::D + j];
+  o.h = in[Ly::H + j];
+  return o;
+}
+
+// The merit's terms at one knot in trial_rollout_ref's order; u null at
+// the terminal knot.
+template <int P>
+__device__ __forceinline__ float merit(float phi, const float* Qd, const float* ql,
+                                       const float* Rd, const float* rl, float c,
+                                       const float* wa, const float* wu, const float* wg,
+                                       float ri, const float x[S], const float* u) {
+  float sq = 0.0f, sl = 0.0f;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    sq += Qd[i] * x[i] * x[i];
+    sl += ql[i] * x[i];
+  }
+  float ph;
+  if (u == nullptr) {
+    ph = phi + 0.5f * sq + sl + c;
+  } else {
+    float su = 0.0f, sr = 0.0f;
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+      su += Rd[i] * u[i] * u[i];
+      sr += rl[i] * u[i];
+    }
+    ph = phi + 0.5f * sq + sl + 0.5f * su + sr + c;
+  }
+  if (P > 0) {
+    float alc = 0.0f;
+#pragma unroll
+    for (int e = 0; e < P; ++e) {
+      float sa = 0.0f;
+#pragma unroll
+      for (int i = 0; i < S; ++i) sa += wa[e * S + i] * x[i];
+      float we = wg[e] - sa;
+      if (u != nullptr) {
+        float sb = 0.0f;
+#pragma unroll
+        for (int i = 0; i < I; ++i) sb += wu[e * I + i] * u[i];
+        we = we - sb;
+      }
+      const float pw = neg_part(we);
+      alc += pw * pw;
+    }
+    ph += ri * alc;
+  }
+  return ph;
+}
+
+template <int P>
+__global__ void __launch_bounds__(PTHREADS, 1)
+    trial_rollout_pendulum_kernel(const Args a, const PendulumMidpoint model) {
+  using Ly = Layout<P>;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int N = a.N, W = a.W, nch = (N + PCH - 1) / PCH;
+  float4* const recs = reinterpret_cast<float4*>(smem + Ly::XS);  // chunk s at recs + (s & 1) * W * PCH
+  float2* const xfinal = reinterpret_cast<float2*>(recs + 2 * W * PCH);
+
+  if (warp == 2) stage<Ly>(smem, a, 0, lane);
+  __syncthreads();
+
+  if (warp == 0) {  // the chain: one lane a trial
+    const bool mine = lane < W;
+    const int wt = mine ? lane : W - 1;
+    const float alpha = a.alphas[wt];
+    float x[S] = {a.x0[0], a.x0[1]};
+    for (int s = 0; s <= nch; ++s) {
+      if (s < nch) {
+        int kbeg, cnt;
+        chunk_range<PCH>(s, N, kbeg, cnt);
+        const float* in = smem + (s % 3) * Ly::IN;
+        float4* rec = recs + (s & 1) * W * PCH + wt * PCH;
+        Policy cur = load_policy<P>(in, 0);
+        for (int j = 0; j < cnt; ++j) {
+          // u = u_ref - K (x - x_ref) + alpha d, as trial_rollout_ref
+          const float dk = cur.K.x * (x[0] - cur.xr.x) + cur.K.y * (x[1] - cur.xr.y);
+          const float u[I] = {cur.ur - dk + alpha * cur.d};
+          if (mine) rec[j] = make_float4(x[0], x[1], u[0], 0.0f);
+          const float h = cur.h;
+          cur = load_policy<P>(in, j + 1 < cnt ? j + 1 : j);
+          model.step(x, u, h);
+        }
+        if (s == nch - 1 && mine) xfinal[lane] = make_float2(x[0], x[1]);
+      }
+      __syncthreads();
+    }
+  } else if (warp == 1) {  // the merit of chunk s - 1, and its states out
+    const bool trial = lane < W;
+    const float ri = P > 0 ? *a.rhoi : 0.0f;
+    const bool vec = (reinterpret_cast<uintptr_t>(a.xstack) & 7) == 0;
+    float phi = 0.0f;
+    for (int s = 0; s <= nch; ++s) {
+      if (s >= 1 && trial) {
+        int kbeg, cnt;
+        chunk_range<PCH>(s - 1, N, kbeg, cnt);
+        const float* in = smem + ((s - 1) % 3) * Ly::IN;
+        const float4* rec = recs + ((s - 1) & 1) * W * PCH + lane * PCH;
+        float* xout = a.xstack + ((long)lane * (N + 1) + kbeg) * S;
+        for (int j = 0; j < cnt; ++j) {
+          const float4 r = rec[j];
+          const float x[S] = {r.x, r.y};
+          const float u[I] = {r.z};
+          phi = merit<P>(phi, in + Ly::Q + j * S, in + Ly::QL + j * S, in + Ly::R + j * I,
+                         in + Ly::RL + j * I, in[Ly::C + j], in + Ly::WA + j * P * S,
+                         in + Ly::WU + j * P * I, in + Ly::WG + j * P, ri, x, u);
+          if (vec) {
+            reinterpret_cast<float2*>(xout)[j] = make_float2(r.x, r.y);
+          } else {
+            xout[j * S] = r.x;
+            xout[j * S + 1] = r.y;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (trial) {  // terminal knot: state-only cost and constraint rows
+      const float2 xv = xfinal[lane];
+      const float x[S] = {xv.x, xv.y};
+      a.phi[lane] = merit<P>(phi, a.Q + (long)N * S, a.q + (long)N * S, nullptr, nullptr,
+                             a.c[N], a.wa + (long)N * P * S, nullptr, a.wg + (long)N * P, ri,
+                             x, nullptr);
+      a.xstack[((long)lane * (N + 1) + N) * S] = x[0];
+      a.xstack[((long)lane * (N + 1) + N) * S + 1] = x[1];
+    }
+  } else {  // the copies: chunk s + 1 in
+    for (int s = 0; s <= nch; ++s) {
+      if (s + 1 < nch) stage<Ly>(smem + ((s + 1) % 3) * Ly::IN, a, s + 1, lane);
+      __syncthreads();
+    }
+  }
+}
+
+template <int P>
+int launch(const Args& a, const PendulumMidpoint& model, cudaStream_t s) {
+  auto kern = trial_rollout_pendulum_kernel<P>;
+  const size_t bytes = (size_t)Layout<P>::floats(a.W) * sizeof(float);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<1, PTHREADS, bytes, s>>>(a, model);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace pend
+
 }  // namespace
 
 // wa, wu, wg and rhoi are null when P = 0; rhoi is one float on the
 // device. params lies in host memory. (model, integrator) (0, 0): the
 // bicycle midpoint step, P 0 or 2, W <= 32, params (frame 0, 1 or 2,
 // length, rear); (1, 1): the quadrotor RK4 step, P 0, W <= 32, params
-// (mass, gravity, arm, kf, km, Jx, Jy, Jz).
+// (mass, gravity, arm, kf, km, Jx, Jy, Jz); (2, 0): the pendulum midpoint
+// step, P 0 or 2, W <= 32, params (mass, length, b, g).
 extern "C" int trial_rollout_f32(
     const float* alphas, const float* x0, const float* xref, const float* uref,
     const float* K, const float* d, const float* Q, const float* q, const float* R,
@@ -655,6 +871,14 @@ extern "C" int trial_rollout_f32(
     const altro_dev::QuadrotorAxisRK4 m{params[0], params[1], params[2], params[3],
                                         params[4], params[5], params[6], params[7]};
     return quad::launch(a, m, s);
+  }
+  if (model == 2 && integrator == 0) {
+    const Args a{xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg, rhoi,
+                 alphas, x0, phi, xstack, N, W, 0.0f, 0.0f};
+    const altro_dev::PendulumMidpoint m{params[0], params[1], params[2], params[3]};
+    if (P == 0) return pend::launch<0>(a, m, s);
+    if (P == 2) return pend::launch<2>(a, m, s);
+    return (int)cudaErrorInvalidValue;
   }
   if (!(model == 0 && integrator == 0)) return (int)cudaErrorInvalidValue;
   const Args a{xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg, rhoi,

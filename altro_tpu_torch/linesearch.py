@@ -23,6 +23,9 @@ Counterpart: altro_tpu/linesearch.py (`LineSearchOptions`,
 * The grid searches: the JAX `lax.while_loop` over grid blocks becomes a
   Python loop with one host sync per block beyond the first (on
   `found`).
+* `LineSearchOptions.verbose` prints the JAX searches' traces from the
+  host, with their format strings: the strong-Wolfe search's start
+  banner and one line a trial, the grid's one line a block.
 
 Scalars returned are 0-dim tensors on the merit's device and dtype; a
 payload is a tensor, a (named) tuple of payloads, or None.
@@ -225,13 +228,12 @@ def cubic_argmin(spline):
 _BRACKET, _CUBIC, _ZOOM, _BACKTRACK, _DONE = range(5)
 
 
-def _read(phi, dphi, dt):
-    """Host values of one merit evaluation: one device read for both."""
-    if torch.is_tensor(phi) and torch.is_tensor(dphi):
-        pair = torch.stack([phi.reshape(()), dphi.reshape(()).to(phi.dtype)]).tolist()
-    else:
-        pair = [v.item() if torch.is_tensor(v) else float(v) for v in (phi, dphi)]
-    return dt(pair[0]), dt(pair[1])
+def _read(dt, *vals):
+    """Host values of scalars as dt: the tensors among them in one device
+    read (in the first tensor's dtype), Python numbers as they are."""
+    ts = [v for v in vals if torch.is_tensor(v)]
+    got = iter(torch.stack([v.reshape(()).to(ts[0].dtype) for v in ts]).tolist() if ts else ())
+    return [dt(next(got)) if torch.is_tensor(v) else dt(float(v)) for v in vals]
 
 
 def wolfe_line_search(
@@ -267,7 +269,7 @@ def wolfe_line_search(
     dt = _host_type(phi0)
     dev = phi0.device if torch.is_tensor(phi0) else torch.device("cpu")
     tdt = _TORCH_FLOAT[dt]
-    phi0, dphi0 = _read(phi0, dphi0, dt)
+    phi0, dphi0 = _read(dt, phi0, dphi0)
     alpha0 = _host(alpha0, dt)
     c1, c2, slack = dt(opts.c1), dt(opts.c2), dt(opts.armijo_slack)
     beta_inc, beta_dec = dt(opts.beta_increase), dt(opts.beta_decrease)
@@ -408,23 +410,34 @@ def wolfe_line_search(
     def finisher(light):
         def finish():
             dphi_t, aux_t = complete(light)
-            return _read(dphi_t, dphi_t, dt)[0], aux_t
+            return _read(dt, dphi_t)[0], aux_t
         return finish
 
+    def trace(alpha, phi, dphi):  # linesearch.cpp:70-73's trial trace
+        if opts.verbose:
+            print(f"    ls trial {s.n_iters}: alpha = {float(alpha):.6}, phi = {float(phi):.8}, "
+                  f"dphi = {float(dphi):.6}")
+
+    if opts.verbose:  # linesearch.cpp:70-73's start banner
+        print(f"  Starting Cubic Line Search with phi0 = {float(phi0):.8}, "
+              f"dphi0 = {float(dphi0):.6}")
     with np.errstate(all="ignore"):
         while s.mode != _DONE:
             a_t = s.alpha_next
             alpha_t = torch.tensor(float(a_t), dtype=tdt, device=dev)
             if lazy and s.mode == _BACKTRACK:
                 phi_t, light = merit_light(alpha_t)
-                backtrack_step(_read(phi_t, phi_t, dt)[0], None, finisher(light))
+                phi_t = _read(dt, phi_t)[0]
+                trace(a_t, phi_t, np.nan)  # a backtracking trial forms no dphi until it ends
+                backtrack_step(phi_t, None, finisher(light))
                 continue
             out = merit_full(alpha_t)
             if has_aux:
                 phi_t, dphi_t, aux_t = out
             else:
                 (phi_t, dphi_t), aux_t = out[:2], ()
-            phi_t, dphi_t = _read(phi_t, dphi_t, dt)
+            phi_t, dphi_t = _read(dt, phi_t, dphi_t)
+            trace(a_t, phi_t, dphi_t)
             s.aux, s.aux_alpha = aux_t, a_t
             steps[s.mode](phi_t, dphi_t)
 
@@ -822,6 +835,9 @@ def parallel_backtracking_search_split(
     alphas0 = alpha0 * beta ** ks0.to(dtype)
     phis0, lights0 = eval_grid(alphas0)
     armijo0 = armijo_mask(alphas0, phis0)
+    if opts.verbose:  # the grid's analog of the per-trial trace
+        print(f"    ls grid block 0: alphas = {alphas0.cpu().numpy()}, "
+              f"phis = {phis0.cpu().numpy()} (phi0 = {float(phi0):.8})")
     if armijo_only:
         passes0 = armijo0
     else:
@@ -845,6 +861,9 @@ def parallel_backtracking_search_split(
         alphas = alpha0 * beta ** ks.to(dtype)
         phis, lights = eval_grid(alphas)
         passes = armijo_mask(alphas, phis)
+        if opts.verbose:
+            print(f"    ls grid block {block}: alphas = {alphas.cpu().numpy()}, "
+                  f"phis = {phis.cpu().numpy()}")
         found = torch.any(passes)
         idx = torch.argmax(passes.to(torch.int32))
         k_acc, alpha_acc, phi_acc, light_acc = ks[idx], alphas[idx], phis[idx], pick(lights, idx)

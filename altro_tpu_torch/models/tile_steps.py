@@ -3,7 +3,7 @@
 Counterpart: altro_tpu/models/tile_steps.py (`bicycle_cols`,
 `midpoint_cols`, `rk4_cols`, `quadrotor_cols`, `block_from_cols`,
 `block_step_from_cols`, `midpoint_tile`, `rk4_tile`, `bicycle_tile`,
-`quadrotor_tile`, `pendulum_cols`), each with the same expression order
+`quadrotor_tile`, `pendulum_cols`, `pendulum_tile`), each with the same expression order
 as there.
 
 * Column form: a function takes tuples of per-component tensors that
@@ -39,6 +39,7 @@ __all__ = [
     "quadrotor_cols",
     "quadrotor_tile",
     "pendulum_cols",
+    "pendulum_tile",
 ]
 
 # Model and integrator codes shared with csrc/device_steps.cuh.
@@ -244,3 +245,9 @@ def pendulum_cols(mass=1.0, length=0.5, b=0.1, g=9.81):
 
     f.device_model = (MODEL_PENDULUM, 2, 1, tuple(float(v) for v in (mass, length, b, g)))
     return f
+
+
+def pendulum_tile(mass=1.0, length=0.5, b=0.1, g=9.81):
+    """Block form of models.pendulum.pendulum_continuous;
+    midpoint_tile(pendulum_tile(...)) names its device step."""
+    return block_from_cols(pendulum_cols(mass, length, b, g))

@@ -78,6 +78,15 @@ bench.py's closed loop (`child_main`, its problem, options, rescue and
   `bicycle_window_options` / `run_bicycle_window`
   (`bicycle_scotty_window_N30`, (4, 2)). Their problems are in
   reference_problems.py (the bicycle row's is `scotty_reference_problem`).
+* `run_pendulum_example`: examples/pendulum_swingup.py's `main`, the
+  canonical single solve, through the facade (`api.ALTROSolver`, N=50,
+  20 iterations, Verbosity.INNER); on the card the (2, 1) backward
+  kernel.
+* `pendulum_block_step_solver`: tests/test_api.py:250-293's configuration
+  through the facade, with or without the pendulum's block step; on the
+  card the (2, 1) backward kernel and (with it) the pendulum trial
+  kernel. `pendulum_trial_operands` builds that kernel's operands at any
+  N, W and row count.
 """
 
 from __future__ import annotations
@@ -85,7 +94,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -105,12 +114,13 @@ from altro_tpu_torch.models.tile_steps import (
     midpoint_cols,
     midpoint_tile,
     pendulum_cols,
+    pendulum_tile,
     quadrotor_cols,
     quadrotor_tile,
     rk4_cols,
     rk4_tile,
 )
-from altro_tpu_torch.options import SolverOptions
+from altro_tpu_torch.options import SolverOptions, Verbosity
 from altro_tpu_torch.parallel.batch import batch_init_state, batched_tracking_solver, solve_lanes
 from altro_tpu_torch.reference_problems import rocket_landing_problem
 from altro_tpu_torch.problem import (
@@ -181,6 +191,10 @@ __all__ = [
     "run_pendulum_bounded",
     "bicycle_window_options",
     "run_bicycle_window",
+    "ExampleResult",
+    "run_pendulum_example",
+    "pendulum_block_step_solver",
+    "pendulum_trial_operands",
 ]
 
 Q_DIAG = 1e-2
@@ -1302,3 +1316,119 @@ def run_bicycle_window(problem: Problem, state: SolverState,
     dense expansions with lux); opts default `bicycle_window_options()`."""
     opts = bicycle_window_options() if opts is None else opts
     return run_single_solve(problem, state, opts, layer_seconds)
+
+
+class ExampleResult(NamedTuple):
+    status: int
+    iterations: int
+    objective: float
+    x_N: list
+    ms: float  # the facade's solve time (the device synchronised)
+
+
+def run_pendulum_example(dtype=torch.float32, device="cuda") -> ExampleResult:
+    """examples/pendulum_swingup.py's `main`: one solve of the example's
+    facade, the pendulum swing-up (midpoint, N=50, tf=3), Q = 1e-2 (1 at
+    the terminal knot), R = 1e-3, 20 iterations, u = 0.1, printing at
+    Verbosity.INNER. Returns status, iterations, objective, x_N and the
+    solve's ms."""
+    from altro_tpu_torch.api import ALTROSolver
+
+    N, n, m = 50, 2, 1
+    xf = np.array([np.pi, 0.0])
+    solver = ALTROSolver(N, dtype=dtype, device=device)
+    solver.set_dimension(n, m)
+    solver.set_time_step(3.0 / N)
+    solver.set_explicit_dynamics(midpoint(pendulum_continuous()))
+    solver.set_lqr_cost(np.full(n, 1e-2), np.full(m, 1e-3), xf, np.zeros(m), 0, N)
+    solver.set_lqr_cost(np.ones(n), np.full(m, 1e-3), xf, np.zeros(m), N)
+    solver.set_initial_state(np.zeros(n))
+    solver.set_options(SolverOptions(iterations_max=20, verbose=Verbosity.INNER))
+    solver.initialize()
+    solver.set_input([0.1])
+    status = solver.solve()
+    return ExampleResult(int(status), solver.get_iterations(), solver.get_final_objective(),
+                         solver.get_state(solver.N).tolist(), solver.get_solve_time_ms())
+
+
+BLOCK_STEP_N = 30
+U_MAX = 6.0
+
+
+def pendulum_block_step_solver(with_tile: bool, dtype=torch.float32, device="cuda", **overrides):
+    """tests/test_api.py:250-293's configuration through the facade,
+    initialized: the pendulum swing-up (midpoint, N=30, h=0.06), Q = 0.1
+    toward (pi, 0), R = 1e-3, the input bounds |u| <= 6 (two affine
+    NEGATIVE_ORTHANT rows on u), u = 0.1, under the phase-split
+    Armijo-only grid of W=8 trials; with `with_tile` the block step
+    `midpoint_tile(pendulum_tile())`, so the solve runs the trial rollout
+    (on the card csrc/trial_rollout.cu's pendulum kernel). overrides are
+    SolverOptions fields."""
+    from altro_tpu_torch.api import ALTROSolver
+
+    N, n, m = BLOCK_STEP_N, 2, 1
+    s = ALTROSolver(N, dtype=dtype, device=device)
+    s.set_dimension(n, m)
+    s.set_time_step(0.06)
+    s.set_explicit_dynamics(midpoint(pendulum_continuous()))
+    s.set_lqr_cost(np.full(n, 1e-1), np.full(m, 1e-3), np.array([np.pi, 0.0]), np.zeros(m))
+    s.set_input_bounds(u_lo=[-U_MAX], u_hi=[U_MAX])
+    s.set_initial_state(np.zeros(n))
+    if with_tile:
+        s.set_tile_dynamics(midpoint_tile(pendulum_tile()))
+    s.initialize()
+    s.set_input(np.full((m,), 0.1), 0, N)
+    s.set_options(SolverOptions(**{**dict(
+        iterations_max=12, use_backtracking_linesearch=True, parallel_linesearch=True,
+        ls_phase_split=True, ls_try_cubic_first=False, ls_armijo_only=True, ls_max_iters=8,
+        throw_errors=False), **overrides}))
+    return s
+
+
+def pendulum_trial_operands(N: int, W: int, P: int, *, rows: str = "bounds", seed: int = 17,
+                            dtype=torch.float32, device="cuda"):
+    """Operands of one trial rollout (`ops.trial_rollout.trial_rollout`) of
+    the block-step configuration's search near the torque bound: alphas
+    0.5^w, references around a swing, gains, its cost rows (Q = 0.1
+    toward (pi, 0), R = 1e-3) and h = float32(0.06). With P = 2, the AL
+    rows (active-masked, rho-premultiplied, rho = 3, nonzero duals):
+    rows "bounds" are the ones the solve forms from |u| <= 6 (state
+    terms zero, off on the first third and at the terminal knot); rows
+    "state" are random affine rows in x and u, active at every knot, the
+    terminal knot's included. Returns (block step, operands, con), con
+    None at P = 0, its rhoi a one-element tensor."""
+    n, m = 2, 1
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device).contiguous()
+
+    sw = np.linspace(0.0, 1.0, N + 1)
+    xr = np.stack([np.pi * sw, 2.0 * np.ones(N + 1)], axis=1) + 0.1 * rng.standard_normal(
+        (N + 1, n))
+    Qd = np.full((N + 1, n), 0.1)
+    args = (t(0.5 ** np.arange(W)), t(0.05 * rng.standard_normal(n)), t(xr),
+            t(5.5 + 0.8 * rng.standard_normal((N, m))), t(0.5 * rng.standard_normal((N, m, n))),
+            t(1.5 * rng.standard_normal((N, m))), t(Qd), t(-Qd * np.array([np.pi, 0.0])),
+            t(np.full((N + 1, m), 1e-3)), t(np.zeros((N + 1, m))),
+            t(np.full(N + 1, 0.5 * 0.1 * np.pi ** 2)), t(np.full(N, float(np.float32(0.06)))))
+    con = None
+    if P:
+        rho = 3.0
+        if rows == "bounds":
+            act = np.ones((N + 1, P))
+            act[N] = 0.0
+            act[: N // 3] = 0.0
+            wa = np.zeros((N + 1, P, n))
+            wu = rho * np.array([[1.0], [-1.0]])[None].repeat(N + 1, 0) * act[..., None]
+            wg = (np.abs(rng.standard_normal((N + 1, P))) + rho * U_MAX) * act
+        elif rows == "state":  # w = rho (g - a.x - b.u), about half of it negative
+            a, b = rng.standard_normal((N + 1, P, n)), rng.standard_normal((N + 1, P, m))
+            uc = np.concatenate([args[3].cpu().numpy(), np.zeros((1, m))])
+            g = (np.einsum("kpi,ki->kp", a, xr) + np.einsum("kpj,kj->kp", b, uc)
+                 + 0.5 * rng.standard_normal((N + 1, P)))
+            wa, wu, wg = rho * a, rho * b, rho * g
+        else:
+            raise ValueError(f"rows must be 'bounds' or 'state', not {rows!r}")
+        con = (t(wa), t(wu), t(wg), t([1.0 / (2.0 * rho)]))
+    return midpoint_tile(pendulum_tile()), args, con

@@ -22,7 +22,8 @@ rho-premultiplied as the solver builds it. The kernel
 trial walk the state chain, splitting the model's steering-angle terms
 between them, and a lane of another warp per trial accumulates the merit
 behind them; for the quadrotor's RK4 step, three lanes per trial (one a
-body axis) walk the chain on the same pipeline.
+body axis) walk the chain on the same pipeline; for the pendulum's
+midpoint step, one lane per trial.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from altro_tpu_torch.models.tile_steps import (
     INTEGRATOR_MIDPOINT,
     INTEGRATOR_RK4,
     MODEL_BICYCLE,
+    MODEL_PENDULUM,
     MODEL_QUADROTOR,
 )
 from altro_tpu_torch.ops import _build
@@ -66,9 +68,10 @@ KERNEL_P = (0, 2)
 # (model, integrator) pairs the CUDA kernel has a __device__ step for, and
 # the constraint row counts each step is instantiated with (the bicycle in
 # the two-lanes-a-trial kernel, the quadrotor in the three-lanes-a-trial
-# kernel).
+# kernel, the pendulum in the one-lane-a-trial kernel).
 DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): ("bicycle_midpoint", KERNEL_P),
-                (MODEL_QUADROTOR, INTEGRATOR_RK4): ("quadrotor_rk4", (0,))}
+                (MODEL_QUADROTOR, INTEGRATOR_RK4): ("quadrotor_rk4", (0,)),
+                (MODEL_PENDULUM, INTEGRATOR_MIDPOINT): ("pendulum_midpoint", KERNEL_P)}
 
 
 def problem_ineligibility(problem, rows: bool = True) -> Optional[str]:
@@ -96,7 +99,8 @@ def problem_ineligibility(problem, rows: bool = True) -> Optional[str]:
 def ineligibility(step_tile, n: int, m: int, W: int = 1, P: int = 0) -> Optional[str]:
     """Why the kernel cannot run this block step with W trials and P
     constraint rows, or None when it can (an instantiation exists; every
-    bicycle frame has one, the quadrotor's RK4 step one at P=0)."""
+    bicycle frame and the pendulum's midpoint step have one at P=0 and
+    P=2, the quadrotor's RK4 step one at P=0)."""
     ds = getattr(step_tile, "device_step", None)
     if ds is None:
         return "the block step names no device step (models/tile_steps.py)"

@@ -19,7 +19,8 @@ Conventions of the port:
   `parallel.batch.batched_tracking_solver` gives them.
 * Jacobians of user callables come from forward-mode automatic
   differentiation over the batch (`lane_jacobian`), the counterpart of
-  `jax.jacfwd`.
+  `jax.jacfwd`; GenericCost's gradients and Hessians from `torch.func`'s
+  forward mode, vmapped over the knots and lanes.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ from altro_tpu_torch.cones import Cone
 
 __all__ = [
     "DiagonalCost",
+    "QuadraticCost",
+    "GenericCost",
     "ConstraintSpec",
     "Problem",
     "lqr_cost_from_reference",
@@ -151,6 +154,137 @@ class DiagonalCost:
             x.shape[0], -1, -1, x.shape[-1])
 
 
+def _mv(M, v):
+    """Per-knot matrix times lane vectors: M [K, a, b], v [K, b, B] -> [K, a, B]."""
+    return torch.einsum("kij,kjb->kib", M, v)
+
+
+def _lanes_of(M, B):
+    """Knot-stacked matrices [K, a, b] shared by B lanes, as [K, a, b, B]."""
+    return M[..., None].expand(*M.shape, B)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadraticCost:
+    """0.5 x'Qx + q'x + 0.5 u'Ru + r'u + u'Hx + c, stacked over knots.
+
+    Q: [N+1, n, n];  R: [N+1, m, m];  H: [N+1, m, n];  q, r, c as in
+    DiagonalCost (shared by all lanes). Its Hessians are dense, so the
+    solve takes the dense expansions with lux (al.diag_expansion_eligible
+    is False).
+    """
+
+    Q: torch.Tensor
+    R: torch.Tensor
+    H: torch.Tensor
+    q: torch.Tensor
+    r: torch.Tensor
+    c: torch.Tensor
+
+
+    def stage_value(self, ks, x, u):
+        Q, R, H = self.Q[ks], self.R[ks], self.H[ks]
+        return (
+            0.5 * torch.sum(x * _mv(Q, x), dim=1)
+            + torch.sum(_rows(self.q, ks) * x, dim=1)
+            + 0.5 * torch.sum(u * _mv(R, u), dim=1)
+            + torch.sum(_rows(self.r, ks) * u, dim=1)
+            + torch.sum(u * _mv(H, x), dim=1)
+            + self.c[ks][:, None]
+        )
+
+    def term_value(self, x):
+        Q = self.Q[-1].expand(x.shape[0], -1, -1)
+        return (0.5 * torch.sum(x * _mv(Q, x), dim=1) + torch.sum(_last(self.q) * x, dim=1)
+                + self.c[-1])
+
+    def stage_grad(self, ks, x, u):
+        Q, R, H = self.Q[ks], self.R[ks], self.H[ks]
+        lx = _mv(Q, x) + _rows(self.q, ks) + _mv(H.transpose(1, 2), u)
+        lu = _mv(R, u) + _rows(self.r, ks) + _mv(H, x)
+        return lx, lu
+
+    def term_grad(self, x):
+        return _mv(self.Q[-1].expand(x.shape[0], -1, -1), x) + _last(self.q)
+
+    def stage_hess(self, ks, x, u):
+        B = x.shape[-1]
+        return (_lanes_of(self.Q[ks], B), _lanes_of(self.R[ks], B),
+                _lanes_of(self.H[ks], B))
+
+    def term_hess(self, x):
+        return _lanes_of(self.Q[-1].expand(x.shape[0], -1, -1), x.shape[-1])
+
+
+@dataclasses.dataclass(frozen=True)
+class GenericCost:
+    """User cost callables: `stage(x, u, k)` and `term(x)`, each on
+    component-first tensors with trailing batch dims (`x [n, *batch]`,
+    `u [m, *batch]`, k an int or an integer tensor broadcasting against
+    them), returning one value per batch entry, `[*batch]`.
+
+    Values evaluate the callables on whole knot stacks at once. Gradients
+    and Hessians are forward-mode derivatives of the callable on one lane
+    (`torch.func.jacfwd`), vmapped over every knot and lane; lux is the
+    Jacobian in x of the u-gradient, as in JAX. Results are cast to the
+    input dtype (forward mode through `torch.stack` can return float64
+    for float32 inputs).
+    """
+
+    stage: Callable[..., torch.Tensor]
+    term: Callable[..., torch.Tensor]
+
+
+    def stage_value(self, ks, x, u):
+        out = self.stage(x.movedim(1, 0), u.movedim(1, 0), ks[:, None])
+        return out.to(x.dtype).expand(x.shape[0], x.shape[-1])
+
+    def term_value(self, x):
+        return self.term(x.movedim(1, 0)).to(x.dtype).expand(x.shape[0], x.shape[-1])
+
+    def _stage_derivs(self, ks, x, u, order):
+        """Per (knot, lane): the gradient of stage in (x, u) (order 1) or its
+        Hessian (order 2), [K, B, n+m(, n+m)]."""
+        from torch.func import jacfwd, vmap
+
+        K, n, B = x.shape
+        m = u.shape[1]
+        z = torch.cat([x, u], dim=1).permute(0, 2, 1).reshape(K * B, n + m)
+        kk = ks[:, None].expand(K, B).reshape(K * B)
+
+        def f(zl, kl):
+            return self.stage(zl[:n], zl[n:], kl)
+
+        d = jacfwd(f) if order == 1 else jacfwd(jacfwd(f))
+        out = vmap(d)(z, kk).to(x.dtype)
+        return out.reshape((K, B) + out.shape[1:])
+
+    def _term_derivs(self, x, order):
+        from torch.func import jacfwd, vmap
+
+        K, n, B = x.shape
+        xl = x.permute(0, 2, 1).reshape(K * B, n)
+        d = jacfwd(self.term) if order == 1 else jacfwd(jacfwd(self.term))
+        out = vmap(d)(xl).to(x.dtype)
+        return out.reshape((K, B) + out.shape[1:])
+
+    def stage_grad(self, ks, x, u):
+        n = x.shape[1]
+        g = self._stage_derivs(ks, x, u, 1).permute(0, 2, 1)  # [K, n+m, B]
+        return g[:, :n], g[:, n:]
+
+    def term_grad(self, x):
+        return self._term_derivs(x, 1).permute(0, 2, 1)
+
+    def stage_hess(self, ks, x, u):
+        n = x.shape[1]
+        Hm = self._stage_derivs(ks, x, u, 2).permute(0, 2, 3, 1)  # [K, n+m, n+m, B]
+        return Hm[:, :n, :n], Hm[:, n:, n:], Hm[:, n:, :n]
+
+    def term_hess(self, x):
+        return self._term_derivs(x, 2).permute(0, 2, 3, 1)
+
+
 def lqr_cost_from_reference(Q_diag, R_diag, x_ref, u_ref, terminal_index=None) -> DiagonalCost:
     """Diagonal tracking cost 0.5|x-xref|^2_Q + 0.5|u-uref|^2_R expanded to
     (q, r, c); the terminal knot's constant has no input term.
@@ -223,7 +357,7 @@ class Problem:
     dynamics: Callable[..., torch.Tensor]
     dynamics_jac: Optional[Callable[..., torch.Tensor]]
     constraints: Tuple[ConstraintSpec, ...]
-    cost: DiagonalCost
+    cost: object  # DiagonalCost, QuadraticCost or GenericCost
     h: torch.Tensor  # [N]
     x0: torch.Tensor
     dynamics_cols: Optional[Callable[..., tuple]] = None

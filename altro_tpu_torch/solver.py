@@ -7,8 +7,8 @@ Counterpart: altro_tpu/solver.py (`SolverState`, `SolveStats`,
 `light_from_xstack`, `al_gradients`, `complete_merit_payload`,
 `merit0_derivative`, `dynamics_expansions`, `_cost_expansions_and_cost`,
 `_cost_expansions_and_cost_diag`, `_retry_loop`, `backward_adaptive`,
-`_alpha0_merit_out`, `_trajectory_convals`). The batched solve is
-tile_solver.solve_tiled.
+`_alpha0_merit_out`, `_trajectory_convals`, `al_total_cost`). The
+batched solve is tile_solver.solve_tiled.
 
 `SolverState` and `SolveStats` hold tensors in either layout: one lane
 (the JAX layout, `x [N+1, n]`, scalars 0-dim), batch-major ([B, ...])
@@ -35,9 +35,13 @@ adaptive-regularization retry; then one of
 and the status chain, the dual/penalty update and ls_failure_recovery.
 The JAX `lax.while_loop` becomes a Python loop with one host sync per
 iteration on `stop` (plus one per backward retry, per extra grid block
-and per strong-Wolfe trial). Options it does not implement raise
-NotImplementedError naming the option (`single_lane_refusal`), as does a
-CUDA problem the kernels cannot take.
+and per strong-Wolfe trial). The verbosity tiers and `iteration_callback`
+(the JAX solve's `jax.debug.print` / `debug_callback` sites) are host
+prints and calls in that loop, with JAX's format strings; at
+Verbosity.SILENT without a callback they read nothing from the device.
+Options it does not implement raise NotImplementedError naming the
+option (`single_lane_refusal`), as does a CUDA problem the kernels cannot
+take.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 from altro_tpu_torch import al, cones
 from altro_tpu_torch.linesearch import (
     LineSearchOptions,
+    _read,
     parallel_backtracking_search,
     parallel_backtracking_search_split,
     tree_map,
@@ -89,6 +94,7 @@ __all__ = [
     "feasibility",
     "complementarity",
     "total_cost",
+    "al_total_cost",
 ]
 
 
@@ -205,7 +211,6 @@ def total_cost(problem: Problem, x, u):
 # ---------------------------------------------------------------------------
 
 _UNSOLVED = int(SolveStatus.UNSOLVED)
-
 
 
 class _Span:
@@ -338,6 +343,20 @@ def al_gradients(problem: Problem, x, u, z, rho):
     lxN, _ = al.al_grad(problem, kN, xl[N:], None, tuple(zj[N:] for zj in zl), r,
                         terminal=True)
     return _u(torch.cat([lx_st, lxN], dim=0)), _u(lu)
+
+
+def al_total_cost(problem: Problem, x, u, z, rho):
+    """Objective + AL penalty terms along one lane's trajectory (the
+    reference's CalcCost, solver.cpp:163-174): x [N+1, n], u [N, m], z per
+    group [N+1, p], rho 0-dim; returns a 0-dim tensor."""
+    N = problem.N
+    ks, kN = _knots(problem, x.device)
+    zl, r = _lz(z), rho.reshape(1)
+    stage, _, _ = al.al_cost(problem, ks, _l(x[:N]), _l(u), tuple(zj[:N] for zj in zl), r,
+                             terminal=False)
+    term, _, _ = al.al_cost(problem, kN, _l(x[N:]), None, tuple(zj[N:] for zj in zl), r,
+                            terminal=True)
+    return torch.sum(stage) + term[0, 0]
 
 
 def dynamics_expansions(problem: Problem, x, u):
@@ -516,8 +535,6 @@ def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
                                "ported for the single-lane solve"),
         (opts.parallel_riccati, "parallel_riccati is not ported"),
         (opts.exact_al_hessian, "exact_al_hessian is not ported"),
-        (opts.iteration_callback is not None, "iteration_callback is not ported"),
-        (opts.verbose != Verbosity.SILENT, "verbose output is not ported"),
         (_phase_split(opts) and not opts.ls_grid_x_only,
          "ls_grid_x_only=False (the light-payload grid) is not ported"),
     )
@@ -553,6 +570,29 @@ def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
             return (f"pallas_rollout: the trial-rollout kernel (trial_rollout): {grid_why}; "
                     f"pallas_rollout=False selects the problem's own grid")
     return None
+
+
+def _report(opts: SolverOptions, it, phi0, dphi0, m, alpha, ls_iters, stat, feas, rho,
+            rho_new, do_dual):
+    """One iteration's `iteration_callback(iter, phi, stat, feas, alpha,
+    rho)` and its INNER or OUTER line (altro_tpu/solver.py:1176-1200), from
+    one host read; nothing at SILENT without a callback."""
+    inner = opts.verbose >= Verbosity.INNER
+    outer = opts.verbose == Verbosity.OUTER
+    if opts.iteration_callback is None and not (inner or outer):
+        return
+    p0, p, d0, d, a, li, s, f, r, rn, du = _read(
+        float, phi0, m.phi, dphi0, m.dphi, alpha, ls_iters, stat, feas, rho, rho_new, do_dual)
+    if opts.iteration_callback is not None:
+        opts.iteration_callback(it, p, s, f, a, r)
+    if inner:
+        print("  iter = {i}, phi = {p0:.6} -> {p:.6}, dphi = {d0:.4} -> {d:.4}, "
+              "alpha = {a:.4}, ls_iter = {li}, stat = {s:.4}, feas = {f:.4}, "
+              "rho = {r:.3}, dual update? {du}".format(
+                  i=it, p0=p0, p=p, d0=d0, d=d, a=a, li=int(li), s=s, f=f, r=r, du=bool(du)))
+    elif outer and du:
+        print("  outer: iter = {i}, phi = {p:.6}, stat = {s:.4}, "
+              "feas = {f:.4}, rho = {r:.3} -> {rn:.3}".format(i=it, p=p, s=s, f=f, r=r, rn=rn))
 
 
 def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOptions(),
@@ -604,7 +644,7 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
         beta_decrease=opts.ls_beta_decrease, min_interval_size=opts.ls_min_interval_size,
         try_cubic_first=opts.ls_try_cubic_first,
         use_backtracking=opts.use_backtracking_linesearch,
-        armijo_slack=opts.ls_armijo_slack)
+        armijo_slack=opts.ls_armijo_slack, verbose=opts.verbose >= Verbosity.LINE_SEARCH)
 
     rho = torch.tensor(opts.penalty_initial, **kw)
     if opts.penalty_warm_start:
@@ -634,6 +674,9 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
         rollout_con = (ax * act[..., None], au * act[..., None], g_raw, act)
 
     y, z, K, d, P, p = state.y, state.z, state.K, state.d, state.P, state.p
+    if opts.verbose > Verbosity.SILENT:  # altro_tpu/solver.py:790-794
+        print("STARTING ALTRO iLQR SOLVE....\n  Initial Cost: {c}".format(
+            c=float(al_total_cost(problem, x, u, z, rho))))
     reg = torch.tensor(opts.reg_initial, **kw)
     status = torch.tensor(_UNSOLVED, dtype=torch.int32, device=dev)
     phi = torch.zeros((), **kw)
@@ -790,6 +833,8 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
             else:
                 stop_t = converged | ls_failed | bp_failed
             stop_t = stop_t | diverged
+            _report(opts, it, phi0, dphi0, m, alpha, ls.n_iters, stat, feas, rho, rho_new,
+                    do_dual)
 
             x, u, y, z, rho = m.x, m.u, m.y, z_new, rho_new
             K, d, P, p, reg = gains.K, gains.d, gains.P, gains.p, reg_used
@@ -801,6 +846,8 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
         with span("sync"):
             stop = bool(stop_t)  # the iteration's host sync
 
+    if opts.verbose > Verbosity.SILENT:  # altro_tpu/solver.py:1232-1236
+        print(f"ALTRO SOLVE FINISHED! iterations = {it}, status = {int(status)}")
     if it >= opts.iterations_max:
         status = torch.where(status == _UNSOLVED, code(SolveStatus.MAX_ITERATIONS), status)
     new_state = SolverState(x=x, u=u, y=y, z=z, rho=rho, K=K, d=d, P=P, p=p, reg=reg)

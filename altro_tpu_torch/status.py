@@ -1,9 +1,9 @@
 """Solver status and error codes (PyTorch port).
 
-Counterpart: altro_tpu/status.py (SolveStatus, ErrorCode, LineSearchCode),
-copied value for value so a status code means the same in both packages.
-A batched solve carries the status per lane as an int32 tensor.
-AltroError comes with the facade.
+Counterpart: altro_tpu/status.py (SolveStatus, ErrorCode, LineSearchCode,
+AltroError), copied value for value so a status code means the same in
+both packages. A batched solve carries the status per lane as an int32
+tensor; the facade (api.ALTROSolver) raises AltroError.
 """
 
 from __future__ import annotations
@@ -67,3 +67,12 @@ class LineSearchCode(enum.IntEnum):
     MAX_ITERATIONS = 6
     HIT_MAX_STEPSIZE = 7
     BEST_DECREASE = 8
+
+
+class AltroError(RuntimeError):
+    """Host-side exception raised by the facade (api.ALTROSolver); `.code`
+    is its ErrorCode."""
+
+    def __init__(self, code: ErrorCode, msg: str = ""):
+        super().__init__(f"[{code.name}] {msg}")
+        self.code = code

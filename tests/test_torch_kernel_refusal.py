@@ -349,3 +349,66 @@ def test_default_options_vmap_solve_refuses_a_shape_before_launching():
                        match="batched_tracking_solver: .*riccati_dense.*n=4, m=1"):
         batch.batched_tracking_solver(prob, opts)(_OnCard(), None, None, None)
     assert tsv.kernel_refusal(prob, SolverOptions(), vmapped=True) is None
+
+
+def _facade_on_card(build):
+    """A facade built on the CPU whose problem then claims to lie on the
+    card (the stand-in x0): its solve must refuse before anything runs."""
+    s = build()
+    s._problem = dataclasses.replace(s.problem, x0=_OnCard())
+    return s
+
+
+def _facade_3x2():
+    """tests/test_hetero_dims.py's phase B alone: (n, m) = (3, 2), a shape
+    the single-lane backward kernel has no instantiation for."""
+    from altro_tpu_torch.api import ALTROSolver
+
+    s = ALTROSolver(10, device="cpu")
+    s.set_dimension(3, 2)
+    s.set_time_step(0.1)
+    s.set_explicit_dynamics(lambda x, u, h, k: torch.stack(
+        [x[0] + x[1] * h + 0.5 * u[0] * h * h, x[1] + (u[0] - u[1] * x[1]) * h, x[2] + x[0] * h]))
+    s.set_lqr_cost([1.0, 1.0, 0.5], [0.1, 0.1], [1.0, 0.0, 0.0], [0.0, 0.0])
+    s.initialize()
+    return s
+
+
+def _facade_foreign_block_step():
+    """tests/test_api.py:250-293's configuration with a block step that
+    names no device step (a pendulum written here, not pendulum_tile)."""
+    from altro_tpu_torch.api import ALTROSolver
+    from altro_tpu_torch.models.integrators import midpoint
+    from altro_tpu_torch.models.pendulum import pendulum_continuous
+    from altro_tpu_torch.models.tile_steps import midpoint_tile
+
+    f = pendulum_continuous()
+    s = ALTROSolver(30, device="cpu")
+    s.set_dimension(2, 1)
+    s.set_time_step(0.06)
+    s.set_explicit_dynamics(midpoint(f))
+    s.set_lqr_cost([0.1, 0.1], [1e-3], [3.14159, 0.0], [0.0])
+    s.set_input_bounds(u_lo=[-6.0], u_hi=[6.0])
+    s.set_tile_dynamics(midpoint_tile(lambda x, u: f(x.T, u.T).T))
+    s.initialize()
+    s.set_options(SolverOptions(use_backtracking_linesearch=True, parallel_linesearch=True,
+                                ls_phase_split=True, ls_armijo_only=True))
+    return s
+
+
+@pytest.mark.parametrize("build, words, plain", [
+    (_facade_3x2, ("riccati_latency", "n=3, m=2", "pallas_latency_backward=False"),
+     dict(pallas_latency_backward=False)),
+    (_facade_foreign_block_step, ("trial_rollout", "names no device step",
+                                  "pallas_rollout=False"), dict(pallas_rollout=False)),
+], ids=["3x2", "foreign_block_step"])
+def test_facade_refuses_on_the_card_before_anything_runs(build, words, plain):
+    """A facade problem on the card that no kernel takes is refused by its
+    solve before anything launches; the message names the option that
+    selects the plain path, and with it the refusal is gone."""
+    s = _facade_on_card(build)
+    with pytest.raises(NotImplementedError) as e:
+        s.solve()
+    for word in words:
+        assert word in str(e.value), (word, str(e.value))
+    assert solver.single_lane_refusal(s.problem, s._opts.replace(**plain)) is None

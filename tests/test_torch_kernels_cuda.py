@@ -1009,3 +1009,78 @@ def test_solve_tiled_symmetrize_on_card_equals_plain_option(dev):
     (sa, ta), (sb, tb) = out
     assert torch.equal(ta.status, tb.status) and torch.equal(ta.iterations, tb.iterations)
     assert torch.equal(sa.x, sb.x) and torch.equal(sa.u, sb.u)
+
+
+def _check_pend_trial(dev, Nk, W, P, rows):
+    """The one-lane-a-trial kernel on the pendulum's midpoint block step
+    against its plain version on `mpc.pendulum_trial_operands`: phi to
+    1e-4 relative, states to 1e-4 of their scale."""
+    from altro_tpu_torch.mpc import pendulum_trial_operands
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    step, args, con = pendulum_trial_operands(Nk, W, P, rows=rows, device=dev)
+    before = tr.LAUNCHES
+    pk, xk = tr.trial_rollout(step, *args, con=con)
+    pr, xs = tr.trial_rollout_ref(step, *args, con=con)
+    torch.cuda.synchronize()
+    assert tr.LAUNCHES == before + 1
+    assert pk.shape == (W,) and xk.shape == (W, Nk + 1, 2)
+    assert bool(torch.isfinite(pk).all())
+    assert float(((pk - pr).abs() / pr.abs().clamp(min=1.0)).max()) < 1e-4
+    assert float((xk - xs).abs().max()) < 1e-4 * max(1.0, float(xs.abs().max()))
+
+
+@pytest.mark.parametrize("P, rows", [(0, "bounds"), (2, "bounds"), (2, "state")],
+                         ids=["0", "2", "2-state"])
+@pytest.mark.parametrize("W", [1, 8, 32])
+@pytest.mark.parametrize("Nk", [1, 7, 8, 9, 30, 31, 32, 33, 64, 65])
+def test_trial_rollout_kernel_pendulum_matches_plain(dev, P, rows, W, Nk):
+    """W from one lane to the warp, N at its 32-knot chunk edges and the
+    facade's N=30; at P = 2 the bound rows the facade's solve forms, and
+    random rows in x and u active at every knot (their state terms and
+    the terminal knot's rows)."""
+    _check_pend_trial(dev, Nk, W, P, rows)
+
+
+def test_trial_rollout_kernel_pendulum_refuses_other_rows(dev):
+    from altro_tpu_torch.mpc import pendulum_trial_operands
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    step, args, _ = pendulum_trial_operands(30, 8, 0, device=dev)
+    con = (torch.zeros((31, 1, 2), device=dev), torch.zeros((31, 1, 1), device=dev),
+           torch.zeros((31, 1), device=dev), 0.5)
+    before = tr.LAUNCHES
+    with pytest.raises(NotImplementedError, match=r"P=1.*pendulum_midpoint"):
+        tr.trial_rollout(step, *args, con=con)
+    assert tr.LAUNCHES == before
+
+
+def test_facade_block_step_launches_both_kernels(dev):
+    """tests/test_api.py:250-293's configuration through the facade on the
+    card in f32: with the block step the solve launches the pendulum trial
+    kernel and the (2, 1) latency kernel, and agrees with the plain grid;
+    a (3, 2) facade problem is refused before anything launches."""
+    from altro_tpu_torch import ALTROSolver
+    from altro_tpu_torch.mpc import pendulum_block_step_solver as build
+    from altro_tpu_torch.ops import riccati_latency as rl
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    tile, plain = build(True, device=dev), build(False, device=dev, pallas_rollout=False)
+    before = (rl.LAUNCHES, tr.LAUNCHES)
+    st = tile.solve()
+    assert rl.LAUNCHES > before[0] and tr.LAUNCHES > before[1]
+    assert plain.solve() == st
+    assert plain.get_iterations() == tile.get_iterations()
+    assert float((tile.state.u - plain.state.u).abs().max()) < 1e-3
+
+    s = ALTROSolver(10, device=dev)
+    s.set_dimension(3, 2)
+    s.set_time_step(0.1)
+    s.set_explicit_dynamics(lambda x, u, h, k: torch.stack(
+        [x[0] + x[1] * h, x[1] + (u[0] - u[1] * x[1]) * h, x[2] + x[0] * h]))
+    s.set_lqr_cost([1.0, 1.0, 0.5], [0.1, 0.1], [1.0, 0.0, 0.0], [0.0, 0.0])
+    s.initialize()
+    before = (rl.LAUNCHES, tr.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="pallas_latency_backward=False"):
+        s.solve()
+    assert (rl.LAUNCHES, tr.LAUNCHES) == before

@@ -7,8 +7,9 @@ bounds |u| <= 6 as the facade declares them: two affine NEGATIVE_ORTHANT
 rows with a diagonal Hessian on the stage knots, u = 0.1) under the
 phase-split Armijo-only grid with the default `pallas_rollout` and no
 block step: JAX's solve falls back to its scan grid. The port's
-`solver.solve` on the same problem, built through its `Problem` (the
-facade is not ported), does the same on the CPU in f64: status,
+`solver.solve` on the same problem, built here through its `Problem`
+(tests/test_torch_api_block_step.py builds it through the port's
+facade), does the same on the CPU in f64: status,
 iterations and ls_iterations equal, x and u to 1e-8, nothing launched.
 On the card such a problem is refused before the solve starts
 (tests/test_torch_single_solve.py::test_solve_refuses_ineligible_trial_grid).

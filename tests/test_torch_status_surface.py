@@ -1,14 +1,15 @@
 """The port's status surface against altro_tpu, solve for solve.
 
-The cases of tests/test_status_surface.py (the facade's case, which
-needs `api.ALTROSolver`, is not ported): MERIT_FUN_GRADIENT_TOO_SMALL
+The cases of tests/test_status_surface.py: MERIT_FUN_GRADIENT_TOO_SMALL
 kept through the loop and cleared by a real step, the divergence guards
 (MAX_OBJECTIVE_EXCEEDED, STATE_OUT_OF_BOUNDS, INPUT_OUT_OF_BOUNDS) off
 by default, and bp_fail_index (N when the backward pass holds, the
 failing knot with BACKWARD_PASS_FAILED). Unconstrained double
 integrator (N=10), default strong-Wolfe search, f64 on the CPU: status,
 iterations, bp_fail_index and alpha equal to JAX's, and the JAX test's
-own expectation.
+own expectation. The facade's case (test_status_surface.py:141): under
+`throw_errors` both facades return MERIT_FUN_GRADIENT_TOO_SMALL without
+raising.
 """
 
 import numpy as np
@@ -85,3 +86,29 @@ def test_status_surface_matches_jax(case):
         assert int(stats.bp_fail_index) == N
     if case == "bp_fail_index_reports_failing_knot":
         assert int(stats.bp_fail_index) == 0
+
+
+def test_api_merit_gradient_too_small_is_benign():
+    """throw_errors does not raise on MERIT_FUN_GRADIENT_TOO_SMALL (the
+    reference loop returns NoError through it, solver.cpp:451)."""
+    from altro_tpu.api import ALTROSolver as JSolver
+    from altro_tpu_torch.api import ALTROSolver
+    from altro_tpu_torch.models.double_integrator import double_integrator_dynamics
+
+    statuses = []
+    for lib in ("jax", "torch"):
+        if lib == "jax":
+            s, dyn, Opts = JSolver(N), jdyn(2), JOpts
+        else:
+            s = ALTROSolver(N, dtype=torch.float64, device="cpu")
+            dyn, Opts = double_integrator_dynamics(2), SolverOptions
+        s.set_dimension(4, 2)
+        s.set_time_step(rp.DI_H)
+        s.set_explicit_dynamics(lambda x, u, h, k, dyn=dyn: dyn(x, u, h, k))
+        s.set_lqr_cost(np.ones(4), np.full(2, 1e-2), np.zeros(4), np.zeros(2))
+        s.set_initial_state([1.0, 2.0, 0.0, 0.0])
+        s.initialize()
+        s.set_options(Opts(iterations_max=2, tol_meritfun_gradient=1e10,
+                           tol_stationarity=1e-12, throw_errors=True))
+        statuses.append((int(s.solve()), s.get_iterations()))  # must not raise
+    assert statuses[1] == statuses[0] == (int(SolveStatus.MERIT_FUN_GRADIENT_TOO_SMALL), 2)

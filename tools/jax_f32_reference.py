@@ -5,6 +5,8 @@
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --pendulum --rocket [--lanes B]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --batched-tracking [--lanes B]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --single-lane-rows
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --facade
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --quadrotor-vmapped [--ticks T] [--lanes B]
 
 Runs altro_tpu (the reference package, not the port) in float32 on the
 CPU: the three double integrator oracles of
@@ -64,6 +66,26 @@ single-lane rows of scripts/bench_all.py with its `f32opts`
 `bicycle_scotty_window_N30`; status, iterations, objective, feasibility,
 x_N), each beside the same solve in float64: what chip_smoke.py's gates
 of those solves rest on.
+
+With --quadrotor-vmapped it runs the vmapped quadrotor waypoint row
+(`quadrotor_waypoint_mpc_B1024`, bench_all.py:322-512) through
+jax.vmap(solve) with the row's options and the scan backward, on the
+first B of the port's starts for T ticks (`--ticks`; `--ticks` also sets
+the batched tracking's sequential-backtracking ticks): success rate,
+final waypoint distance and mean iterations at a cut depth, what
+chip_smoke.py's `quadrotor_mpc` gates rest on. Each lane's iterates do
+not depend on the others, so B=256 gives the first 256 lanes of B=1024.
+
+With --facade it runs altro_tpu's `ALTROSolver` in float32 and float64:
+examples/pendulum_swingup.py's solve (status, iterations, objective,
+x_N); tests/test_api.py:250-293's pendulum configuration with and without
+the block step `midpoint_tile(pendulum_tile())` (status, iterations, u;
+the largest u difference between JAX's two float32 runs and between each
+and its float64 run); and test_api.py's double-integrator facade cases in
+float32 at the bench's stationarity tolerance 1e-3 (the goal, the
+quadratic cost with a cross term and the generic cost: status,
+iterations, x_N and its distance from the float64 run's): what
+chip_smoke.py's `facade` gates rest on.
 """
 
 from __future__ import annotations
@@ -163,16 +185,15 @@ QUAD_HOVER = 0.5 * 9.81 / 4.0
 QUAD_WAYPOINTS = ((1.0, 0.0, 1.0), (1.0, 1.0, 1.5), (0.0, 1.0, 1.0), (0.0, 0.0, 0.5))
 
 
-def quadrotor_rows(lanes, ticks=100, switch_every=25, N=30):
-    """The two quadrotor rows (scripts/bench_all.py:322-564) in float32."""
+def _quadrotor_setup(lanes, ticks, switch_every, N):
+    """The quadrotor waypoint problem of scripts/bench_all.py:322-564 in
+    float32, its waypoint cost rows, the tick's waypoint index, the starts
+    the port draws and the row's summary."""
     import torch
 
-    from altro_tpu import tile_solver as tsv
     from altro_tpu.models.integrators import rk4
     from altro_tpu.models.quadrotor import quadrotor_continuous
     from altro_tpu.models.tile_steps import quadrotor_cols, quadrotor_tile, rk4_cols, rk4_tile
-    from altro_tpu.ops.tile_iter import tile_vmap
-    from altro_tpu.parallel.batch import batch_init_state
 
     n, m = 12, 4
     Qd = np.tile(np.concatenate([np.full(3, 1.0), np.full(9, 0.1)]), (N + 1, 1))
@@ -197,14 +218,6 @@ def quadrotor_rows(lanes, ticks=100, switch_every=25, N=30):
     x0 = (0.05 * torch.randn((1024, n), generator=gen, dtype=torch.float64)).numpy()
     x0 = np.resize(x0, (lanes, n)).astype(np.float32)
     final_wp = wps[wp_idx[-1], :3]
-    # the tiled row's options (bench_all.py:371-398, tiled branch), the scan grid
-    qopts = SolverOptions(
-        iterations_max=15, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
-        throw_errors=False, rti_mode=False, use_backtracking_linesearch=True,
-        parallel_linesearch=True, ls_phase_split=True, ls_try_cubic_first=False,
-        ls_max_iters=8, penalty_warm_start=True, ls_armijo_only=True,
-        tol_stationarity_rel=1e-5, pallas_backward=True, pallas_rollout_tiled=False,
-        ls_armijo_slack=1e-6)
 
     def row(name, iters, statuses, x_final, seconds):
         dist = np.linalg.norm(np.asarray(x_final, np.float64)[:, :3] - final_wp[None], axis=1)
@@ -213,6 +226,67 @@ def quadrotor_rows(lanes, ticks=100, switch_every=25, N=30):
                 "mean_final_waypoint_dist": float(dist.mean()),
                 "mean_iterations": float(np.mean(iters)),
                 "max_iterations_of_a_tick": int(np.max(iters)), "cpu_seconds": seconds}
+
+    return problem, dyn, q_wp, c_wp, wp_idx, x0, row
+
+
+def quadrotor_vmapped_row(lanes, ticks=100, switch_every=25, N=30):
+    """The vmapped quadrotor waypoint row (`quadrotor_waypoint_mpc_B1024`,
+    bench_all.py:322-512, its non-tiled branch) in float32 through
+    jax.vmap(solve) on `lanes` of the port's starts, with the row's options
+    and the scan backward (`pallas_backward=False`: the same steps), for
+    `ticks` ticks."""
+    import time
+
+    from altro_tpu.parallel.batch import batch_init_state
+
+    problem, dyn, q_wp, c_wp, wp_idx, x0, row = _quadrotor_setup(lanes, ticks, switch_every, N)
+    m = problem.m
+    vopts = SolverOptions(
+        iterations_max=15, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+        throw_errors=False, rti_mode=False, use_backtracking_linesearch=True,
+        parallel_linesearch=True, ls_phase_split=True, ls_try_cubic_first=False,
+        ls_max_iters=8, penalty_warm_start=True, ls_armijo_only=False,
+        tol_stationarity_rel=1e-5, pallas_backward=False, ls_armijo_slack=1e-6)
+
+    @jax.jit
+    def tick(x, st, q, c):
+        prob = dataclasses.replace(problem, cost=dataclasses.replace(problem.cost, q=q, c=c))
+        st, stats = jax.vmap(lambda x0_, s_: solve(dataclasses.replace(prob, x0=x0_), s_,
+                                                   vopts))(x, st)
+        x = jax.vmap(lambda xi, ui: dyn(xi, ui, jnp.asarray(0.05, F32), 0))(x, st.u[:, 0])
+        return x, jax.vmap(shift_trajectory)(st), stats.iterations, stats.status
+
+    st = dataclasses.replace(batch_init_state(problem, lanes),
+                             u=jnp.full((lanes, N, m), QUAD_HOVER, F32))
+    x = jnp.asarray(x0)
+    iters, statuses = [], []
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        w = wp_idx[t]
+        x, st, it, stat = tick(x, st, q_wp[w], c_wp[w])
+        iters.append(np.asarray(it))
+        statuses.append(np.asarray(stat))
+    print(json.dumps(row("quadrotor_waypoint_mpc_B1024", np.stack(iters), np.stack(statuses),
+                         np.asarray(x), time.perf_counter() - t0)), flush=True)
+
+
+def quadrotor_rows(lanes, ticks=100, switch_every=25, N=30):
+    """The two quadrotor rows (scripts/bench_all.py:322-564) in float32."""
+    from altro_tpu import tile_solver as tsv
+    from altro_tpu.ops.tile_iter import tile_vmap
+    from altro_tpu.parallel.batch import batch_init_state
+
+    problem, dyn, q_wp, c_wp, wp_idx, x0, row = _quadrotor_setup(lanes, ticks, switch_every, N)
+    n, m = problem.n, problem.m
+    # the tiled row's options (bench_all.py:371-398, tiled branch), the scan grid
+    qopts = SolverOptions(
+        iterations_max=15, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+        throw_errors=False, rti_mode=False, use_backtracking_linesearch=True,
+        parallel_linesearch=True, ls_phase_split=True, ls_try_cubic_first=False,
+        ls_max_iters=8, penalty_warm_start=True, ls_armijo_only=True,
+        tol_stationarity_rel=1e-5, pallas_backward=True, pallas_rollout_tiled=False,
+        ls_armijo_slack=1e-6)
 
     import time
 
@@ -421,12 +495,16 @@ def _batched_tracking_loop(lanes, kw, ticks, dtype):
             np.asarray(x_true, np.float64), ref, time.perf_counter() - t0)
 
 
-def batched_tracking_rows(lanes, ref_ticks=5):
+def batched_tracking_rows(lanes, ref_ticks=5, ticks=None):
     """examples/batched_mpc.py's loop in f32 under each search of
-    BT_SEARCHES, and each search's first ref_ticks ticks in f32 against
+    BT_SEARCHES (`ticks`, when given, those of the sequential
+    backtracking), and each search's first ref_ticks ticks in f32 against
     f64 (what the algorithm itself does in f32 on this loop)."""
     jax.config.update("jax_enable_x64", True)  # the f64 runs; every f32 array is typed
-    for name, (kw, ticks) in BT_SEARCHES.items():
+    runs = dict(BT_SEARCHES)
+    if ticks is not None:
+        runs["sequential_backtracking"] = (runs["sequential_backtracking"][0], ticks)
+    for name, (kw, ticks) in runs.items():
         iters, statuses, ls_iters, x_true, ref, seconds = _batched_tracking_loop(
             lanes, kw, ticks, F32)
         err = np.linalg.norm(x_true[:, :2] - ref.x[ticks][None, :2], axis=1)
@@ -579,6 +657,114 @@ def single_lane_rows(cartpole_ref_iterations=30):
         print(json.dumps(row), flush=True)
 
 
+def _facade_pendulum(dt, with_tile):
+    """tests/test_api.py:250-293's build(with_tile), solved in dtype dt."""
+    from altro_tpu.api import ALTROSolver
+    from altro_tpu.models.pendulum import pendulum_continuous
+    from altro_tpu.models.tile_steps import midpoint_tile, pendulum_tile
+
+    N, n, m = 30, 2, 1
+    dyn = midpoint(pendulum_continuous())
+    s = ALTROSolver(N, dtype=dt)
+    s.set_dimension(n, m)
+    s.set_time_step(0.06)
+    s.set_explicit_dynamics(lambda x, u, h, k: dyn(x, u, h, k))
+    s.set_lqr_cost(np.full(n, 1e-1), np.full(m, 1e-3), np.array([np.pi, 0.0]), np.zeros(m))
+    s.set_input_bounds(u_lo=[-6.0], u_hi=[6.0])
+    s.set_initial_state(np.zeros(n))
+    if with_tile:
+        s.set_tile_dynamics(midpoint_tile(pendulum_tile()))
+    s.initialize()
+    s.set_input(np.full((m,), 0.1), 0, N)
+    s.set_options(SolverOptions(
+        iterations_max=12, use_backtracking_linesearch=True, parallel_linesearch=True,
+        ls_phase_split=True, ls_try_cubic_first=False, ls_armijo_only=True, ls_max_iters=8,
+        throw_errors=False))
+    status = s.solve()
+    return int(status), s.get_iterations(), np.asarray(s.state.u, np.float64)
+
+
+def _facade_di(dt, kind, tol):
+    """A tests/test_api.py double-integrator facade case in dtype dt."""
+    from altro_tpu.api import ALTROSolver, LAST_INDEX
+
+    N, nx, nu = 10, 4, 2
+    s = ALTROSolver(N, dtype=dt)
+    s.set_dimension(nx, nu)
+    s.set_time_step(0.5)
+    s.set_explicit_dynamics(double_integrator_dynamics(2))
+    if kind == "goal":
+        s.set_lqr_cost(np.ones(nx), np.full(nu, 1e-2), np.zeros(nx), np.zeros(nu), 0, LAST_INDEX)
+        s.set_constraint(lambda x, u, k: x - jnp.zeros(nx, x.dtype), nx, Cone.ZERO, "goal", N)
+        opts = SolverOptions(penalty_scaling=100.0)
+    elif kind == "quadratic":
+        s.set_quadratic_cost(np.eye(nx), 1e-2 * np.eye(nu), np.full((nu, nx), 1e-3),
+                             np.zeros(nx), np.zeros(nu), 0.0, 0, LAST_INDEX)
+        opts = SolverOptions(iterations_max=10)
+    else:
+        s.set_cost_function(stage=lambda x, u, k: 0.5 * jnp.sum(x * x) + 0.5e-2 * jnp.sum(u * u),
+                            terminal=lambda x: 0.5 * jnp.sum(x * x))
+        opts = SolverOptions(iterations_max=10)
+    s.set_initial_state([1.0, 2.0, 0.0, 0.0])
+    s.set_options(opts.replace(tol_stationarity=tol, throw_errors=False))
+    s.initialize()
+    status = s.solve()
+    return int(status), s.get_iterations(), np.asarray(s.get_state(N), np.float64)
+
+
+def facade_runs():
+    """altro_tpu's facade in float32 and float64 (see the module docstring)."""
+    from altro_tpu.api import ALTROSolver as S
+    from altro_tpu.models import pendulum_continuous
+    from altro_tpu.options import Verbosity
+
+    jax.config.update("jax_enable_x64", True)  # the f64 runs; every f32 facade is typed
+    example = {}
+    for dt, tag in ((F32, "f32"), (jnp.float64, "f64")):  # examples/pendulum_swingup.py
+        N, n, m = 50, 2, 1
+        xf = np.array([np.pi, 0.0])
+        s = S(N, dtype=dt)
+        s.set_dimension(n, m)
+        s.set_time_step(3.0 / N)
+        s.set_explicit_dynamics(midpoint(pendulum_continuous()))
+        s.set_lqr_cost(np.full(n, 1e-2), np.full(m, 1e-3), xf, np.zeros(m), 0, N)
+        s.set_lqr_cost(np.ones(n), np.full(m, 1e-3), xf, np.zeros(m), N)
+        s.set_initial_state(np.zeros(n))
+        s.set_options(SolverOptions(iterations_max=20, verbose=Verbosity.SILENT))
+        s.initialize()
+        s.set_input([0.1])
+        status = s.solve()
+        example[tag] = {"status": int(status), "iterations": s.get_iterations(),
+                        "objective": s.get_final_objective(),
+                        "x_N": np.asarray(s.get_state(N), np.float64).tolist()}
+    print(json.dumps({"facade": "pendulum_example", **example,
+                      "x_N_f32_vs_f64": float(np.abs(np.subtract(example["f32"]["x_N"],
+                                                                 example["f64"]["x_N"])).max())}),
+          flush=True)
+
+    runs = {(tag, tile): _facade_pendulum(dt, tile)
+            for dt, tag in ((F32, "f32"), (jnp.float64, "f64")) for tile in (True, False)}
+    row = {"facade": "block_step_configuration"}
+    for (tag, tile), (status, iters, u) in runs.items():
+        row[f"{tag}_{'block_step' if tile else 'no_block_step'}"] = {
+            "status": status, "iterations": iters, "max_abs_u": float(np.abs(u).max())}
+    u = {k: v[2] for k, v in runs.items()}
+    row["du_f32_block_vs_no_block"] = float(np.abs(u["f32", True] - u["f32", False]).max())
+    row["du_f64_block_vs_no_block"] = float(np.abs(u["f64", True] - u["f64", False]).max())
+    row["du_f32_vs_f64_block"] = float(np.abs(u["f32", True] - u["f64", True]).max())
+    row["du_f32_vs_f64_no_block"] = float(np.abs(u["f32", False] - u["f64", False]).max())
+    print(json.dumps(row), flush=True)
+
+    for kind in ("goal", "quadratic", "generic"):
+        r32 = _facade_di(F32, kind, 1e-3)
+        r64 = _facade_di(jnp.float64, kind, 1e-4)
+        print(json.dumps({"facade": f"double_integrator/{kind}",
+                          "f32_tol_1e-3": {"status": r32[0], "iterations": r32[1],
+                                           "x_N": r32[2].tolist()},
+                          "f64": {"status": r64[0], "iterations": r64[1], "x_N": r64[2].tolist()},
+                          "x_N_f32_vs_f64": float(np.abs(r32[2] - r64[2]).max())}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tol-stationarity", type=float, default=1e-4)
@@ -591,6 +777,14 @@ def main():
                     help="run examples/batched_mpc.py's loop under three searches")
     ap.add_argument("--single-lane-rows", action="store_true",
                     help="run the rocket, the cart-pole and the single-lane BASELINE rows")
+    ap.add_argument("--quadrotor-vmapped", action="store_true",
+                    help="run the vmapped quadrotor waypoint row through jax.vmap(solve)")
+    ap.add_argument("--ticks", type=int, default=None,
+                    help="ticks of the vmapped quadrotor row (default 100) and of the batched "
+                         "tracking's sequential backtracking (default 20)")
+    ap.add_argument("--facade", action="store_true",
+                    help="run the facade's pendulum example, block-step configuration and "
+                         "double-integrator cases")
     ap.add_argument("--lanes", type=int, default=1024,
                     help="lanes of the batched rows (the tiled quadrotor row: a multiple "
                          "of 1024)")
@@ -602,11 +796,15 @@ def main():
     if args.rocket:
         rocket_row(args.lanes)
     if args.batched_tracking:
-        batched_tracking_rows(args.lanes)
+        batched_tracking_rows(args.lanes, ticks=args.ticks)
+    if args.quadrotor_vmapped:
+        quadrotor_vmapped_row(args.lanes, ticks=args.ticks or 100)
     if args.single_lane_rows:
         single_lane_rows()
+    if args.facade:
+        facade_runs()
     if (args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
-            or args.single_lane_rows):
+            or args.single_lane_rows or args.facade or args.quadrotor_vmapped):
         return
     tol = args.tol_stationarity
     for case, x0, kinds, kw in (
