@@ -1,8 +1,8 @@
 """Augmented-Lagrangian machinery on knot stacks (PyTorch port).
 
 Counterpart: altro_tpu/al.py (`constraint_values`, `projected_duals`,
-`al_cost`, `al_grad`, `al_hess`, `al_hess_diag`,
-`diag_expansion_eligible`). The JAX functions work on one knot of one
+`al_cost`, `al_grad`, `al_hess`, `al_hess_exact`, `al_hess_diag`,
+`diag_expansion_eligible`, `knot_violation`). The JAX functions work on one knot of one
 lane and are lifted by vmap; here each function takes a stack of knots
 in the solver's lane-minor layout and computes them all at once:
 x [K, n, B], u [K, m, B] (None at the terminal knot), duals z per group
@@ -30,8 +30,10 @@ __all__ = [
     "al_cost",
     "al_grad",
     "al_hess",
+    "al_hess_exact",
     "al_hess_diag",
     "diag_expansion_eligible",
+    "knot_violation",
 ]
 
 
@@ -124,6 +126,47 @@ def al_grad(problem: Problem, ks, x, u, z, rho, terminal: bool):
 
 def al_hess(problem: Problem, ks, x, u, z, rho, terminal: bool):
     """Gauss-Newton AL Hessian (lxx [K,n,n,B], luu [K,m,m,B], lux [K,m,n,B])."""
+    return _al_hess(problem, ks, x, u, z, rho, terminal, exact=False)
+
+
+def al_hess_exact(problem: Problem, ks, x, u, z, rho, terminal: bool):
+    """Exact (full-Newton) AL Hessian (lxx, luu, lux), the value of JAX's
+    autodiff Hessian of `al_cost` (`jax.hessian`; SolverOptions.
+    exact_al_hessian): the Gauss-Newton terms plus the constraint-curvature
+    term -sum_e w_e nabla^2 c_e, w = dP^T z_proj, that the Gauss-Newton
+    form drops. May be indefinite (the Quu regularization retry handles
+    it). lux and luu are zero at the terminal knot.
+
+    Written in closed form rather than by autodiff of `al_cost`, so that
+    it gives JAX's value where the projection min(ze, 0) ties (ze = 0
+    exactly, e.g. zero duals on a row at its bound): JAX's derivative of
+    min there is 1/2 (`lax.min`'s balanced tie), torch's clamp gives 1,
+    so the row's Gauss-Newton weight rho s^2 is rho / 4 there. The
+    curvature of a group not declared affine comes from forward-mode
+    Hessians of its function (`torch.func`), vmapped over knots and lanes
+    and cast to the input dtype."""
+    return _al_hess(problem, ks, x, u, z, rho, terminal, exact=True)
+
+
+def _curvature(spec, ks, x, u, w):
+    """sum_e w_e nabla^2 c_e(x, u) per knot and lane, [K, n+m, n+m, B]:
+    the Hessian of w . c in (x, u) with w [K, p, B] held fixed."""
+    from torch.func import jacfwd, vmap
+
+    K, n, B = x.shape
+    m = u.shape[1]
+    zz = torch.cat([x, u], dim=1).permute(0, 2, 1).reshape(K * B, n + m)
+    kk = ks[:, None].expand(K, B).reshape(K * B)
+    ww = w.permute(0, 2, 1).reshape(K * B, -1)
+
+    def g(zl, kl, wl):
+        return torch.sum(wl * spec.fn(zl[:n], zl[n:], kl))
+
+    H = vmap(jacfwd(jacfwd(g)))(zz, kk, ww).to(x.dtype)
+    return H.reshape(K, B, n + m, n + m).permute(0, 2, 3, 1)
+
+
+def _al_hess(problem: Problem, ks, x, u, z, rho, terminal: bool, exact: bool):
     n, m = problem.n, problem.m
     if terminal:
         u = _terminal_u(problem, x)
@@ -137,13 +180,21 @@ def al_hess(problem: Problem, ks, x, u, z, rho, terminal: bool):
     for spec, ze, zp in zip(problem.constraints, z_est, z_proj):
         dual = cones.dual_cone(spec.cone)
         Jc = _jac(spec, ks, x, u)
-        Pj = _proj_jac(dual, ze)
+        if exact and dual is cones.Cone.NEGATIVE_ORTHANT:
+            # JAX's derivative of min(ze, 0): 1 below, 1/2 at a tie, 0 above
+            s = torch.where(ze < 0, 1.0, torch.where(ze == 0, 0.5, 0.0)).to(ze.dtype)
+            Pj = torch.diag_embed(s.movedim(-1, 1)).movedim(1, -1)  # [K, p, p, B]
+        else:
+            Pj = _proj_jac(dual, ze)
         Jt = torch.einsum("kijb,kjlb->kilb", Pj, Jc)
         Hc = rho * torch.einsum("kijb,kilb->kjlb", Jt, Jt)
         if not cones.cone_is_linear(dual):
             Hp = cones.project_hessian(dual, _cf(ze), _cf(zp)).permute(2, 0, 1, 3)
             HJ = torch.einsum("kijb,kjlb->kilb", Hp, Jc)
             Hc = Hc + rho * torch.einsum("kijb,kilb->kjlb", Jc, HJ)
+        if exact and not spec.affine:
+            w = torch.einsum("kijb,kib->kjb", Pj, zp)  # dP^T z_proj
+            Hc = Hc - _curvature(spec, ks, x, u, w)
         act = _active(spec, ks)[:, :, None, None]
         zero = torch.zeros_like(Hc)
         Hc = torch.where(act, Hc, zero)
@@ -186,3 +237,15 @@ def al_hess_diag(problem: Problem, ks, x, u, z, rho, terminal: bool):
         if not terminal:
             luud = luud + hd[:, n:]
     return lxxd, luud
+
+
+def knot_violation(problem: Problem, ks, convals):
+    """max_j ||P_K(c_j) - c_j||_inf at each knot, [K, B] (0 where no group
+    is active); convals per group [K, p, B]."""
+    K, B = ks.shape[0], convals[0].shape[-1] if convals else 1
+    viol = torch.zeros((K, B), dtype=problem.dtype, device=problem.device)
+    for spec, c_j in zip(problem.constraints, convals):
+        v = torch.abs(_stack(cones.project(spec.cone, _cf(c_j))) - c_j)
+        vmax = torch.amax(v, dim=1) if v.shape[1] else torch.zeros_like(viol)
+        viol = torch.maximum(viol, torch.where(_active(spec, ks), vmax, torch.zeros_like(vmax)))
+    return viol

@@ -23,6 +23,9 @@
 //   model 2, integrator 0: PendulumMidpoint, the twin of
 //   midpoint_cols(pendulum_cols(mass, length, b, g)): one sine a
 //   evaluation, the midpoint step as the bicycle's.
+//   model 3, integrator 2 (an exact discrete step, no integrator):
+//   DoubleIntegrator, the twin of double_integrator_cols(2) and
+//   double_integrator_tile(2).
 // Built without --use_fast_math, so sinf/cosf/sincosf/tanf/sqrtf are the
 // accurate library versions.
 
@@ -291,6 +294,25 @@ struct PendulumMidpoint {
     f(xm, u, fm);
 #pragma unroll
     for (int i = 0; i < NS; ++i) x[i] = x[i] + h * fm[i];
+  }
+};
+
+// The planar double integrator (n = 4: position, velocity; m = 2
+// accelerations) as its exact discrete step, with no integrator around it:
+// pos' = (pos + vel h) + u b with b = (0.5 h) h, vel' = vel + u h, in
+// double_integrator_cols' order (the positions from the old velocities).
+struct DoubleIntegrator {
+  static constexpr int NS = 4;
+  static constexpr int NI = 2;
+
+  __device__ __forceinline__ void step(float x[NS], const float u[NI], float h) const {
+    const float b = 0.5f * h * h;
+    const float p0 = x[0] + x[2] * h + u[0] * b;
+    const float p1 = x[1] + x[3] * h + u[1] * b;
+    x[2] = x[2] + u[0] * h;
+    x[3] = x[3] + u[1] * h;
+    x[0] = p0;
+    x[1] = p1;
   }
 };
 

@@ -48,8 +48,8 @@
 // cost term) are read from the staged chunk into registers while phase B
 // runs. (n, m), diag_x, diag_u, lux and f are template parameters (16
 // instantiations per shape, chosen once on the host; shapes (4, 2),
-// (2, 1), (12, 4), (6, 3) and (4, 1)) and every layout offset is a
-// compile-time constant. Every per-chunk array of shared memory holds CH
+// (2, 1), (12, 4), (6, 3), (4, 1) and (3, 2), the first odd n) and every
+// layout offset is a compile-time constant. Every per-chunk array of shared memory holds CH
 // knots, 64, or 32 at n > 4: at (12, 4) one 64-knot buffer of dense
 // operands takes 109.6 KB, and at (6, 3) the 32-knot buffers, dense with
 // lux and f, take 50.5 KB in all (over 48 KB: `launch` opts in); CH is a
@@ -537,7 +537,7 @@ int launch_shape(const Args& a, cudaStream_t s, bool dx, bool du) {
 
 }  // namespace
 
-// (n, m) is (4, 2), (2, 1), (12, 4), (6, 3) or (4, 1); lux and f may be null (a zero
+// (n, m) is (4, 2), (2, 1), (12, 4), (6, 3), (4, 1) or (3, 2); lux and f may be null (a zero
 // cross term, the affine term elided); reg is one float on the device.
 extern "C" int riccati_latency_f32(
     const float* A, const float* Bm, const float* lxx, const float* luu,
@@ -552,5 +552,6 @@ extern "C" int riccati_latency_f32(
   if (n == 12 && m == 4) return launch_shape<12, 4>(a, s, diag_x != 0, diag_u != 0);
   if (n == 6 && m == 3) return launch_shape<6, 3>(a, s, diag_x != 0, diag_u != 0);
   if (n == 4 && m == 1) return launch_shape<4, 1>(a, s, diag_x != 0, diag_u != 0);
+  if (n == 3 && m == 2) return launch_shape<3, 2>(a, s, diag_x != 0, diag_u != 0);
   return (int)cudaErrorInvalidValue;
 }

@@ -42,8 +42,10 @@
 // midpoint_cols(pendulum_cols(...)) (P = 0 or 2), with the smallest chunks
 // (8 floats a lane and knot at P = 2, 9,344 bytes for the two); its torque
 // bound's two rows lie on u (wau), not on x as the bicycle's steering rows
-// do. The quadrotor's RK4 step (QuadrotorAxisRK4, P = 0) runs in a kernel
-// of its own, three threads a (lane, trial) (its note below).
+// do; and DoubleIntegrator, the twin of double_integrator_cols(2), an
+// exact discrete step (P = 0 or 2). The quadrotor's RK4 step
+// (QuadrotorAxisRK4, P = 0) runs in a kernel of its own, three threads a
+// (lane, trial) (its note below).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -53,6 +55,7 @@
 namespace {
 
 using altro_dev::BicycleFrame;
+using altro_dev::DoubleIntegrator;
 using altro_dev::neg_part;
 using altro_dev::PendulumMidpoint;
 
@@ -521,7 +524,8 @@ int launch_p(const Ops& o, const Model& m, int P, cudaStream_t s) {
 // (0, 0): the bicycle midpoint step, P 0 or 2, params (frame 0, 1 or 2,
 // length, rear); (1, 1): the quadrotor RK4 step, P 0, params (mass,
 // gravity, arm, kf, km, Jx, Jy, Jz); (2, 0): the pendulum midpoint step,
-// P 0 or 2, params (mass, length, b, g). params lies in host memory.
+// P 0 or 2, params (mass, length, b, g); (3, 2): the double integrator's
+// exact step, P 0 or 2, no params. params lies in host memory.
 extern "C" int rollout_grid_f32(
     const float* xref, const float* uref, const float* K, const float* d,
     const float* Q, const float* q, const float* R, const float* r,
@@ -544,6 +548,7 @@ extern "C" int rollout_grid_f32(
   }
   if (model == 2 && integrator == 0)
     return launch_p(o, PendulumMidpoint{params[0], params[1], params[2], params[3]}, P, s);
+  if (model == 3 && integrator == 2) return launch_p(o, DoubleIntegrator{}, P, s);
   if (model != 0 || integrator != 0) return (int)cudaErrorInvalidValue;
   const int frame = (int)params[0];
   if (frame == 0) return launch_p(o, BicycleFrame<0>{params[1], params[2]}, P, s);

@@ -35,7 +35,9 @@
 // code on two arguments, and a shuffle hands each its partner's. So a
 // lane runs one of the model's two evaluations of those terms a knot, and
 // the same arithmetic as the one-lane step (the same bits). The frame and
-// P are template parameters (6 instantiations), so the step has no
+// P (0, 2 or 4: the steering bound's rows, or two groups of two, whose
+// rows at a knot where a group is off are all zero, as the solver packs
+// them) are template parameters (9 instantiations), so the step has no
 // branch of its own and the row loops unroll. Lanes 0..W-1 of warp 2 (the
 // merit warp) walk each chunk after the chain warps have left it: each
 // recomputes u from the staged state with the same expression (so the
@@ -46,15 +48,16 @@
 // stages chunk s+1, the chain warps walk chunk s and warp 2 chunk s-1, so
 // the operands are triple-buffered and the states double-buffered; one
 // barrier ends each step. Dynamic shared memory is 3 x operands + 2 x
-// states of one chunk (50 KB at n=4, m=2, P=2, W=8; the launch opts in
-// above 48 KB).
+// states of one chunk (50 KB at n=4, m=2, P=2, W=8, 61 KB at P=4; the
+// launch opts in above 48 KB).
 //
 // The dynamics are a __device__ step from csrc/device_steps.cuh, the twin
 // of models/tile_steps.py::midpoint_tile(bicycle_tile(frame, length,
 // rear)). The quadrotor's RK4 step (rk4_tile(quadrotor_tile())) runs in a
 // second kernel, on the same pipeline with three lanes a trial, and the
-// pendulum's midpoint step (midpoint_tile(pendulum_tile())) in a third, one
-// lane a trial (each with its own note below). The merit follows
+// pendulum's midpoint step (midpoint_tile(pendulum_tile())) and the double
+// integrator's exact step (double_integrator_tile(2)) in a third, one lane
+// a trial on either model (each kernel with its own note below). The merit follows
 // ops/trial_rollout.py::trial_rollout_ref term
 // for term: phi += 0.5 Q.x.x + q.x + 0.5 R.u.u + r.u + c, then
 // + rhoi * sum_e min(w_e, 0)^2.
@@ -81,8 +84,8 @@ constexpr int MAX_W = 32;
 // Float offsets of one chunk's operands in shared memory for a model of
 // S states and I inputs, chunks of CHK knots and P rows (each array
 // [CHK][width], 16-byte aligned); three such buffers, then a kernel's own
-// state buffers from XS on. The bicycle's and the pendulum's kernels
-// stage through it (`stage`).
+// state buffers from XS on. The bicycle's and the one-lane kernels stage
+// through it (`stage`).
 template <int S_, int I_, int CHK_, int P_>
 struct OperandLayout {
   static constexpr int S = S_, I = I_, CHK = CHK_, P = P_;
@@ -388,6 +391,7 @@ template <int FRAME>
 int launch_p(const Args& a, int P, cudaStream_t s) {
   if (P == 0) return launch<FRAME, 0>(a, s);
   if (P == 2) return launch<FRAME, 2>(a, s);
+  if (P == 4) return launch<FRAME, 4>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -640,70 +644,10 @@ int launch(const Args& a, const QuadrotorAxisRK4& model, cudaStream_t s) {
 
 }  // namespace quad
 
-// ---------------------------------------------------------------------------
-// The pendulum's midpoint block step (midpoint_tile(pendulum_tile())), P = 0
-// or 2 (the torque bound's two rows on u): one lane a trial.
-//
-// What bounds it on this card: the chain. A knot is the policy (two
-// multiply-adds behind x), two evaluations of the pendulum (a sine and an
-// IEEE divide each) and the two updates; one knot's operands are 14 + 4P
-// floats, read once: 2.6 KB at N = 30, P = 2 (under 1 ns at 3.35 TB/s).
-// With W <= 32 trials on one warp the time is one lane's instruction
-// stream, N knots long, nearly in order (the accurate sinf and the divide
-// end a basic block at their slow-path branches).
-//
-// What the design does about it: one block of three warps, launched once.
-// Warp 0 (the chain) runs trial w on lane w (lanes past W run a copy of the
-// last trial and store nothing); per knot it forms u, stores (x, u) as one
-// float4 to a staging buffer in shared memory, and takes the step of
-// altro_dev::PendulumMidpoint (csrc/device_steps.cuh, the step
-// rollout_grid.cu runs), with the next knot's K, x_ref, u_ref, d and h read
-// from shared memory a knot ahead. Warp 1 (the merit) walks each chunk one
-// step behind: from the staged (x, u) it accumulates phi in
-// trial_rollout_ref's term order (the cost terms, then rhoi * sum_e
-// min(w_e, 0)^2 over the rows) and writes x to xstack; it adds the terminal
-// knot's state-only terms at the end. Warp 2 stages the operands in chunks
-// of PCH knots with cp.async. P is a template parameter, so the row loops
-// unroll. Dynamic shared memory: 3 x operands + 2 x staged records of a
-// chunk + the final states (16,704 bytes at W = 8, P = 2; 41,472 at W = 32).
-
-namespace pend {
-
-using altro_dev::PendulumMidpoint;
-
-constexpr int S = PendulumMidpoint::NS, I = PendulumMidpoint::NI;
-constexpr int PCH = 32;      // knots per staged chunk
-constexpr int PTHREADS = 96;  // warp 0: the chain; warp 1: the merit; warp 2: copies
-
-// The operands at OperandLayout's offsets (chunks of PCH knots), then two
-// record buffers [W][PCH] of float4 (x0, x1, u, 0) and the final states
-// [W] of float2.
-template <int P>
-struct Layout : OperandLayout<S, I, PCH, P> {
-  static int floats(int W) { return Layout::XS + 2 * W * PCH * 4 + W * S; }
-};
-
-// The policy's operands at one knot.
-struct Policy {
-  float2 K, xr;
-  float ur, d, h;
-};
-
-template <int P>
-__device__ __forceinline__ Policy load_policy(const float* in, int j) {
-  using Ly = Layout<P>;
-  Policy o;
-  o.K = reinterpret_cast<const float2*>(in + Ly::K)[j];
-  o.xr = reinterpret_cast<const float2*>(in + Ly::XREF)[j];
-  o.ur = in[Ly::UREF + j];
-  o.d = in[Ly::D + j];
-  o.h = in[Ly::H + j];
-  return o;
-}
-
-// The merit's terms at one knot in trial_rollout_ref's order; u null at
-// the terminal knot.
-template <int P>
+// The merit's terms at one knot in trial_rollout_ref's order for a model of
+// S states and I inputs with P rows; u null at the terminal knot (the
+// one-lane-a-trial kernel's merit warp).
+template <int S, int I, int P>
 __device__ __forceinline__ float merit(float phi, const float* Qd, const float* ql,
                                        const float* Rd, const float* rl, float c,
                                        const float* wa, const float* wu, const float* wg,
@@ -748,16 +692,87 @@ __device__ __forceinline__ float merit(float phi, const float* Qd, const float* 
   return ph;
 }
 
-template <int P>
-__global__ void __launch_bounds__(PTHREADS, 1)
-    trial_rollout_pendulum_kernel(const Args a, const PendulumMidpoint model) {
-  using Ly = Layout<P>;
+
+// ---------------------------------------------------------------------------
+// One lane a trial: the pendulum's midpoint block step
+// (midpoint_tile(pendulum_tile()), P = 0 or 2: the torque bound's two rows on
+// u) and the double integrator's exact discrete step (double_integrator_
+// tile(2), P = 0, 2 or 4), each a Model with a `step(x, u, h)`.
+//
+// What bounds it on this card: the chain. A pendulum knot is the policy
+// (two multiply-adds behind x), two evaluations of the model (a sine and an
+// IEEE divide each) and the two updates; a double integrator knot 8
+// multiply-adds of policy and 8 of step. One knot's operands are 3S + 3I +
+// SI + 2 + P(S + I + 1) floats, read once: 2.6 KB at the pendulum's N = 30,
+// P = 2 and 7 KB at the double integrator's N = 30, P = 4 (under 3 ns at
+// 3.35 TB/s). With W <= 32 trials on one warp the time is one lane's
+// instruction stream, N knots long, nearly in order (the pendulum's
+// accurate sinf and divide end a basic block at their slow-path
+// branches); at the facades' N of 10 and 30 the launch and the barriers
+// are most of it.
+//
+// What the design does about it: one block of three warps, launched once.
+// Warp 0 (the chain) runs trial w on lane w (lanes past W run a copy of
+// the last trial and store nothing); per knot it forms u (as
+// trial_rollout_ref: u_ref - K (x - x_ref) + alpha d) from K, x_ref, u_ref,
+// d and h held in registers, read from the staged chunk a knot ahead so
+// that no shared-memory load sits on the chain, stores (x, u) as one
+// record of REC floats (float4 stores) to a staging buffer in shared
+// memory and takes the Model's step (csrc/device_steps.cuh; the
+// pendulum's is the one rollout_grid.cu runs). Warp 1 (the merit) walks
+// each chunk one step behind: from the staged records it accumulates phi
+// in trial_rollout_ref's term order (the cost terms, then rhoi * sum_e
+// min(w_e, 0)^2 over the rows) and writes x to xstack; it adds the
+// terminal knot's state-only terms at the end. Warp 2 stages the operands
+// in chunks of LCH knots with cp.async. Model and P are template
+// parameters, so the loops unroll. Dynamic shared memory: 3 x operands + 2
+// x records of a chunk + the final states (16,704 bytes for the pendulum
+// at W = 8, P = 2; 26,112 for the double integrator at W = 8, P = 4).
+
+namespace onelane {
+
+constexpr int LCH = 32;        // knots per staged chunk
+constexpr int LTHREADS = 96;   // warp 0: the chain; warp 1: the merit; warp 2: copies
+
+template <class Model, int P>
+struct Layout : OperandLayout<Model::NS, Model::NI, LCH, P> {
+  static constexpr int REC = (Model::NS + Model::NI + 3) / 4 * 4;  // a knot's (x, u) record
+  static int floats(int W) { return Layout::XS + 2 * W * LCH * REC + W * Model::NS; }
+};
+
+// The policy's operands at one knot, held in registers a knot ahead.
+template <int S, int I>
+struct Policy {
+  float K[I * S], xr[S], ur[I], d[I], h;
+};
+
+template <class Ly>
+__device__ __forceinline__ void load_policy(Policy<Ly::S, Ly::I>& o, const float* in, int j) {
+  constexpr int S = Ly::S, I = Ly::I;
+#pragma unroll
+  for (int e = 0; e < I * S; ++e) o.K[e] = in[Ly::K + j * I * S + e];
+#pragma unroll
+  for (int i = 0; i < S; ++i) o.xr[i] = in[Ly::XREF + j * S + i];
+#pragma unroll
+  for (int q = 0; q < I; ++q) {
+    o.ur[q] = in[Ly::UREF + j * I + q];
+    o.d[q] = in[Ly::D + j * I + q];
+  }
+  o.h = in[Ly::H + j];
+}
+
+template <class Model, int P>
+__global__ void __launch_bounds__(LTHREADS, 1)
+    trial_rollout_lane_kernel(const Args a, const Model model) {
+  constexpr int S = Model::NS, I = Model::NI;
+  using Ly = Layout<Model, P>;
+  constexpr int REC = Ly::REC;
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int N = a.N, W = a.W, nch = (N + PCH - 1) / PCH;
-  float4* const recs = reinterpret_cast<float4*>(smem + Ly::XS);  // chunk s at recs + (s & 1) * W * PCH
-  float2* const xfinal = reinterpret_cast<float2*>(recs + 2 * W * PCH);
+  const int N = a.N, W = a.W, nch = (N + LCH - 1) / LCH;
+  float* const recs = smem + Ly::XS;  // chunk s at recs + (s & 1) * W * LCH * REC
+  float* const xfinal = recs + 2 * W * LCH * REC;
 
   if (warp == 2) stage<Ly>(smem, a, 0, lane);
   __syncthreads();
@@ -766,64 +781,86 @@ __global__ void __launch_bounds__(PTHREADS, 1)
     const bool mine = lane < W;
     const int wt = mine ? lane : W - 1;
     const float alpha = a.alphas[wt];
-    float x[S] = {a.x0[0], a.x0[1]};
+    float x[S];
+#pragma unroll
+    for (int i = 0; i < S; ++i) x[i] = a.x0[i];
     for (int s = 0; s <= nch; ++s) {
       if (s < nch) {
         int kbeg, cnt;
-        chunk_range<PCH>(s, N, kbeg, cnt);
+        chunk_range<LCH>(s, N, kbeg, cnt);
         const float* in = smem + (s % 3) * Ly::IN;
-        float4* rec = recs + (s & 1) * W * PCH + wt * PCH;
-        Policy cur = load_policy<P>(in, 0);
+        float4* rec = reinterpret_cast<float4*>(recs + ((s & 1) * W * LCH + wt * LCH) * REC);
+        Policy<S, I> cur;
+        load_policy<Ly>(cur, in, 0);
         for (int j = 0; j < cnt; ++j) {
           // u = u_ref - K (x - x_ref) + alpha d, as trial_rollout_ref
-          const float dk = cur.K.x * (x[0] - cur.xr.x) + cur.K.y * (x[1] - cur.xr.y);
-          const float u[I] = {cur.ur - dk + alpha * cur.d};
-          if (mine) rec[j] = make_float4(x[0], x[1], u[0], 0.0f);
+          float r[REC];  // the knot's record: x, u, zero padding
+#pragma unroll
+          for (int i = 0; i < S; ++i) r[i] = x[i];
+#pragma unroll
+          for (int q = 0; q < I; ++q) {
+            float dk = 0.0f;  // K's row from its last column down
+#pragma unroll
+            for (int i = S - 1; i >= 0; --i) dk += cur.K[q * S + i] * (x[i] - cur.xr[i]);
+            r[S + q] = cur.ur[q] - dk + alpha * cur.d[q];
+          }
+#pragma unroll
+          for (int i = S + I; i < REC; ++i) r[i] = 0.0f;
+          if (mine) {
+#pragma unroll
+            for (int v = 0; v < REC / 4; ++v)
+              rec[j * (REC / 4) + v] = make_float4(r[4 * v], r[4 * v + 1], r[4 * v + 2],
+                                                   r[4 * v + 3]);
+          }
           const float h = cur.h;
-          cur = load_policy<P>(in, j + 1 < cnt ? j + 1 : j);
-          model.step(x, u, h);
+          load_policy<Ly>(cur, in, j + 1 < cnt ? j + 1 : j);  // the next knot's, off the chain
+          model.step(x, r + S, h);
         }
-        if (s == nch - 1 && mine) xfinal[lane] = make_float2(x[0], x[1]);
+        if (s == nch - 1 && mine) {
+#pragma unroll
+          for (int i = 0; i < S; ++i) xfinal[lane * S + i] = x[i];
+        }
       }
       __syncthreads();
     }
   } else if (warp == 1) {  // the merit of chunk s - 1, and its states out
     const bool trial = lane < W;
     const float ri = P > 0 ? *a.rhoi : 0.0f;
-    const bool vec = (reinterpret_cast<uintptr_t>(a.xstack) & 7) == 0;
     float phi = 0.0f;
     for (int s = 0; s <= nch; ++s) {
       if (s >= 1 && trial) {
         int kbeg, cnt;
-        chunk_range<PCH>(s - 1, N, kbeg, cnt);
+        chunk_range<LCH>(s - 1, N, kbeg, cnt);
         const float* in = smem + ((s - 1) % 3) * Ly::IN;
-        const float4* rec = recs + ((s - 1) & 1) * W * PCH + lane * PCH;
+        const float4* rec =
+            reinterpret_cast<const float4*>(recs + (((s - 1) & 1) * W * LCH + lane * LCH) * REC);
         float* xout = a.xstack + ((long)lane * (N + 1) + kbeg) * S;
         for (int j = 0; j < cnt; ++j) {
-          const float4 r = rec[j];
-          const float x[S] = {r.x, r.y};
-          const float u[I] = {r.z};
-          phi = merit<P>(phi, in + Ly::Q + j * S, in + Ly::QL + j * S, in + Ly::R + j * I,
-                         in + Ly::RL + j * I, in[Ly::C + j], in + Ly::WA + j * P * S,
-                         in + Ly::WU + j * P * I, in + Ly::WG + j * P, ri, x, u);
-          if (vec) {
-            reinterpret_cast<float2*>(xout)[j] = make_float2(r.x, r.y);
-          } else {
-            xout[j * S] = r.x;
-            xout[j * S + 1] = r.y;
+          float x[REC];
+#pragma unroll
+          for (int v = 0; v < REC / 4; ++v) {
+            const float4 q = rec[j * (REC / 4) + v];
+            x[4 * v] = q.x;
+            x[4 * v + 1] = q.y;
+            x[4 * v + 2] = q.z;
+            x[4 * v + 3] = q.w;
           }
+          phi = merit<S, I, P>(phi, in + Ly::Q + j * S, in + Ly::QL + j * S, in + Ly::R + j * I,
+                               in + Ly::RL + j * I, in[Ly::C + j], in + Ly::WA + j * P * S,
+                               in + Ly::WU + j * P * I, in + Ly::WG + j * P, ri, x, x + S);
+#pragma unroll
+          for (int i = 0; i < S; ++i) xout[j * S + i] = x[i];
         }
       }
       __syncthreads();
     }
     if (trial) {  // terminal knot: state-only cost and constraint rows
-      const float2 xv = xfinal[lane];
-      const float x[S] = {xv.x, xv.y};
-      a.phi[lane] = merit<P>(phi, a.Q + (long)N * S, a.q + (long)N * S, nullptr, nullptr,
-                             a.c[N], a.wa + (long)N * P * S, nullptr, a.wg + (long)N * P, ri,
-                             x, nullptr);
-      a.xstack[((long)lane * (N + 1) + N) * S] = x[0];
-      a.xstack[((long)lane * (N + 1) + N) * S + 1] = x[1];
+      const float* x = xfinal + lane * S;
+      a.phi[lane] = merit<S, I, P>(phi, a.Q + (long)N * S, a.q + (long)N * S, nullptr, nullptr,
+                                   a.c[N], a.wa + (long)N * P * S, nullptr, a.wg + (long)N * P,
+                                   ri, x, nullptr);
+#pragma unroll
+      for (int i = 0; i < S; ++i) a.xstack[((long)lane * (N + 1) + N) * S + i] = x[i];
     }
   } else {  // the copies: chunk s + 1 in
     for (int s = 0; s <= nch; ++s) {
@@ -833,29 +870,47 @@ __global__ void __launch_bounds__(PTHREADS, 1)
   }
 }
 
-template <int P>
-int launch(const Args& a, const PendulumMidpoint& model, cudaStream_t s) {
-  auto kern = trial_rollout_pendulum_kernel<P>;
-  const size_t bytes = (size_t)Layout<P>::floats(a.W) * sizeof(float);
+template <class Model, int P>
+int launch(const Args& a, const Model& model, cudaStream_t s) {
+  auto kern = trial_rollout_lane_kernel<Model, P>;
+  const size_t bytes = (size_t)Layout<Model, P>::floats(a.W) * sizeof(float);
   if (bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<1, PTHREADS, bytes, s>>>(a, model);
+  kern<<<1, LTHREADS, bytes, s>>>(a, model);
   return (int)cudaGetLastError();
 }
 
-}  // namespace pend
+// The (Model, P) pairs ops/trial_rollout.DEVICE_STEPS admits: the
+// pendulum at P 0 or 2, the double integrator at P 0, 2 or 4.
+int launch_pendulum(const Args& a, const altro_dev::PendulumMidpoint& m, int P,
+                    cudaStream_t s) {
+  if (P == 0) return launch<altro_dev::PendulumMidpoint, 0>(a, m, s);
+  if (P == 2) return launch<altro_dev::PendulumMidpoint, 2>(a, m, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_double_integrator(const Args& a, int P, cudaStream_t s) {
+  const altro_dev::DoubleIntegrator m{};
+  if (P == 0) return launch<altro_dev::DoubleIntegrator, 0>(a, m, s);
+  if (P == 2) return launch<altro_dev::DoubleIntegrator, 2>(a, m, s);
+  if (P == 4) return launch<altro_dev::DoubleIntegrator, 4>(a, m, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace onelane
 
 }  // namespace
 
 // wa, wu, wg and rhoi are null when P = 0; rhoi is one float on the
 // device. params lies in host memory. (model, integrator) (0, 0): the
-// bicycle midpoint step, P 0 or 2, W <= 32, params (frame 0, 1 or 2,
+// bicycle midpoint step, P 0, 2 or 4, W <= 32, params (frame 0, 1 or 2,
 // length, rear); (1, 1): the quadrotor RK4 step, P 0, W <= 32, params
 // (mass, gravity, arm, kf, km, Jx, Jy, Jz); (2, 0): the pendulum midpoint
-// step, P 0 or 2, W <= 32, params (mass, length, b, g).
+// step, P 0 or 2, W <= 32, params (mass, length, b, g); (3, 2): the double
+// integrator's exact step, P 0, 2 or 4, W <= 32, no params.
 extern "C" int trial_rollout_f32(
     const float* alphas, const float* x0, const float* xref, const float* uref,
     const float* K, const float* d, const float* Q, const float* q, const float* R,
@@ -875,10 +930,13 @@ extern "C" int trial_rollout_f32(
   if (model == 2 && integrator == 0) {
     const Args a{xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg, rhoi,
                  alphas, x0, phi, xstack, N, W, 0.0f, 0.0f};
-    const altro_dev::PendulumMidpoint m{params[0], params[1], params[2], params[3]};
-    if (P == 0) return pend::launch<0>(a, m, s);
-    if (P == 2) return pend::launch<2>(a, m, s);
-    return (int)cudaErrorInvalidValue;
+    return onelane::launch_pendulum(
+        a, altro_dev::PendulumMidpoint{params[0], params[1], params[2], params[3]}, P, s);
+  }
+  if (model == 3 && integrator == 2) {
+    const Args a{xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg, rhoi,
+                 alphas, x0, phi, xstack, N, W, 0.0f, 0.0f};
+    return onelane::launch_double_integrator(a, P, s);
   }
   if (!(model == 0 && integrator == 0)) return (int)cudaErrorInvalidValue;
   const Args a{xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg, rhoi,

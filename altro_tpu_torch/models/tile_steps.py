@@ -3,8 +3,8 @@
 Counterpart: altro_tpu/models/tile_steps.py (`bicycle_cols`,
 `midpoint_cols`, `rk4_cols`, `quadrotor_cols`, `block_from_cols`,
 `block_step_from_cols`, `midpoint_tile`, `rk4_tile`, `bicycle_tile`,
-`quadrotor_tile`, `pendulum_cols`, `pendulum_tile`), each with the same expression order
-as there.
+`quadrotor_tile`, `pendulum_cols`, `pendulum_tile`, `double_integrator_cols`,
+`double_integrator_tile`), each with the same expression order as there.
 
 * Column form: a function takes tuples of per-component tensors that
   broadcast against each other (one `[B]` lane vector per state
@@ -40,14 +40,18 @@ __all__ = [
     "quadrotor_tile",
     "pendulum_cols",
     "pendulum_tile",
+    "double_integrator_cols",
+    "double_integrator_tile",
 ]
 
 # Model and integrator codes shared with csrc/device_steps.cuh.
 MODEL_BICYCLE = 0
 MODEL_QUADROTOR = 1
 MODEL_PENDULUM = 2
+MODEL_DOUBLE_INTEGRATOR = 3
 INTEGRATOR_MIDPOINT = 0
 INTEGRATOR_RK4 = 1
+INTEGRATOR_DISCRETE = 2  # an exact discrete step: no integrator around the model
 BICYCLE_FRAMES = {"cog": 0, "CENTER_OF_GRAVITY": 0, "rear": 1, "REAR": 1,
                   "front": 2, "FRONT": 2}
 
@@ -62,7 +66,7 @@ class DeviceStep:
     m: int
     params: tuple  # model parameters: (frame code, length, rear) for the bicycle,
     # (mass, gravity, arm, kf, km, Jx, Jy, Jz) for the quadrotor, (mass,
-    # length, b, g) for the pendulum
+    # length, b, g) for the pendulum, none for the double integrator
 
 
 def _with_device_step(step, f, integrator):
@@ -251,3 +255,30 @@ def pendulum_tile(mass=1.0, length=0.5, b=0.1, g=9.81):
     """Block form of models.pendulum.pendulum_continuous;
     midpoint_tile(pendulum_tile(...)) names its device step."""
     return block_from_cols(pendulum_cols(mass, length, b, g))
+
+
+def double_integrator_cols(dim=2):
+    """Column form of models.double_integrator.double_integrator_dynamics.
+    That model is an exact discrete step, so this returns step(x, u, h)
+    itself, with no integrator around it:
+    pos' = pos + vel h + u h^2/2;  vel' = vel + u h.
+    At dim=2 it names its device step (`INTEGRATOR_DISCRETE`,
+    csrc/device_steps.cuh's DoubleIntegrator); other dims have none."""
+
+    def step(x, u, h):
+        b = 0.5 * h * h
+        cols = []
+        for i in range(dim):
+            cols.append(x[i] + x[dim + i] * h + u[i] * b)
+        for i in range(dim):
+            cols.append(x[dim + i] + u[i] * h)
+        return tuple(cols)
+
+    step.device_step = (DeviceStep(MODEL_DOUBLE_INTEGRATOR, INTEGRATOR_DISCRETE, 4, 2, ())
+                        if dim == 2 else None)
+    return step
+
+
+def double_integrator_tile(dim=2):
+    """Block form of the exact double-integrator discrete step."""
+    return block_step_from_cols(double_integrator_cols(dim))

@@ -66,6 +66,17 @@ bench.py's closed loop (`child_main`, its problem, options, rescue and
   Scotty path, each tick one `parallel.batch.batched_tracking_solver`
   call with per-lane cost rows, under the sequential backtracking search
   and the dense backward kernel.
+* `obstacle_problem`, `obstacle_options`, `obstacle_initial_states` and
+  `run_obstacle_mpc`: the obstacle-constrained bicycle MPC of
+  scripts/bench_all.py (`bicycle_obstacle_mpc_B1024`, :566-730): B lanes
+  on the Scotty path past a disc of radius 0.75 centred on it, three
+  groups (the steering bound, the input bounds, the nonlinear obstacle
+  row with a dense AL Hessian), each tick one vmapped solve
+  (`parallel.batch.solve_lanes`) on the dense backward kernel;
+  `obstacle_loop_options` and `run_obstacle_loop`: tests/
+  test_obstacle_mpc.py's single-lane loop (radius 0.6, 40 ticks) through
+  `solver.solve` and the functional MPC API, with or without the disc.
+  Both take the Gauss-Newton or the exact AL Hessian.
 * The single-lane rows, each one `solver.solve` on the single-lane
   backward kernel (`SingleSolveResult`): `rocket_landing_options` and
   `run_rocket_landing` (examples/rocket_landing.py:114-149, at (6, 3)),
@@ -85,8 +96,8 @@ bench.py's closed loop (`child_main`, its problem, options, rescue and
 * `pendulum_block_step_solver`: tests/test_api.py:250-293's configuration
   through the facade, with or without the pendulum's block step; on the
   card the (2, 1) backward kernel and (with it) the pendulum trial
-  kernel. `pendulum_trial_operands` builds that kernel's operands at any
-  N, W and row count.
+  kernel. `trial_operands` builds the operands of that kernel (and of the
+  bicycle's and the double integrator's) at any N, W and row count.
 """
 
 from __future__ import annotations
@@ -105,12 +116,15 @@ from altro_tpu_torch.cones import Cone
 from altro_tpu_torch.io.scotty import load_scotty
 from altro_tpu_torch.linesearch import Trace
 from altro_tpu_torch.models.bicycle import bicycle_continuous
+from altro_tpu_torch.models.double_integrator import double_integrator_dynamics
 from altro_tpu_torch.models.integrators import midpoint, rk4
 from altro_tpu_torch.models.pendulum import pendulum_continuous
 from altro_tpu_torch.models.quadrotor import quadrotor_continuous
 from altro_tpu_torch.models.tile_steps import (
     bicycle_cols,
     bicycle_tile,
+    double_integrator_cols,
+    double_integrator_tile,
     midpoint_cols,
     midpoint_tile,
     pendulum_cols,
@@ -194,7 +208,17 @@ __all__ = [
     "ExampleResult",
     "run_pendulum_example",
     "pendulum_block_step_solver",
-    "pendulum_trial_operands",
+    "double_integrator_block_step_solver",
+    "trial_operands",
+    "double_integrator_grid_operands",
+    "obstacle_problem",
+    "obstacle_options",
+    "obstacle_initial_states",
+    "ObstacleResult",
+    "run_obstacle_mpc",
+    "obstacle_loop_options",
+    "ObstacleLoopResult",
+    "run_obstacle_loop",
 ]
 
 Q_DIAG = 1e-2
@@ -482,10 +506,12 @@ class ClosedLoopResult:
     seconds: float  # wall time of the run (synchronized on CUDA)
 
 
-def _windows(ref, N: int, ticks: int, problem: Problem):
-    """Sliding tracking windows (q, c) per tick, as bench.py builds them."""
+def _windows(ref, N: int, ticks: int, problem: Problem, start: int = 0):
+    """Sliding tracking windows (q, c) per tick from tick `start`, as
+    bench.py builds them."""
     n = problem.n
-    xw = np.stack([ref.x[t: t + N + 1] for t in range(ticks + 1)])  # [T+1, N+1, n]
+    # [T+1, N+1, n]
+    xw = np.stack([ref.x[t: t + N + 1] for t in range(start, start + ticks + 1)])
     Qd = np.full(n, Q_DIAG)
     Rd = np.full(problem.m, R_DIAG)
     qs = -(Qd[None, None, :] * xw)
@@ -658,11 +684,12 @@ def _waypoint_costs(problem: Problem, ticks: int, switch_every: int):
 
 
 def _lanes_closed_loop(problem: Problem, x_true0: torch.Tensor, ticks: int, state0: SolverState,
-                      solve_lanes_fn, cost_at=None):
+                      solve_lanes_fn, cost_at=None, observe=None):
     """The batched closed loop of the rows: each tick `solve_lanes_fn(prob_t,
     st)` on the lane-minor state from the plant states (prob_t's cost
     `cost_at(t)` when given), u_0 through the plant (the problem's own
-    dynamics), the shift. state0 is batch-major. Returns (iterations
+    dynamics), `observe(t, x_true)` (lane-minor, when given), the shift.
+    state0 is batch-major. Returns (iterations
     [T, B], statuses [T, B], final plant states [B, n], final state
     batch-major, wall seconds, synchronized on CUDA)."""
     B, dev = x_true0.shape[0], problem.device
@@ -680,6 +707,8 @@ def _lanes_closed_loop(problem: Problem, x_true0: torch.Tensor, ticks: int, stat
             prob_t = dataclasses.replace(prob_t, cost=cost_at(t))
         st, stats = solve_lanes_fn(prob_t, st)
         x_true = problem.dynamics(x_true, st.u[0], h, 0)
+        if observe is not None:
+            observe(t, x_true)
         st = tsv.shift_trajectory_tiled(st)
         iters[t] = stats.iterations
         statuses[t] = stats.status
@@ -1385,50 +1414,435 @@ def pendulum_block_step_solver(with_tile: bool, dtype=torch.float32, device="cud
     return s
 
 
-def pendulum_trial_operands(N: int, W: int, P: int, *, rows: str = "bounds", seed: int = 17,
-                            dtype=torch.float32, device="cuda"):
-    """Operands of one trial rollout (`ops.trial_rollout.trial_rollout`) of
-    the block-step configuration's search near the torque bound: alphas
-    0.5^w, references around a swing, gains, its cost rows (Q = 0.1
-    toward (pi, 0), R = 1e-3) and h = float32(0.06). With P = 2, the AL
-    rows (active-masked, rho-premultiplied, rho = 3, nonzero duals):
-    rows "bounds" are the ones the solve forms from |u| <= 6 (state
-    terms zero, off on the first third and at the terminal knot); rows
-    "state" are random affine rows in x and u, active at every knot, the
-    terminal knot's included. Returns (block step, operands, con), con
-    None at P = 0, its rhoi a one-element tensor."""
-    n, m = 2, 1
-    rng = np.random.default_rng(seed)
+# ---------------------------------------------------------------------------
+# Obstacle-constrained bicycle MPC (scripts/bench_all.py:566-730 and
+# tests/test_obstacle_mpc.py)
+# ---------------------------------------------------------------------------
+
+OBS_V_MAX = 8.0  # speed bound (the reference speed is 6.31 m/s)
+OBS_SR_MAX = 1.5  # steering-rate bound, rad/s
+
+
+def _input_bounds_fn(x, u, k):
+    return torch.stack([u[0] - OBS_V_MAX, -u[0], u[1] - OBS_SR_MAX, -OBS_SR_MAX - u[1]])
+
+
+def obstacle_problem(ref, N: int = 30, *, t_obs: int = 25, r_obs: float = 0.75,
+                     with_obstacle: bool = True, declared: bool = False,
+                     dtype=torch.float32, device="cuda") -> Problem:
+    """The obstacle row's problem on the first reference window: the
+    bicycle (midpoint), the diagonal tracking cost (Q = 1e-2, R = 1e-3),
+    and three NEGATIVE_ORTHANT groups: the steering bound |delta| <= 60
+    deg (2 rows), the input bounds 0 <= v <= 8 and |delta_dot| <= 1.5
+    (4 rows, off at knot N), and the obstacle r^2 - |p - c|^2 <= 0 (1
+    nonlinear row, active at every knot), the disc centred on the path at
+    ref.x[t_obs + N // 2]. The first two groups are declared affine;
+    `declared` also declares them diagonal-Hessian, as
+    tests/test_obstacle_mpc.py does. with_obstacle=False drops the disc
+    (the test's twin). On the card unless `device` says otherwise."""
+    n, m = 4, 2
+    kw = dict(dtype=dtype, device=device)
+    c_obs = [float(v) for v in ref.x[t_obs + N // 2][:2]]
+
+    def obstacle_fn(x, u, k):
+        dx = x[0] - c_obs[0]
+        dy = x[1] - c_obs[1]
+        return torch.stack([r_obs * r_obs - dx * dx - dy * dy])
+
+    on = torch.ones(N + 1, dtype=torch.bool, device=device)
+    off_n = on.clone()
+    off_n[N] = False
+    cons = (
+        ConstraintSpec(fn=_steering_fn, cone=Cone.NEGATIVE_ORTHANT, dim=2, active=on,
+                       label="steering", diag_hessian=declared, affine=True),
+        ConstraintSpec(fn=_input_bounds_fn, cone=Cone.NEGATIVE_ORTHANT, dim=4, active=off_n,
+                       label="input bounds", diag_hessian=declared, affine=True),
+    )
+    if with_obstacle:
+        cons = cons + (ConstraintSpec(fn=obstacle_fn, cone=Cone.NEGATIVE_ORTHANT, dim=1,
+                                      active=on, label="obstacle"),)
+    cost = lqr_cost_from_reference(
+        torch.full((N + 1, n), Q_DIAG, **kw), torch.full((N + 1, m), R_DIAG, **kw),
+        torch.as_tensor(ref.x[: N + 1], **kw), torch.as_tensor(ref.u[: N + 1], **kw))
+    return Problem(N=N, n=n, m=m, dynamics=midpoint(bicycle_continuous()), dynamics_jac=None,
+                   constraints=cons, cost=cost,
+                   h=torch.full((N,), float(np.float32(ref.tf / ref.N)), **kw),
+                   x0=torch.as_tensor(ref.x[0], **kw))
+
+
+def obstacle_options(pallas_backward: bool = True, exact: bool = False) -> SolverOptions:
+    """The row's options (`o_opts`, bench_all.py:624-643): bench_all.py's
+    f32opts (30 iterations, tolerances 1e-3) with a budget of 25, the
+    phase-split Armijo-only grid of width 8 in three blocks (24 trials),
+    penalty warm start decayed by 0.5 a resolve, line-search failure
+    recovery without a cap (ls_recovery_max_fails=0), the best-decrease
+    fallback and relative stationarity 1e-5; with `pallas_backward` the
+    dense backward kernel on the card (its plain version on the CPU);
+    `exact` selects the exact AL Hessian."""
+    return SolverOptions(
+        iterations_max=25, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+        throw_errors=False, use_backtracking_linesearch=True, penalty_warm_start=True,
+        penalty_warm_start_decay=0.5, parallel_linesearch=True, ls_phase_split=True,
+        ls_try_cubic_first=False, ls_armijo_only=True, ls_max_iters=24,
+        ls_failure_recovery=True, ls_recovery_max_fails=0, ls_best_decrease_fallback=True,
+        tol_stationarity_rel=1e-5, pallas_backward=pallas_backward, exact_al_hessian=exact)
+
+
+def obstacle_initial_states(ref, batch: int, *, seed: int = 7, start: int = 0,
+                            dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """[B, 4] plant states: the path's point ref.x[start] (its start by
+    default) plus 0.02 N(0, 1) from numpy's default_rng(seed) (the JAX row
+    draws them from jax.random.PRNGKey(7), which gives other numbers)."""
+    noise = np.random.default_rng(seed).standard_normal((batch, 4))
+    return torch.as_tensor(np.asarray(ref.x[start])[None] + 0.02 * noise, dtype=dtype,
+                           device=device)
+
+
+@dataclasses.dataclass
+class ObstacleResult:
+    iterations: torch.Tensor  # [T, B] int32
+    status: torch.Tensor  # [T, B] int32
+    dist: torch.Tensor  # [T, B] distance of the plant from the disc's centre after each tick
+    tracking_error: torch.Tensor  # [T, B] |p - ref.x[t + 1][:2]| after each tick
+    x_true: torch.Tensor  # [B, 4] final plant states
+    r_obs: float
+    state: SolverState  # final solver state, batch-major
+    seconds: float  # wall time of the run (synchronized on CUDA)
+
+    def metrics(self) -> dict:
+        """The row's numbers (bench_all.py:698-728, unrounded) and its gates."""
+        T, B = self.iterations.shape
+        success = float((self.status == 0).double().mean())
+        clearance = float(self.dist.double().min()) - self.r_obs
+        err = float(self.tracking_error.double().mean())
+        return {
+            "solves_per_s": B * T / self.seconds,
+            "ms_per_tick": 1e3 * self.seconds / T,
+            "ticks": T,
+            "success_rate": success,
+            "min_obstacle_clearance": clearance,
+            "mean_tracking_error": err,
+            "mean_iterations": float(self.iterations.double().mean()),
+            "gates_passed": clearance > -0.1 and success > 0.75 and err < 2.0,
+        }
+
+
+def run_obstacle_mpc(problem: Problem, ref, x_true0: torch.Tensor, *, ticks: int = 60,
+                     start: int = 0, opts: Optional[SolverOptions] = None,
+                     r_obs: float = 0.75, t_obs: int = 25,
+                     layer_seconds: Optional[dict] = None) -> ObstacleResult:
+    """The obstacle row's closed loop over its ticks start .. start + ticks
+    - 1: each tick every lane gets the sliding window's linear cost rows
+    (shared by the lanes, as the JAX row broadcasts them), one
+    warm-started vmapped solve (`parallel.batch.solve_lanes`), u_0 through
+    the plant (the problem's own dynamics) and the shift. The warm start
+    is the first tick's reference window as x with u = (u_ref[0][0], 0).
+    problem: `obstacle_problem(ref)`; x_true0 [B, 4]
+    (`obstacle_initial_states` with the same start); opts default
+    `obstacle_options()`. layer_seconds: as `tile_solver.lane_loop`'s."""
+    opts = obstacle_options() if opts is None else opts
+    N, n, B = problem.N, problem.n, x_true0.shape[0]
+    dt, dev = problem.dtype, problem.device
+    xw, qs, cs = _windows(ref, N, ticks, problem, start)
+    u0 = torch.tensor([ref.u[0][0], 0.0], dtype=dt, device=dev)
+    state0 = dataclasses.replace(
+        batch_init_state(problem, B), u=u0.expand(B, N, problem.m).contiguous(),
+        x=xw[0].expand(B, N + 1, n).contiguous())
+    centre = torch.as_tensor(ref.x[t_obs + N // 2][:2], dtype=dt, device=dev)[:, None]
+    dist = torch.empty((ticks, B), dtype=dt, device=dev)
+    errs = torch.empty((ticks, B), dtype=dt, device=dev)
+
+    def observe(t, x_true):
+        dist[t] = torch.linalg.vector_norm(x_true[:2] - centre, dim=0)
+        errs[t] = torch.linalg.vector_norm(x_true[:2] - xw[t + 1, 0, :2, None], dim=0)
+
+    out = _lanes_closed_loop(
+        problem, x_true0, ticks, state0,
+        lambda prob, st: solve_lanes(prob, st, opts, layer_seconds),
+        lambda t: dataclasses.replace(problem.cost, q=qs[t], c=cs[t]), observe=observe)
+    iters, statuses, x_true, state, seconds = out
+    return ObstacleResult(iters, statuses, dist, errs, x_true, r_obs, state, seconds)
+
+
+def obstacle_loop_options(tol: float = 1e-4) -> SolverOptions:
+    """tests/test_obstacle_mpc.py's options: 30 iterations, the sequential
+    backtracking search, penalty warm start; stationarity and feasibility
+    `tol` (the test's 1e-4; the bench's 1e-3 in float32)."""
+    return SolverOptions(iterations_max=30, use_backtracking_linesearch=True,
+                         penalty_warm_start=True, throw_errors=False, tol_stationarity=tol,
+                         tol_primal_feasibility=tol)
+
+
+@dataclasses.dataclass
+class ObstacleLoopResult:
+    status: list  # [T] SolveStatus per resolve
+    iterations: list  # [T] iterations per resolve
+    dist: np.ndarray  # [T] distance from the disc's centre after each tick, float64
+    tracking_error: np.ndarray  # [T] |p - ref.x[t + 1][:2]| after each tick, float64
+    r_obs: float
+    seconds: float  # wall time of the loop (synchronized on CUDA)
+
+    def metrics(self) -> dict:
+        """The test's oracle numbers."""
+        return {
+            "min_dist": float(self.dist.min()),
+            "mean_tracking_error": float(self.tracking_error.mean()),
+            "last_tracking_error": float(self.tracking_error[-1]),
+            "success_rate": float(np.mean(np.asarray(self.status) == 0)),
+            "mean_iterations": float(np.mean(self.iterations)),
+            "ms_per_tick": 1e3 * self.seconds / len(self.status),
+        }
+
+
+def run_obstacle_loop(ref, with_obstacle: bool = True, exact: bool = False, *,
+                      ticks: int = 40, N: int = 30, t_obs: int = 15, r_obs: float = 0.6,
+                      opts: Optional[SolverOptions] = None, dx0=None, dtype=torch.float32,
+                      device="cuda") -> ObstacleLoopResult:
+    """tests/test_obstacle_mpc.py's loop: one lane, the obstacle problem
+    (`obstacle_problem(declared=True)`, the disc at ref.x[t_obs + N // 2]
+    of radius r_obs, or without it), warm-started as the test does (x the
+    reference window, u = (u_ref[0][0], 0)); each tick `solver.solve`,
+    u_0 through the plant (the problem's dynamics, in its dtype), then
+    `update_linear_costs` with the next window, `set_initial_state` and
+    `shift_trajectory`. exact selects the exact AL Hessian; opts default
+    `obstacle_loop_options()`; dx0 (4 numbers) moves the plant's start
+    off ref.x[0]. On the card the single-lane backward kernel runs at
+    (4, 2) (dense expansions, lux)."""
+    opts = (obstacle_loop_options() if opts is None else opts).replace(exact_al_hessian=exact)
+    problem = obstacle_problem(ref, N, t_obs=t_obs, r_obs=r_obs, with_obstacle=with_obstacle,
+                               declared=True, dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=device)
+    u0 = torch.tensor([ref.u[0][0], 0.0], **kw)
+    state = dataclasses.replace(init_state(problem), u=u0.expand(N, problem.m).contiguous(),
+                                x=torch.as_tensor(ref.x[: N + 1], **kw))
+    Qd = np.full(4, Q_DIAG)
+    c_u = 0.5 * float(ref.u[0] @ (np.full(2, R_DIAG) * ref.u[0]))
+    h = problem.h[0]
+    if dx0 is not None:
+        problem = set_initial_state(problem, problem.x0 + torch.as_tensor(dx0, **kw))
+    x = problem.x0
+    statuses, iters, xs = [], [], []
+    if problem.device.type == "cuda":
+        torch.cuda.synchronize(problem.device)
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        state, stats = solve(problem, state, opts)
+        statuses.append(stats.status)
+        iters.append(stats.iterations)
+        x = problem.dynamics(x, state.u[0], h, 0)
+        xs.append(x)
+        window = ref.x[t + 1: t + N + 2]
+        c_new = 0.5 * np.sum(Qd[None, :] * window * window, axis=1)
+        c_new[:N] += c_u
+        problem = update_linear_costs(problem, q=-(Qd[None, :] * window), c=c_new)
+        problem = set_initial_state(problem, x)
+        state = shift_trajectory(state)
+    statuses = torch.stack(statuses).tolist()
+    iters = torch.stack(iters).tolist()
+    p = torch.stack(xs).double().cpu().numpy()[:, :2]
+    seconds = time.perf_counter() - t0
+    c_obs = np.asarray(ref.x[t_obs + N // 2][:2], np.float64)
+    dist = np.linalg.norm(p - c_obs[None], axis=1)
+    errs = np.linalg.norm(p - np.asarray(ref.x[1: ticks + 1])[:, :2], axis=1)
+    return ObstacleLoopResult(statuses, iters, dist, errs, r_obs, seconds)
+
+
+# ---------------------------------------------------------------------------
+# The double integrator's block step through the facade, and trial-rollout
+# operands for the bicycle's and the double integrator's kernels
+# ---------------------------------------------------------------------------
+
+DI_N = 10
+
+
+def double_integrator_block_step_solver(with_tile: bool, dtype=torch.float32, device="cuda",
+                                        **overrides):
+    """tests/test_api.py:54's problem (the double integrator, N=10, h=0.5,
+    x0 = (2, 2, 0, 0), Q = 1, R = 1e-2, the input bounds |u| <= 1) with its
+    ZERO-cone goal replaced by a terminal cost Q_N = 100 toward the origin
+    (no rollout kernel takes a ZERO cone), through the facade and set up as
+    `pendulum_block_step_solver` sets up tests/test_api.py:250-293: the
+    phase-split Armijo-only grid of W=8 trials, penalty 100 scaled by 100;
+    with `with_tile` the block step `double_integrator_tile(2)`, so the
+    solve runs the trial rollout (on the card csrc/trial_rollout.cu's
+    one-lane-a-trial kernel at P=4). overrides are SolverOptions fields."""
+    from altro_tpu_torch.api import ALTROSolver
+
+    N, n, m = DI_N, 4, 2
+    s = ALTROSolver(N, dtype=dtype, device=device)
+    s.set_dimension(n, m)
+    s.set_time_step(0.5)
+    s.set_explicit_dynamics(double_integrator_dynamics(2))
+    s.set_lqr_cost(np.ones(n), np.full(m, 1e-2), np.zeros(n), np.zeros(m), 0, N)
+    s.set_lqr_cost(np.full(n, 100.0), np.full(m, 1e-2), np.zeros(n), np.zeros(m), N)
+    s.set_input_bounds(u_lo=[-1.0, -1.0], u_hi=[1.0, 1.0])
+    s.set_initial_state([2.0, 2.0, 0.0, 0.0])
+    if with_tile:
+        s.set_tile_dynamics(double_integrator_tile(2))
+    s.initialize()
+    s.set_options(SolverOptions(**{**dict(
+        iterations_max=12, penalty_initial=100.0, penalty_scaling=100.0,
+        use_backtracking_linesearch=True, parallel_linesearch=True, ls_phase_split=True,
+        ls_try_cubic_first=False, ls_armijo_only=True, ls_max_iters=8, throw_errors=False),
+        **overrides}))
+    return s
+
+
+def trial_operands(model: str, N: int, W: int, P: int, *, rows: str = "state",
+                   seed: Optional[int] = None, dtype=torch.float32, device="cuda"):
+    """Operands of one trial rollout (`ops.trial_rollout.trial_rollout`) for
+    the block step of the bicycle (model "bicycle"), the double
+    integrator ("double_integrator") or the pendulum ("pendulum"): alphas
+    0.5^w; x_ref the Scotty path's first N knots (the bicycle), a path to
+    the origin (the double integrator) or a swing-up (the pendulum);
+    perturbed u_ref (the pendulum's near its torque bound), random gains
+    (the bicycle's: 0.1 N(0, 1) up to N=60, as tests/test_pallas_rollout.
+    py's fixture, 0.002 beyond), the diagonal cost rows (toward x_ref and
+    u_ref; the pendulum's Q = 0.1 toward (pi, 0), R = 1e-3 toward 0) and
+    h. With P > 0, AL rows (rho-premultiplied, rho = 2.5, the pendulum's
+    3, random duals):
+    rows "state" are random affine rows in x and u active at every knot,
+    the terminal one included; rows "groups" (P = 4) are two groups as
+    tests/test_pallas_rollout.py:259 builds them, the steering bound
+    (|delta| <= 0.01, on x) and an input bound (|u_0| <= 0.05, off on the
+    second half of the horizon and at the terminal knot, where its rows
+    are all zero); rows "bounds" (the pendulum, P = 2) are the ones the
+    solve forms from |u| <= U_MAX (state terms zero, off on the first
+    third and at the terminal knot). seed defaults to 17 for the pendulum,
+    19 for the others. Returns (block step, operands, con), con None at
+    P = 0, its rhoi a one-element tensor."""
+    rng = np.random.default_rng((17 if model == "pendulum" else 19) if seed is None else seed)
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device).contiguous()
 
-    sw = np.linspace(0.0, 1.0, N + 1)
-    xr = np.stack([np.pi * sw, 2.0 * np.ones(N + 1)], axis=1) + 0.1 * rng.standard_normal(
-        (N + 1, n))
-    Qd = np.full((N + 1, n), 0.1)
-    args = (t(0.5 ** np.arange(W)), t(0.05 * rng.standard_normal(n)), t(xr),
-            t(5.5 + 0.8 * rng.standard_normal((N, m))), t(0.5 * rng.standard_normal((N, m, n))),
-            t(1.5 * rng.standard_normal((N, m))), t(Qd), t(-Qd * np.array([np.pi, 0.0])),
-            t(np.full((N + 1, m), 1e-3)), t(np.zeros((N + 1, m))),
-            t(np.full(N + 1, 0.5 * 0.1 * np.pi ** 2)), t(np.full(N, float(np.float32(0.06)))))
+    xg = ug = None  # the cost's target: x_ref and u_ref unless set
+    if model == "bicycle":
+        ref = load_scotty()
+        n, m = 4, 2
+        step = midpoint_tile(bicycle_tile())
+        xr = np.asarray(ref.x[: N + 1])
+        ur = np.asarray(ref.u[:N]) + 0.01 * rng.standard_normal((N, m))
+        h = float(np.float32(ref.tf / ref.N))
+        # the gains of tests/test_pallas_rollout.py's fixture up to its N=60,
+        # smaller beyond (a longer closed loop on these gains is unstable,
+        # and f32 roundoff would decide its trajectory)
+        K = (0.1 if N <= 60 else 0.002) * rng.standard_normal((N, m, n))
+        d = 0.05 * rng.standard_normal((N, m))
+        x0 = xr[0]
+        Qd, Rd = np.full((N + 1, n), Q_DIAG), np.full((N + 1, m), R_DIAG)
+    elif model == "double_integrator":
+        n, m = 4, 2
+        step = double_integrator_tile(2)
+        sw = np.linspace(1.0, 0.0, N + 1)[:, None]
+        xr = np.concatenate([2.0 * sw, 2.0 * sw, -0.4 * np.ones((N + 1, 2))], 1) \
+            + 0.1 * rng.standard_normal((N + 1, n))
+        ur = 0.8 * rng.standard_normal((N, m))
+        h = 0.5
+        K, d = 0.1 * rng.standard_normal((N, m, n)), 0.2 * rng.standard_normal((N, m))
+        x0 = xr[0] + 0.05 * rng.standard_normal(n)
+        Qd, Rd = np.ones((N + 1, n)), np.full((N + 1, m), 1e-2)
+    elif model == "pendulum":
+        n, m = 2, 1
+        step = midpoint_tile(pendulum_tile())
+        sw = np.linspace(0.0, 1.0, N + 1)
+        xr = np.stack([np.pi * sw, 2.0 * np.ones(N + 1)], axis=1) \
+            + 0.1 * rng.standard_normal((N + 1, n))
+        x0 = 0.05 * rng.standard_normal(n)
+        ur = 5.5 + 0.8 * rng.standard_normal((N, m))
+        K, d = 0.5 * rng.standard_normal((N, m, n)), 1.5 * rng.standard_normal((N, m))
+        h = float(np.float32(0.06))
+        Qd, Rd = np.full((N + 1, n), 0.1), np.full((N + 1, m), 1e-3)
+        xg, ug = np.tile([np.pi, 0.0], (N + 1, 1)), np.zeros((N + 1, m))
+    else:
+        raise ValueError(f"model must be 'bicycle', 'double_integrator' or 'pendulum', "
+                         f"not {model!r}")
+    uc = np.concatenate([ur, np.zeros((1, m))])
+    xg = xr if xg is None else xg
+    ug = uc if ug is None else ug
+    c = 0.5 * np.sum(Qd * xg * xg, 1) + 0.5 * np.sum(Rd * ug * ug, 1)
+    args = (t(0.5 ** np.arange(W)), t(x0), t(xr), t(ur), t(K), t(d), t(Qd), t(-Qd * xg), t(Rd),
+            t(-Rd * ug), t(c), t(np.full(N, h)))
     con = None
     if P:
-        rho = 3.0
-        if rows == "bounds":
+        rho = 3.0 if model == "pendulum" else 2.5
+        if rows == "state":
+            a, b = rng.standard_normal((N + 1, P, n)), rng.standard_normal((N + 1, P, m))
+            g = (np.einsum("kpi,ki->kp", a, xr) + np.einsum("kpj,kj->kp", b, uc)
+                 + 0.5 * rng.standard_normal((N + 1, P)))
+            g[N, : P // 2] -= 50.0  # half the terminal rows bite
+            z = 0.1 * rng.standard_normal((N + 1, P))
+            wa, wu, wg = rho * a, rho * b, z + rho * g
+        elif rows == "groups" and P == 4:
+            ax, au, g = np.zeros((N + 1, P, n)), np.zeros((N + 1, P, m)), np.zeros((N + 1, P))
+            ax[:, 0, 3], ax[:, 1, 3], g[:, :2] = 1.0, -1.0, -0.01
+            au[:, 2, 0], au[:, 3, 0], g[:, 2:] = 1.0, -1.0, -0.05
+            act = np.ones((N + 1, P))
+            act[N // 2:, 2:] = 0.0
+            z = 0.1 * rng.standard_normal((N + 1, P))
+            wa, wu = rho * ax * act[..., None], rho * au * act[..., None]
+            wg = (z - rho * g) * act
+        elif rows == "bounds" and model == "pendulum" and P == 2:
             act = np.ones((N + 1, P))
             act[N] = 0.0
             act[: N // 3] = 0.0
             wa = np.zeros((N + 1, P, n))
             wu = rho * np.array([[1.0], [-1.0]])[None].repeat(N + 1, 0) * act[..., None]
             wg = (np.abs(rng.standard_normal((N + 1, P))) + rho * U_MAX) * act
-        elif rows == "state":  # w = rho (g - a.x - b.u), about half of it negative
-            a, b = rng.standard_normal((N + 1, P, n)), rng.standard_normal((N + 1, P, m))
-            uc = np.concatenate([args[3].cpu().numpy(), np.zeros((1, m))])
-            g = (np.einsum("kpi,ki->kp", a, xr) + np.einsum("kpj,kj->kp", b, uc)
-                 + 0.5 * rng.standard_normal((N + 1, P)))
-            wa, wu, wg = rho * a, rho * b, rho * g
         else:
-            raise ValueError(f"rows must be 'bounds' or 'state', not {rows!r}")
+            raise ValueError(f"rows must be 'state', (at P=4) 'groups' or (the pendulum at "
+                             f"P=2) 'bounds', not {rows!r}")
         con = (t(wa), t(wu), t(wg), t([1.0 / (2.0 * rho)]))
-    return midpoint_tile(pendulum_tile()), args, con
+    return step, args, con
+
+
+def double_integrator_grid_operands(B: int, N: int, W: int, P: int, *, seed: int = 23,
+                                    dtype=torch.float32, device="cuda"):
+    """A batched problem on the double integrator's column step and the
+    operands of one trial grid (`ops.rollout_grid.rollout_grid`): the
+    problem (N knots of h = 0.5, Q = 1 and R = 1e-2 toward the origin,
+    `dynamics_cols = double_integrator_cols(2)`) with, at P = 2, one affine
+    NEGATIVE_ORTHANT group of two random rows in x and u active at every
+    knot, the terminal one included, with its constant Jacobian; then
+    lane-minor references around a path to the origin, random gains,
+    duals and per-lane rho, alphas 0.5^w and starts. Returns (problem,
+    (x_ref, u_ref, K, d, z, rho, alphas, x0))."""
+    n, m = 4, 2
+    rng = np.random.default_rng(seed)
+    kw = dict(dtype=dtype, device=device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), **kw).contiguous()
+
+    cons = ()
+    if P:
+        if P != 2:
+            raise ValueError("the grid takes P = 0 or 2 rows here")
+        J = rng.standard_normal((P, n + m))
+        g = 0.5 * rng.standard_normal(P) - 1.0
+        Jt, gt = t(J), t(g)
+
+        def rows_fn(x, u, k):
+            xu = torch.cat([x, u], dim=0)
+            return torch.einsum("pi,i...->p...", Jt, xu) + gt.reshape((P,) + (1,) * (xu.ndim - 1))
+
+        cons = (ConstraintSpec(fn=rows_fn, cone=Cone.NEGATIVE_ORTHANT, dim=P,
+                               active=torch.ones(N + 1, dtype=torch.bool, device=device),
+                               jac=_constant_jacobian(Jt), label="rows", affine=True),)
+    Qd, Rd = np.ones((N + 1, n)), np.full((N + 1, m), 1e-2)
+    prob = Problem(N=N, n=n, m=m, dynamics=double_integrator_dynamics(2), dynamics_jac=None,
+                   constraints=cons,
+                   cost=lqr_cost_from_reference(t(Qd), t(Rd), t(np.zeros((N + 1, n))),
+                                                t(np.zeros((N + 1, m)))),
+                   h=torch.full((N,), 0.5, **kw), x0=torch.zeros(n, **kw),
+                   dynamics_cols=double_integrator_cols(2))
+    sw = np.linspace(1.0, 0.0, N + 1)[:, None, None]
+    xr = np.concatenate([np.broadcast_to(2.0 * sw, (N + 1, 2, B)), np.full((N + 1, 2, B), -0.4)],
+                        1) + 0.1 * rng.standard_normal((N + 1, n, B))
+    ur = 0.8 * rng.standard_normal((N, m, B))
+    K = 0.1 * rng.standard_normal((N, m, n, B))
+    d = 0.2 * rng.standard_normal((N, m, B))
+    z = (t(0.3 * np.abs(rng.standard_normal((N + 1, P, B)))),) if P else ()
+    rho = 1.0 + 9.0 * rng.random(B)
+    x0 = xr[0] + 0.05 * rng.standard_normal((n, B))
+    return prob, (t(xr), t(ur), t(K), t(d), z, t(rho), t(0.5 ** np.arange(W)), t(x0))

@@ -33,9 +33,11 @@ import torch
 from altro_tpu_torch import al
 from altro_tpu_torch.cones import Cone
 from altro_tpu_torch.models.tile_steps import (
+    INTEGRATOR_DISCRETE,
     INTEGRATOR_MIDPOINT,
     INTEGRATOR_RK4,
     MODEL_BICYCLE,
+    MODEL_DOUBLE_INTEGRATOR,
     MODEL_PENDULUM,
     MODEL_QUADROTOR,
 )
@@ -48,7 +50,7 @@ __all__ = [
     "ineligibility",
     "affine_constraint_stacks",
     "premultiplied_rows",
-    "plain_grid",
+    "plain_rollout",
     "rollout_grid_ref",
     "rollout_grid",
 ]
@@ -60,7 +62,8 @@ LAUNCHES = 0
 # the constraint row counts P each step is instantiated with.
 DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): ("bicycle_midpoint", (0, 2)),
                 (MODEL_QUADROTOR, INTEGRATOR_RK4): ("quadrotor_rk4", (0,)),
-                (MODEL_PENDULUM, INTEGRATOR_MIDPOINT): ("pendulum_midpoint", (0, 2))}
+                (MODEL_PENDULUM, INTEGRATOR_MIDPOINT): ("pendulum_midpoint", (0, 2)),
+                (MODEL_DOUBLE_INTEGRATOR, INTEGRATOR_DISCRETE): ("double_integrator", (0, 2))}
 
 
 def device_params(ds) -> ctypes.Array:
@@ -146,30 +149,28 @@ def premultiplied_rows(stacks, z, rho):
     return wax, wau, wg, 1.0 / (2.0 * rho)
 
 
-def plain_grid(stage, step, terminal, ref_x, ref_u, K, d, alphas, x0):
-    """The plain W-trial loop of both rollout grids (this one and the
-    single-lane ops/trial_rollout.py): a Python loop over knots with the
-    trials on the leading axis, x [W, n, B].
-
-    stage(k, x, u) -> [W, B] and terminal(x) -> [W, B] are the merit
-    terms, step(k, x, u) -> [W, n, B] the dynamics. ref_x [N(+1), n, B],
-    ref_u [N, m, B], K [N, m, n, B], d [N, m, B], x0 [n, B]; alphas [W],
-    shared by the lanes, or [W, B], each lane its own.
-    Returns (phi [W, B], xstack [W, N+1, n, B]).
-    """
+def plain_rollout(step, ref_x, ref_u, K, d, alphas, x0):
+    """The W-trial rollout of both rollout grids' plain versions (this one
+    and the single-lane ops/trial_rollout.py's): a Python loop over knots
+    with the trials on the leading axis, x [W, n, B], the policy
+    u = u_ref - K (x - x_ref) + alpha d and step(k, x, u) -> [W, n, B].
+    ref_x [N(+1), n, B], ref_u [N, m, B], K [N, m, n, B], d [N, m, B],
+    x0 [n, B]; alphas [W], shared by the lanes, or [W, B], each lane its
+    own. Returns (xstack [W, N+1, n, B], ustack [W, N, m, B]); the merit
+    follows from them knot by knot."""
     N = K.shape[0]
     W, (n, Bsz) = alphas.shape[0], x0.shape
     a = (alphas[:, None, None] if alphas.ndim == 1 else alphas[:, None, :]).to(x0.dtype)
     x = x0[None].expand(W, n, Bsz)
     xs = x0.new_empty((W, N + 1, n, Bsz))
-    phi = x0.new_zeros((W, Bsz))
+    us = x0.new_empty((W, N, ref_u.shape[1], Bsz))
     for k in range(N):
         xs[:, k] = x
         u = ref_u[k] - torch.einsum("jib,wib->wjb", K[k], x - ref_x[k]) + a * d[k]
-        phi = phi + stage(k, x, u)
+        us[:, k] = u
         x = step(k, x, u)
     xs[:, N] = x
-    return phi + terminal(x), xs
+    return xs, us
 
 
 def rollout_grid_ref(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0):
@@ -178,19 +179,30 @@ def rollout_grid_ref(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0):
     ref_x [N+1, n, B], ref_u [N, m, B], K [N, m, n, B], d [N, m, B],
     z per group [N+1, p, B], rho [B], alphas [W] or [W, B] (per lane), x0 [n, B].
     Returns (phi [W, B], xstack [W, N+1, n, B]).
+
+    The JAX scan adds each knot's AL cost inside the sequential step; the
+    cost needs only that knot's (x, u), so here the states roll out with
+    the policy and the dynamics alone, the AL costs of every knot and
+    trial follow in one knot-parallel call, and phi sums them knot by knot
+    in the scan's order (as solver.merit_rollout_phi_x does for one lane).
     """
-    N, W = problem.N, alphas.shape[0]
-
-    def cost(k, x, u, terminal):
-        ks = torch.full((W,), k, device=x0.device)
-        zk = tuple(zj[k].expand(W, -1, -1) for zj in z)
-        return al.al_cost(problem, ks, x, u, zk, rho, terminal=terminal)[0]
-
-    return plain_grid(
-        lambda k, x, u: cost(k, x, u, False),
+    N = problem.N
+    W, (n, Bsz) = alphas.shape[0], x0.shape
+    xs, us = plain_rollout(
         lambda k, x, u: problem.dyn_step(k, x.movedim(1, 0), u.movedim(1, 0)).movedim(0, 1),
-        lambda x: cost(N, x, None, True),
         ref_x, ref_u, K, d, alphas, x0)
+    x = xs[:, N]
+    ks = torch.arange(N, device=x0.device).repeat(W)  # trial-major: row w * N + k
+    zs = tuple(zj[:N].repeat(W, 1, 1) for zj in z)
+    cost = al.al_cost(problem, ks, xs[:, :N].reshape(W * N, n, Bsz),
+                      us.reshape(W * N, -1, Bsz), zs, rho, terminal=False)[0].reshape(W, N, Bsz)
+    kN = torch.full((W,), N, device=x0.device)
+    cost_N = al.al_cost(problem, kN, x, None, tuple(zj[N].expand(W, -1, -1) for zj in z), rho,
+                        terminal=True)[0]
+    phi = x0.new_zeros((W, Bsz))
+    for k in range(N):
+        phi = phi + cost[:, k]
+    return phi + cost_N, xs
 
 
 def rollout_grid(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0,

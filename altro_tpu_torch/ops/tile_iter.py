@@ -43,13 +43,15 @@ def _knots(problem, device):
             torch.full((1,), N, dtype=torch.long, device=device))
 
 
-def cost_expansions_tiled(problem, x, u, z, rho, diag=False):
+def cost_expansions_tiled(problem, x, u, z, rho, diag=False, exact=False):
     """AL cost expansions and total AL cost, without the dynamics
     Jacobians (those are carried from the accepted-step completion).
 
     x [N+1, n, B], u [N, m, B], z per group [N+1, p, B], rho [B].
     Returns (lx, lu, lxx, luu, lux_or_None, phi0 [B]); with diag=True
-    lxx/luu are diagonals ([N+1, n, B] / [N, m, B]) and lux is None.
+    lxx/luu are diagonals ([N+1, n, B] / [N, m, B]) and lux is None;
+    exact=True (dense only) takes the exact AL Hessian (`al.al_hess_exact`,
+    SolverOptions.exact_al_hessian) for the Gauss-Newton one.
     """
     N = problem.N
     ks, kN = _knots(problem, x.device)
@@ -63,8 +65,9 @@ def cost_expansions_tiled(problem, x, u, z, rho, diag=False):
         lxxN, _ = al.al_hess_diag(problem, kN, xN, None, zN, rho, terminal=True)
         lux = None
     else:
-        lxx_st, luu, lux = al.al_hess(problem, ks, xs, u, zs, rho, terminal=False)
-        lxxN, _, _ = al.al_hess(problem, kN, xN, None, zN, rho, terminal=True)
+        hess = al.al_hess_exact if exact else al.al_hess
+        lxx_st, luu, lux = hess(problem, ks, xs, u, zs, rho, terminal=False)
+        lxxN, _, _ = hess(problem, kN, xN, None, zN, rho, terminal=True)
     cost_st, _, _ = al.al_cost(problem, ks, xs, u, zs, rho, terminal=False)
     costN, _, _ = al.al_cost(problem, kN, xN, None, zN, rho, terminal=True)
     lx = torch.cat([lx_st, lxN], dim=0)

@@ -23,7 +23,7 @@ trial walk the state chain, splitting the model's steering-angle terms
 between them, and a lane of another warp per trial accumulates the merit
 behind them; for the quadrotor's RK4 step, three lanes per trial (one a
 body axis) walk the chain on the same pipeline; for the pendulum's
-midpoint step, one lane per trial.
+midpoint step and the double integrator's exact step, one lane per trial.
 """
 
 from __future__ import annotations
@@ -34,14 +34,16 @@ import torch
 
 from altro_tpu_torch.cones import Cone
 from altro_tpu_torch.models.tile_steps import (
+    INTEGRATOR_DISCRETE,
     INTEGRATOR_MIDPOINT,
     INTEGRATOR_RK4,
     MODEL_BICYCLE,
+    MODEL_DOUBLE_INTEGRATOR,
     MODEL_PENDULUM,
     MODEL_QUADROTOR,
 )
 from altro_tpu_torch.ops import _build
-from altro_tpu_torch.ops.rollout_grid import device_params, plain_grid
+from altro_tpu_torch.ops.rollout_grid import device_params, plain_rollout
 from altro_tpu_torch.problem import DiagonalCost
 
 __all__ = [
@@ -61,17 +63,20 @@ LAUNCHES = 0
 # The kernel's merit warp holds one trial per lane.
 KERNEL_MAX_W = 32
 
-# Constraint-row counts the kernel is instantiated for (the steering
-# bound's two rows, or none).
-KERNEL_P = (0, 2)
+# Constraint-row counts some step is instantiated for (none, the steering
+# bound's two rows, or two groups of two).
+KERNEL_P = (0, 2, 4)
 
 # (model, integrator) pairs the CUDA kernel has a __device__ step for, and
 # the constraint row counts each step is instantiated with (the bicycle in
 # the two-lanes-a-trial kernel, the quadrotor in the three-lanes-a-trial
-# kernel, the pendulum in the one-lane-a-trial kernel).
-DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): ("bicycle_midpoint", KERNEL_P),
+# kernel, the pendulum in the one-lane-a-trial kernel, the double
+# integrator's exact step in the generic one-lane-a-trial kernel).
+DEVICE_STEPS = {(MODEL_BICYCLE, INTEGRATOR_MIDPOINT): ("bicycle_midpoint", (0, 2, 4)),
                 (MODEL_QUADROTOR, INTEGRATOR_RK4): ("quadrotor_rk4", (0,)),
-                (MODEL_PENDULUM, INTEGRATOR_MIDPOINT): ("pendulum_midpoint", KERNEL_P)}
+                (MODEL_PENDULUM, INTEGRATOR_MIDPOINT): ("pendulum_midpoint", (0, 2)),
+                (MODEL_DOUBLE_INTEGRATOR, INTEGRATOR_DISCRETE): ("double_integrator",
+                                                                 (0, 2, 4))}
 
 
 def problem_ineligibility(problem, rows: bool = True) -> Optional[str]:
@@ -98,9 +103,10 @@ def problem_ineligibility(problem, rows: bool = True) -> Optional[str]:
 
 def ineligibility(step_tile, n: int, m: int, W: int = 1, P: int = 0) -> Optional[str]:
     """Why the kernel cannot run this block step with W trials and P
-    constraint rows, or None when it can (an instantiation exists; every
-    bicycle frame and the pendulum's midpoint step have one at P=0 and
-    P=2, the quadrotor's RK4 step one at P=0)."""
+    constraint rows, or None when it can (an instantiation exists: every
+    bicycle frame and the double integrator's step at P=0, 2 and 4, the
+    pendulum's midpoint step at P=0 and 2, the quadrotor's RK4 step at
+    P=0)."""
     ds = getattr(step_tile, "device_step", None)
     if ds is None:
         return "the block step names no device step (models/tile_steps.py)"
@@ -118,16 +124,14 @@ def ineligibility(step_tile, n: int, m: int, W: int = 1, P: int = 0) -> Optional
 
 def trial_rollout_ref(step_tile, alphas, x0, xref, uref, K, d, Qd, ql, Rd, rl,
                       cconst, h, con=None):
-    """Plain PyTorch version: ops/rollout_grid.py's `plain_grid` with one
-    lane, the block step on the [W, n] trial rows, and the diagonal cost
-    rows plus the rows' AL term as the merit."""
+    """Plain PyTorch version: ops/rollout_grid.py's `plain_rollout` with
+    one lane and the block step on the [W, n] trial rows, then the merit
+    added knot by knot: the diagonal cost rows plus the rows' AL term."""
     N, W = K.shape[0], alphas.shape[0]
 
-    def merit(k, x, u):  # x [W, n, 1], u [W, m, 1] (None at x_N) -> [W, 1]
-        x = x[..., 0]
+    def merit(k, x, u):  # x [W, n], u [W, m] (None at x_N) -> [W]
         phi = 0.5 * torch.sum(Qd[k] * x * x, dim=1) + torch.sum(ql[k] * x, dim=1) + cconst[k]
         if u is not None:
-            u = u[..., 0]
             phi = phi + 0.5 * torch.sum(Rd[k] * u * u, dim=1) + torch.sum(rl[k] * u, dim=1)
         if con is not None:
             wa, wu, wg, rhoi = con
@@ -136,14 +140,18 @@ def trial_rollout_ref(step_tile, alphas, x0, xref, uref, K, d, Qd, ql, Rd, rl,
                 w = w - u @ wu[k].T
             pw = torch.clamp(w, max=0.0)
             phi = phi + rhoi * torch.sum(pw * pw, dim=1)
-        return phi[:, None]
+        return phi
 
     def step(k, x, u):
         return step_tile(x[..., 0], u[..., 0], h[k].expand(W, 1))[..., None]
 
-    phi, xs = plain_grid(merit, step, lambda x: merit(N, x, None), xref[..., None],
-                         uref[..., None], K[..., None], d[..., None], alphas, x0[:, None])
-    return phi[:, 0], xs[..., 0]
+    xs, us = plain_rollout(step, xref[..., None], uref[..., None], K[..., None],
+                           d[..., None], alphas, x0[:, None])
+    xs, us = xs[..., 0], us[..., 0]
+    phi = xs.new_zeros(W)
+    for k in range(N):
+        phi = phi + merit(k, xs[:, k], us[:, k])
+    return phi + merit(N, xs[:, N], None), xs
 
 
 def output_views(W: int, N: int, n: int, device):

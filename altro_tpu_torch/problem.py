@@ -2,9 +2,9 @@
 
 Counterpart: altro_tpu/problem.py (`Problem`, `DiagonalCost`,
 `ConstraintSpec`, `lqr_cost_from_reference`, `Problem.dyn_step`,
-`Problem.dyn_expansion`). The slice ports the diagonal cost and
-nonlinear dynamics; QuadraticCost, GenericCost and linear dynamics
-arrays are still to be ported.
+`Problem.dyn_expansion`, `Problem.linear_dynamics`): the diagonal,
+quadratic and generic costs, nonlinear dynamics and linear dynamics
+arrays (A, B, f_aff).
 
 Conventions of the port:
 
@@ -344,8 +344,11 @@ class Problem:
     x_0 = x0, c_j(x_k, u_k) in K_j on active knots.
 
     dynamics(x, u, h, k) -> x_next (component-first); dynamics_jac(x, u,
-    h, k) -> [n, n+m, *batch] optional. x0: [n] for one lane, or [n, B]
-    lane-minor for the batched solve. dynamics_cols: the column-form step
+    h, k) -> [n, n+m, *batch] optional. Or dynamics=None and linear
+    dynamics arrays A [N, n, n], B [N, n, m], f_aff [N, n], shared by all
+    lanes: x' = A x + B u + f (the reference's SetLinearDynamics). x0: [n]
+    for one lane, or [n, B] lane-minor for the batched solve.
+    dynamics_cols: the column-form step
     (models/tile_steps.py) that the batched rollout kernel runs on the
     card; dynamics_tile: the block-form step ([W, n] trial rows) that the
     single-lane trial rollout runs.
@@ -354,12 +357,15 @@ class Problem:
     N: int
     n: int
     m: int
-    dynamics: Callable[..., torch.Tensor]
+    dynamics: Optional[Callable[..., torch.Tensor]]
     dynamics_jac: Optional[Callable[..., torch.Tensor]]
     constraints: Tuple[ConstraintSpec, ...]
     cost: object  # DiagonalCost, QuadraticCost or GenericCost
     h: torch.Tensor  # [N]
     x0: torch.Tensor
+    A: Optional[torch.Tensor] = None  # [N, n, n]
+    B: Optional[torch.Tensor] = None  # [N, n, m]
+    f_aff: Optional[torch.Tensor] = None  # [N, n]
     dynamics_cols: Optional[Callable[..., tuple]] = None
     dynamics_tile: Optional[Callable[..., torch.Tensor]] = None
 
@@ -371,12 +377,38 @@ class Problem:
     def device(self):
         return self.x0.device
 
+    @property
+    def linear_dynamics(self) -> bool:
+        return self.dynamics is None
+
+    def _knot_rows(self, M, k, batch):
+        """M[k] with its trailing (row) axes leading, expanded to
+        (rows..., *batch); k an int or a knot tensor that broadcasts
+        against the batch dims (trailing-aligned)."""
+        Mk = M[k]
+        kd = Mk.ndim - (M.ndim - 1)  # the knot tensor's dims
+        rows = Mk.shape[kd:]
+        Mk = Mk.movedim(tuple(range(kd)), tuple(range(Mk.ndim - kd, Mk.ndim)))
+        Mk = Mk.reshape(rows + (1,) * (len(batch) - kd) + Mk.shape[len(rows):])
+        return Mk.expand(rows + batch)
+
     def dyn_step(self, k, x, u):
         """x_{k+1} = f(x_k, u_k) on component-first tensors."""
+        if self.linear_dynamics:
+            A, B = self.dyn_expansion(k, x, u)
+            batch = A.shape[2:]
+            return (torch.einsum("ij...,j...->i...", A, x.expand((self.n,) + batch))
+                    + torch.einsum("ij...,j...->i...", B, u.expand((self.m,) + batch))
+                    + self._knot_rows(self.f_aff, k, batch))
         return self.dynamics(x, u, self.h[k], k)
 
     def dyn_expansion(self, k, x, u):
-        """(A [n, n, *batch], B [n, m, *batch]) of the dynamics at (x, u)."""
+        """(A [n, n, *batch], B [n, m, *batch]) of the dynamics at (x, u)
+        (the linear arrays themselves when the dynamics are linear)."""
+        if self.linear_dynamics:
+            batch = torch.broadcast_shapes(x.shape[1:], u.shape[1:],
+                                           k.shape if torch.is_tensor(k) else ())
+            return self._knot_rows(self.A, k, batch), self._knot_rows(self.B, k, batch)
         if self.dynamics_jac is not None:
             J = self.dynamics_jac(x, u, self.h[k], k)
             return J[:, : self.n], J[:, self.n:]

@@ -18,8 +18,9 @@ value per lane, [B]; the single-lane helpers take the one-lane layout and
 run the lane-minor blocks of ops/tile_iter.py and al.py with B = 1.
 
 `solve` ports the JAX solve's line-search branches (solver.py:900-1007)
-with diagonal or dense expansions (:745-752): the single-lane backward
-pass (ops/packed_backward.py, the kernel on the card) with the
+with diagonal or dense expansions (:745-752), the latter with the
+Gauss-Newton or, under exact_al_hessian, the exact AL Hessian; the
+single-lane backward pass (ops/packed_backward.py, the kernel on the card) with the
 adaptive-regularization retry; then one of
   * the strong-Wolfe cubic search or, with use_backtracking_linesearch,
     the sequential backtracking (linesearch.wolfe_line_search, the
@@ -47,6 +48,7 @@ take.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import NamedTuple, Optional, Tuple
@@ -420,12 +422,13 @@ def merit_function(problem: Problem, ref_x, ref_u, K, d, P, p, z, rho, alpha, x0
                     light.zproj)
 
 
-def _cost_expansions_and_cost(problem: Problem, x, u, z, rho):
-    """Dense Gauss-Newton AL cost expansions and the total AL cost at a
-    trajectory: (lx, lu, lxx [N+1, n, n], luu [N, m, m], lux [N, m, n],
-    al_cost)."""
+def _cost_expansions_and_cost(problem: Problem, x, u, z, rho, exact=False):
+    """Dense AL cost expansions and the total AL cost at a trajectory:
+    (lx, lu, lxx [N+1, n, n], luu [N, m, m], lux [N, m, n], al_cost); the
+    Gauss-Newton AL Hessian, or with exact=True (SolverOptions.
+    exact_al_hessian) the exact one (al.al_hess_exact)."""
     lx, lu, lxx, luu, lux, phi0 = ti.cost_expansions_tiled(
-        problem, _l(x), _l(u), _lz(z), rho.reshape(1), diag=False)
+        problem, _l(x), _l(u), _lz(z), rho.reshape(1), diag=False, exact=exact)
     return _u(lx), _u(lu), _u(lxx), _u(luu), _u(lux), phi0[0]
 
 
@@ -498,7 +501,6 @@ def grid_search_refusal(opts: SolverOptions) -> Optional[str]:
     checks = (
         (light, "ls_grid_x_only=False (the light-payload grid) is not ported"),
         (opts.parallel_riccati, "parallel_riccati is not ported"),
-        (opts.exact_al_hessian, "exact_al_hessian is not ported"),
         (opts.iteration_callback is not None, "iteration_callback is not ported"),
         (opts.verbose != Verbosity.SILENT, "verbose output is not ported"),
     )
@@ -534,7 +536,6 @@ def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
         (opts.pallas_backward, "pallas_backward (the batch-major fused backward) is not "
                                "ported for the single-lane solve"),
         (opts.parallel_riccati, "parallel_riccati is not ported"),
-        (opts.exact_al_hessian, "exact_al_hessian is not ported"),
         (_phase_split(opts) and not opts.ls_grid_x_only,
          "ls_grid_x_only=False (the light-payload grid) is not ported"),
     )
@@ -659,10 +660,16 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
         A, B = dynamics_expansions(problem, x, u)
 
     # dense expansions unless the AL Hessian is diagonal (altro_tpu/
-    # solver.py:745-752; pallas_backward, parallel_riccati and
-    # exact_al_hessian are refused)
-    diag_mode = opts.diag_expansion and al.diag_expansion_eligible(problem)
-    expand = _cost_expansions_and_cost_diag if diag_mode else _cost_expansions_and_cost
+    # solver.py:745-752, 832-837; pallas_backward and parallel_riccati are
+    # refused); the exact AL Hessian is dense
+    diag_mode = (opts.diag_expansion and al.diag_expansion_eligible(problem)
+                 and not opts.exact_al_hessian)
+    if diag_mode:
+        expand = _cost_expansions_and_cost_diag
+    elif opts.exact_al_hessian:
+        expand = functools.partial(_cost_expansions_and_cost, exact=True)
+    else:
+        expand = _cost_expansions_and_cost
 
     # the trial-rollout grid (a problem with its block step, diagonal cost
     # and affine NEGATIVE_ORTHANT groups; their rows are extracted once)

@@ -120,7 +120,6 @@ def supported_options(opts: SolverOptions) -> bool:
     return (
         ls_ok
         and not opts.parallel_riccati
-        and not opts.exact_al_hessian
         and opts.iteration_callback is None
     )
 
@@ -249,8 +248,9 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
     (vmapped=False) and parallel.batch's vmapped solve (vmapped=True).
 
     vmapped=True gives the per-lane semantics of `jax.vmap(solve)`:
-    dense expansions whenever `pallas_backward`, `not diag_expansion` or
-    the problem is not diag-eligible (altro_tpu/solver.py:747-753); the
+    dense expansions whenever `pallas_backward`, `exact_al_hessian` (the
+    exact AL Hessian), `not diag_expansion` or the problem is not
+    diag-eligible (altro_tpu/solver.py:747-753, 832-837); the
     backward pass through ops/riccati_dense.py (the kernel on CUDA, its
     plain version on the CPU) when `pallas_backward`, else the plain
     recursion on any device; every line search of `jax.vmap(solve)`
@@ -289,7 +289,11 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
     Bsz = state.x.shape[-1]
     lane = dict(dtype=dtype, device=dev)
     fused = vmapped and opts.pallas_backward
-    diag = opts.diag_expansion and al.diag_expansion_eligible(problem) and not fused
+    # the exact AL Hessian (dense) in the vmapped solve; JAX's solve_tiled
+    # accepts the option and does not read it
+    exact = vmapped and opts.exact_al_hessian
+    diag = (opts.diag_expansion and al.diag_expansion_eligible(problem) and not fused
+            and not exact)
     search = search_kind(opts, vmapped)
     # trial 0 of a grid passes on Armijo and strong Wolfe: the non-split grid
     # always, the phase-split one in the vmapped solve unless ls_armijo_only
@@ -368,7 +372,7 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
         lap("sync")
         # 1-2. expansions + backward pass with adaptive reg retry
         lx, lu, lxx, luu, lux, phi0 = ti.cost_expansions_tiled(
-            problem, c["x"], c["u"], c["z"], c["rho"], diag=diag)
+            problem, c["x"], c["u"], c["z"], c["rho"], diag=diag, exact=exact)
         lap("expansions")
 
         ops = [t.contiguous() for t in (c["A"], c["B"], lxx, luu, lx, lu)]

@@ -355,16 +355,19 @@ def _facade_on_card(build):
     """A facade built on the CPU whose problem then claims to lie on the
     card (the stand-in x0): its solve must refuse before anything runs."""
     s = build()
-    s._problem = dataclasses.replace(s.problem, x0=_OnCard())
+    card = _OnCard()
+    card.dtype = s.problem.dtype
+    s._problem = dataclasses.replace(s.problem, x0=card)
     return s
 
 
-def _facade_3x2():
-    """tests/test_hetero_dims.py's phase B alone: (n, m) = (3, 2), a shape
-    the single-lane backward kernel has no instantiation for."""
+def _facade_3x2(dtype=torch.float64):
+    """tests/test_hetero_dims.py's phase B alone: (n, m) = (3, 2), in
+    float64, which the single-lane backward kernel does not take (it takes
+    float32; its (3, 2) instantiation runs the float32 problem)."""
     from altro_tpu_torch.api import ALTROSolver
 
-    s = ALTROSolver(10, device="cpu")
+    s = ALTROSolver(10, dtype=dtype, device="cpu")
     s.set_dimension(3, 2)
     s.set_time_step(0.1)
     s.set_explicit_dynamics(lambda x, u, h, k: torch.stack(
@@ -397,7 +400,7 @@ def _facade_foreign_block_step():
 
 
 @pytest.mark.parametrize("build, words, plain", [
-    (_facade_3x2, ("riccati_latency", "n=3, m=2", "pallas_latency_backward=False"),
+    (_facade_3x2, ("riccati_latency", "torch.float64", "pallas_latency_backward=False"),
      dict(pallas_latency_backward=False)),
     (_facade_foreign_block_step, ("trial_rollout", "names no device step",
                                   "pallas_rollout=False"), dict(pallas_rollout=False)),
@@ -412,3 +415,6 @@ def test_facade_refuses_on_the_card_before_anything_runs(build, words, plain):
     for word in words:
         assert word in str(e.value), (word, str(e.value))
     assert solver.single_lane_refusal(s.problem, s._opts.replace(**plain)) is None
+    if build is _facade_3x2:  # the float32 problem runs on the (3, 2) instantiation
+        s32 = _facade_on_card(lambda: _facade_3x2(torch.float32))
+        assert solver.single_lane_refusal(s32.problem, s32._opts) is None

@@ -1013,12 +1013,12 @@ def test_solve_tiled_symmetrize_on_card_equals_plain_option(dev):
 
 def _check_pend_trial(dev, Nk, W, P, rows):
     """The one-lane-a-trial kernel on the pendulum's midpoint block step
-    against its plain version on `mpc.pendulum_trial_operands`: phi to
+    against its plain version on `mpc.trial_operands("pendulum", ...)`: phi to
     1e-4 relative, states to 1e-4 of their scale."""
-    from altro_tpu_torch.mpc import pendulum_trial_operands
+    from altro_tpu_torch.mpc import trial_operands
     from altro_tpu_torch.ops import trial_rollout as tr
 
-    step, args, con = pendulum_trial_operands(Nk, W, P, rows=rows, device=dev)
+    step, args, con = trial_operands("pendulum", Nk, W, P, rows=rows, device=dev)
     before = tr.LAUNCHES
     pk, xk = tr.trial_rollout(step, *args, con=con)
     pr, xs = tr.trial_rollout_ref(step, *args, con=con)
@@ -1043,10 +1043,10 @@ def test_trial_rollout_kernel_pendulum_matches_plain(dev, P, rows, W, Nk):
 
 
 def test_trial_rollout_kernel_pendulum_refuses_other_rows(dev):
-    from altro_tpu_torch.mpc import pendulum_trial_operands
+    from altro_tpu_torch.mpc import trial_operands
     from altro_tpu_torch.ops import trial_rollout as tr
 
-    step, args, _ = pendulum_trial_operands(30, 8, 0, device=dev)
+    step, args, _ = trial_operands("pendulum", 30, 8, 0, device=dev)
     con = (torch.zeros((31, 1, 2), device=dev), torch.zeros((31, 1, 1), device=dev),
            torch.zeros((31, 1), device=dev), 0.5)
     before = tr.LAUNCHES
@@ -1059,7 +1059,8 @@ def test_facade_block_step_launches_both_kernels(dev):
     """tests/test_api.py:250-293's configuration through the facade on the
     card in f32: with the block step the solve launches the pendulum trial
     kernel and the (2, 1) latency kernel, and agrees with the plain grid;
-    a (3, 2) facade problem is refused before anything launches."""
+    a (3, 2) facade problem launches the latency kernel's (3, 2)
+    instantiation (refused before it had one)."""
     from altro_tpu_torch import ALTROSolver
     from altro_tpu_torch.mpc import pendulum_block_step_solver as build
     from altro_tpu_torch.ops import riccati_latency as rl
@@ -1080,7 +1081,124 @@ def test_facade_block_step_launches_both_kernels(dev):
         [x[0] + x[1] * h, x[1] + (u[0] - u[1] * x[1]) * h, x[2] + x[0] * h]))
     s.set_lqr_cost([1.0, 1.0, 0.5], [0.1, 0.1], [1.0, 0.0, 0.0], [0.0, 0.0])
     s.initialize()
+    before = rl.LAUNCHES
+    s.solve()  # (3, 2) runs on its instantiation since the obstacle row's slice
+    assert rl.LAUNCHES > before
+    assert bool(torch.isfinite(s.state.x).all())
+
+
+# ---------------------------------------------------------------------------
+# The instantiations of the obstacle row's slice: the bicycle at P=4 and the
+# double integrator's exact step in the trial rollout, the double
+# integrator's column step in the grid, (3, 2) in the latency backward
+# ---------------------------------------------------------------------------
+
+def _check_trial(dev, model, Nk, W, P, rows):
+    """The trial-rollout kernel against its plain version on
+    `mpc.trial_operands`: phi to 1e-4 relative, states to 1e-4 of scale."""
+    from altro_tpu_torch.mpc import trial_operands
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    step, args, con = trial_operands(model, Nk, W, P, rows=rows, device=dev)
+    before = tr.LAUNCHES
+    pk, xk = tr.trial_rollout(step, *args, con=con)
+    pr, xs = tr.trial_rollout_ref(step, *args, con=con)
+    torch.cuda.synchronize()
+    assert tr.LAUNCHES == before + 1
+    assert pk.shape == (W,) and xk.shape == (W, Nk + 1, 4)
+    assert bool(torch.isfinite(pk).all())
+    assert float(((pk - pr).abs() / pr.abs().clamp(min=1.0)).max()) < 1e-4
+    assert float((xk - xs).abs().max()) < 1e-4 * max(1.0, float(xs.abs().max()))
+
+
+@pytest.mark.parametrize("rows", ["groups", "state"])
+@pytest.mark.parametrize("W", [1, 8, 32])
+@pytest.mark.parametrize("Nk", [1, 30, 60, 63, 64, 65, 128, 500])
+def test_trial_rollout_kernel_bicycle_p4_matches_plain(dev, rows, W, Nk):
+    """The two-lanes-a-trial kernel at P=4: two groups, one off on the
+    second half of the horizon (its rows zero there), or random rows in x
+    and u active at every knot, the terminal knot's included; N at the
+    64-knot chunk edges and the solve's 500."""
+    _check_trial(dev, "bicycle", Nk, W, 4, rows)
+
+
+@pytest.mark.parametrize("P", [0, 2, 4])
+@pytest.mark.parametrize("W", [1, 8, 32])
+@pytest.mark.parametrize("Nk", [1, 10, 30, 31, 32, 33, 64, 65])
+def test_trial_rollout_kernel_double_integrator_matches_plain(dev, P, W, Nk):
+    """The one-lane-a-trial kernel on the double integrator's exact step
+    (`trial_rollout_lane_kernel<DoubleIntegrator, P>`), N at its 32-knot
+    chunk edges and the facade's N=10."""
+    _check_trial(dev, "double_integrator", Nk, W, P, "state")
+
+
+@pytest.mark.parametrize("P", [0, 2])
+@pytest.mark.parametrize("Bsz, W", [(1, 4), (33, 12), (1024, 8)])
+def test_rollout_kernel_double_integrator_matches_plain(dev, Bsz, W, P):
+    """The <DoubleIntegrator, P> instantiations of the grid: ragged lane
+    tiles, a trial count past one block's 8, B=1024, W=8, N=30; at P=2
+    random rows in x and u active at every knot."""
+    from altro_tpu_torch.mpc import double_integrator_grid_operands
+    from altro_tpu_torch.ops import rollout_grid as rg
+
+    prob, args = double_integrator_grid_operands(Bsz, 30, W, P, device=dev)
+    before = rg.LAUNCHES
+    pk, xk = rg.rollout_grid(prob, *args)
+    pr, xr = rg.rollout_grid_ref(prob, *args)
+    torch.cuda.synchronize()
+    assert rg.LAUNCHES == before + 1
+    assert pk.shape == (W, Bsz) and xk.shape == (W, 31, 4, Bsz)
+    assert bool(torch.isfinite(pk).all())
+    assert float(((pk - pr).abs() / pr.abs().clamp(min=1.0)).max()) < 1e-4
+    assert float((xk - xr).abs().max()) < 1e-4 * max(1.0, float(xr.abs().max()))
+
+
+@pytest.mark.parametrize("diag_x, diag_u, with_lux, with_f", LATENCY_VARIANTS)
+@pytest.mark.parametrize("Nk", [1, 10, 63, 64, 65, 129])
+def test_riccati_latency_kernel_3x2_matches_plain(dev, diag_x, diag_u, with_lux, with_f, Nk):
+    """The (3, 2) instantiations (the first odd n: 3-, 9- and 6-float
+    per-knot arrays), every variant at the hetero problem's N=10 and the
+    64-knot chunk edges, with planted failing knots."""
+    _check_latency(dev, Nk, diag_x, diag_u, with_lux, with_f, 3, 2)
+
+
+def test_double_integrator_facade_launches_both_kernels(dev):
+    """tests/test_api.py:54's problem with the block step (the goal a
+    terminal cost) in f32 on the card at the bench's 1e-3 (at 1e-4 the
+    f32 floor decides the status, in JAX too): the solve launches the
+    trial kernel at P=4 and the (4, 2) latency kernel and agrees with the
+    plain grid."""
+    from altro_tpu_torch.mpc import double_integrator_block_step_solver as build
+    from altro_tpu_torch.ops import riccati_latency as rl
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    tile = build(True, device=dev, tol_stationarity=1e-3)
+    plain = build(False, device=dev, pallas_rollout=False, tol_stationarity=1e-3)
     before = (rl.LAUNCHES, tr.LAUNCHES)
-    with pytest.raises(NotImplementedError, match="pallas_latency_backward=False"):
-        s.solve()
-    assert (rl.LAUNCHES, tr.LAUNCHES) == before
+    st = tile.solve()
+    assert rl.LAUNCHES > before[0] and tr.LAUNCHES > before[1]
+    assert plain.solve() == st == 0
+    assert float((tile.state.u - plain.state.u).abs().max()) < 1e-5
+
+
+def test_obstacle_paths_on_card(dev):
+    """The obstacle row's solve (3 ticks of 64 lanes) launches the dense
+    backward kernel under both Hessians; the single-lane loop (2 ticks)
+    launches the (4, 2) latency kernel."""
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch.io.scotty import load_scotty
+    from altro_tpu_torch.ops import riccati_dense as rd
+    from altro_tpu_torch.ops import riccati_latency as rl
+
+    ref = load_scotty()
+    prob = mpc.obstacle_problem(ref, device=dev)
+    x0 = mpc.obstacle_initial_states(ref, 64, device=dev)
+    for exact in (False, True):
+        before = rd.LAUNCHES
+        res = mpc.run_obstacle_mpc(prob, ref, x0, ticks=3, opts=mpc.obstacle_options(exact=exact))
+        assert rd.LAUNCHES > before
+        assert bool(torch.isfinite(res.x_true).all())
+    before = rl.LAUNCHES
+    loop = mpc.run_obstacle_loop(ref, True, ticks=2, opts=mpc.obstacle_loop_options(1e-3),
+                                 device=dev)
+    assert rl.LAUNCHES > before and len(loop.status) == 2

@@ -30,18 +30,18 @@ from altro_tpu.ops.pallas_rollout import make_trial_grid_rollout  # noqa: E402
 from altro_tpu_torch.models.integrators import midpoint  # noqa: E402
 from altro_tpu_torch.models.pendulum import pendulum_continuous  # noqa: E402
 from altro_tpu_torch.models.tile_steps import midpoint_tile, pendulum_tile  # noqa: E402
-from altro_tpu_torch.mpc import pendulum_trial_operands  # noqa: E402
+from altro_tpu_torch.mpc import trial_operands  # noqa: E402
 from altro_tpu_torch.ops import trial_rollout as tr  # noqa: E402
 
 n, m = 2, 1
 
 
 def inputs(N, W, P, rows="bounds", seed=0):
-    """`mpc.pendulum_trial_operands` in f64 as numpy arrays (rhoi a
+    """`mpc.trial_operands("pendulum", ...)` in f64 as numpy arrays (rhoi a
     number): one swing-up search near the torque bound, and (P = 2) the
     bound rows the solve forms or random state rows active at every knot."""
-    _, args, con = pendulum_trial_operands(N, W, P, rows=rows, seed=seed, dtype=torch.float64,
-                                           device="cpu")
+    _, args, con = trial_operands("pendulum", N, W, P, rows=rows, seed=seed,
+                                  dtype=torch.float64, device="cpu")
     ops = [a.numpy() for a in args]
     if con is None:
         return ops, None

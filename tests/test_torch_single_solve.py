@@ -54,9 +54,11 @@ from altro_tpu.solver import init_state as jinit  # noqa: E402
 from altro_tpu.solver import solve as jsolve  # noqa: E402
 from altro_tpu_torch import linesearch as ls  # noqa: E402
 from altro_tpu_torch import mpc, solver  # noqa: E402
+from altro_tpu_torch.cones import Cone  # noqa: E402
 from altro_tpu_torch.io.scotty import load_scotty  # noqa: E402
 from altro_tpu_torch.ops import riccati_latency as rl  # noqa: E402
 from altro_tpu_torch.ops import trial_rollout as tr  # noqa: E402
+from altro_tpu_torch.problem import ConstraintSpec  # noqa: E402
 
 N, n, m = 40, 4, 2
 DM = 60 * np.pi / 180.0
@@ -81,8 +83,9 @@ def _jax_solve(constrained, x0, opts, case=None):
     groups = (steering,) if constrained else ()
     if case == "non_affine_group":
         groups = (dataclasses.replace(steering, affine=False),)
-    elif case == "four_rows":
-        groups = (steering, steering)
+    elif case == "three_rows":
+        groups = (steering, dataclasses.replace(
+            steering, fn=lambda x, u, k: jnp.stack([x[3] - DM]), dim=1))
     prob = JProblem(
         N=N, n=n, m=m, dynamics=jmidpoint(jbicycle()), dynamics_jac=None,
         constraints=groups,
@@ -135,7 +138,7 @@ def test_solve_matches_jax_solve_f64(variant, offset, override):
     (dict(pallas_backward=True), "pallas_backward"),
     (dict(iteration_callback=lambda *a: None), None),
     (dict(verbose=2), None),
-    (dict(exact_al_hessian=True), "exact_al_hessian"),
+    (dict(exact_al_hessian=True), None),
     (dict(parallel_riccati=True), "parallel_riccati"),
     (dict(ls_grid_x_only=False), "ls_grid_x_only"),
 ], ids=["rti_mode", "pallas_backward", "iteration_callback", "verbose", "exact_al_hessian",
@@ -143,7 +146,10 @@ def test_solve_matches_jax_solve_f64(variant, offset, override):
 def test_solve_refuses_unported_options(kw, word, capsys):
     """Options the single-lane solve does not implement are refused by
     name; iteration_callback and verbose (word None), refused until the
-    facade's slice ported them, now run and leave the solve unchanged."""
+    facade's slice ported them, now run and leave the solve unchanged; so
+    does exact_al_hessian (word None), refused until the obstacle row's
+    slice ported it: on this problem's affine bound it equals the
+    Gauss-Newton Hessian of dense expansions (diag_expansion=False)."""
     ref = load_scotty()
     prob = mpc.scotty_problem(ref, N=6, dtype=torch.float64, device="cpu")
     st = mpc.long_horizon_state(prob, ref)
@@ -152,7 +158,8 @@ def test_solve_refuses_unported_options(kw, word, capsys):
             solver.solve(prob, st, T_OPTS.replace(**kw))
         return
     st1, stats1 = solver.solve(prob, st, T_OPTS.replace(**kw))
-    st0, stats0 = solver.solve(prob, st, T_OPTS)
+    base = T_OPTS.replace(diag_expansion=False) if "exact_al_hessian" in kw else T_OPTS
+    st0, stats0 = solver.solve(prob, st, base)
     assert int(stats1.status) == int(stats0.status)
     assert int(stats1.iterations) == int(stats0.iterations)
     assert torch.equal(st1.x, st0.x) and torch.equal(st1.u, st0.u)
@@ -194,14 +201,14 @@ class _OnCard:
 
 @pytest.mark.parametrize("case,word", [("no_block_step", "no block step"),
                                        ("non_affine_group", "steering bound.*not an affine"),
-                                       ("four_rows", r"4 constraint rows \(the kernel takes")])
+                                       ("three_rows", r"3 constraint rows \(the kernel takes")])
 def test_solve_refuses_ineligible_trial_grid(case, word):
     """pallas_rollout on a problem without the block step, with a
     non-affine group or with a row count the trial-rollout kernel lacks:
     on the card `single_lane_refusal` names what is missing before the
     solve starts; on the CPU the solve runs the grid JAX's solve runs
     (its scan grid without the block step or with a non-affine group, the
-    trial rollout's plain version with four rows) and equals it: status,
+    trial rollout's plain version with three rows) and equals it: status,
     iterations and ls_iterations, x and u to 1e-8."""
     ref = load_scotty()
     x0 = REF.x[0] + np.asarray(STARTS[0][1])
@@ -213,9 +220,12 @@ def test_solve_refuses_ineligible_trial_grid(case, word):
     elif case == "non_affine_group":
         prob = dataclasses.replace(
             prob, constraints=(dataclasses.replace(steering, affine=False),))
-    else:  # the steering bound twice: two affine groups, four rows
-        prob = dataclasses.replace(
-            prob, constraints=(steering, dataclasses.replace(steering, label="again")))
+    else:  # the steering bound and its upper row again: three rows in two affine
+        # groups (the kernel takes 0, 2 or 4 since the obstacle row's slice)
+        upper = ConstraintSpec(fn=lambda x, u, k: torch.stack([x[3] - mpc.DELTA_MAX]),
+                               cone=Cone.NEGATIVE_ORTHANT, dim=1, active=steering.active,
+                               label="upper", diag_hessian=True, affine=True)
+        prob = dataclasses.replace(prob, constraints=(steering, upper))
     st = mpc.long_horizon_state(prob, ref)
     on_card = dataclasses.replace(prob, x0=_OnCard())
     assert re.search("pallas_rollout.*" + word, solver.single_lane_refusal(on_card, T_OPTS))

@@ -191,9 +191,10 @@ def test_kernel_outputs_are_views_of_one_aligned_buffer(W, N_):
                                        (8, 3, "P=3 constraint rows")])
 def test_kernel_instantiations_cover_the_eligible_grids(frame, W, P, why):
     """`ineligibility` admits exactly what csrc/trial_rollout.cu has an
-    instantiation for: every bicycle frame, W <= 32, P in (0, 2); the
-    wrapper raises its reason on the card."""
+    instantiation for: every bicycle frame, W <= 32, P in (0, 2, 4) (P=4
+    since the two-group fixture of tests/test_pallas_rollout.py:259 was
+    ported); the wrapper raises its reason on the card."""
     step = midpoint_tile(bicycle_tile(frame))
     got = tr.ineligibility(step, n, m, W, P)
     assert got is None if why is None else why in got
-    assert tr.KERNEL_P == (0, 2) and tr.KERNEL_MAX_W == 32
+    assert tr.KERNEL_P == (0, 2, 4) and tr.KERNEL_MAX_W == 32

@@ -184,12 +184,24 @@ def test_armijo_only_vmapped_solve_equals_solve_tiled():
     (dict(ls_grid_x_only=False), "ls_grid_x_only"),
     (dict(rti_mode=True, parallel_linesearch=False, ls_grid_x_only=False), "ls_grid_x_only"),
     (dict(parallel_riccati=True, pallas_backward=False), "parallel_riccati"),
-    (dict(exact_al_hessian=True), "exact_al_hessian"),
+    (dict(exact_al_hessian=True), None),
     (dict(iteration_callback=print), "iteration_callback"),
     (dict(verbose=Verbosity.INNER), "verbose"),
 ])
 def test_vmap_solve_refuses_unported_options(change, name):
-    prob, _ = _port_start()
+    """Options the vmapped solve does not port are refused by name;
+    exact_al_hessian (name None), refused until the obstacle row's slice
+    ported it, runs: on the affine steering bound it equals the
+    Gauss-Newton solve lane for lane (the dense backward is on in OPTS)."""
+    prob, st = _port_start()
+    if name is None:
+        p, xt = _tick_problem(prob, 0, None), torch.as_tensor(_x_true0())
+        st1, s1 = vmap_solve(p, OPTS.replace(**change))(xt, st)
+        st0, s0 = vmap_solve(p, OPTS)(xt, st)
+        for f in ("status", "iterations", "ls_iterations"):
+            assert torch.equal(getattr(s1, f), getattr(s0, f)), f
+        assert torch.equal(st1.x, st0.x) and torch.equal(st1.u, st0.u)
+        return
     with pytest.raises(NotImplementedError, match=name):
         vmap_solve(prob, OPTS.replace(**change))
 

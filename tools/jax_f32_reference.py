@@ -7,6 +7,10 @@
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --single-lane-rows
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --facade
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --quadrotor-vmapped [--ticks T] [--lanes B]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --obstacle [--ticks T] [--lanes B]
+        [--start S] [--hessian both|gauss_newton|exact]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --obstacle-loop
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --obstacle-loop-draws K
 
 Runs altro_tpu (the reference package, not the port) in float32 on the
 CPU: the three double integrator oracles of
@@ -81,11 +85,40 @@ examples/pendulum_swingup.py's solve (status, iterations, objective,
 x_N); tests/test_api.py:250-293's pendulum configuration with and without
 the block step `midpoint_tile(pendulum_tile())` (status, iterations, u;
 the largest u difference between JAX's two float32 runs and between each
-and its float64 run); and test_api.py's double-integrator facade cases in
-float32 at the bench's stationarity tolerance 1e-3 (the goal, the
+and its float64 run); test_api.py:54's double integrator with the goal a
+terminal cost, with and without the block step `double_integrator_tile(2)`
+(status, iterations, u_0, the largest u differences); and test_api.py's
+double-integrator facade cases in float32 at the bench's stationarity
+tolerance 1e-3 (the goal, the
 quadratic cost with a cross term and the generic cost: status,
 iterations, x_N and its distance from the float64 run's): what
 chip_smoke.py's `facade` gates rest on.
+
+With --obstacle it runs the obstacle-constrained bicycle MPC of
+scripts/bench_all.py (`bicycle_obstacle_mpc_B1024`, :566-730) through
+jax.vmap(solve) in float32 with the row's options and the scan backward,
+from the port's starts (mpc.obstacle_initial_states: ref.x[0] +
+0.02 N(0, 1), numpy seed 7): B lanes for T ticks (default 1024 and 60)
+under the Gauss-Newton AL Hessian, the first 256 of them under the exact
+one (`exact_al_hessian`), each row's success rate, least clearance, mean
+tracking error and mean iterations; `--start S` runs the row's ticks S ..
+S + T - 1 instead (the plant at ref.x[S] plus the same noise, warm-started
+on that window), `--hessian` one Hessian; with both, the first 10 ticks of 64 lanes
+in float32 against the same in float64 (status agreement, the largest
+plant-state difference and the share of lanes within 1e-3): what
+chip_smoke.py's `obstacle_mpc` gates rest on.
+
+With --obstacle-loop it runs tests/test_obstacle_mpc.py's single-lane
+loop (40 ticks, radius 0.6) in float32 at the bench's tolerance 1e-3,
+with and without the disc, under the Gauss-Newton and the exact AL
+Hessian, and the same loops in float64 at the test's 1e-4: the least
+distance, the mean and last tracking errors, the success rate and the
+iterations, what chip_smoke.py's `obstacle_loop` gates rest on.
+With --obstacle-loop-draws K it runs that loop's float32 form (the disc,
+the Gauss-Newton Hessian) from K starts moved 1e-6 N(0, 1) off ref.x[0]
+(the first unmoved), in JAX and in the port's plain loop on the CPU: the
+spread of its success rate under roundoff-sized changes, what the
+`obstacle_loop` success floor rests on.
 """
 
 from __future__ import annotations
@@ -712,6 +745,35 @@ def _facade_di(dt, kind, tol):
     return int(status), s.get_iterations(), np.asarray(s.get_state(N), np.float64)
 
 
+def _facade_di_block(dt, with_tile, tol=1e-4):
+    """tests/test_api.py:54's problem with its goal replaced by a terminal
+    cost (Q_N = 100), under the phase-split Armijo-only grid, with or
+    without the block step double_integrator_tile(2), in dtype dt (the
+    port's mpc.double_integrator_block_step_solver)."""
+    from altro_tpu.api import ALTROSolver
+    from altro_tpu.models.tile_steps import double_integrator_tile
+
+    N, n, m = 10, 4, 2
+    s = ALTROSolver(N, dtype=dt)
+    s.set_dimension(n, m)
+    s.set_time_step(0.5)
+    s.set_explicit_dynamics(double_integrator_dynamics(2))
+    s.set_lqr_cost(np.ones(n), np.full(m, 1e-2), np.zeros(n), np.zeros(m), 0, N)
+    s.set_lqr_cost(np.full(n, 100.0), np.full(m, 1e-2), np.zeros(n), np.zeros(m), N)
+    s.set_input_bounds(u_lo=[-1.0, -1.0], u_hi=[1.0, 1.0])
+    s.set_initial_state([2.0, 2.0, 0.0, 0.0])
+    if with_tile:
+        s.set_tile_dynamics(double_integrator_tile(2))
+    s.initialize()
+    s.set_options(SolverOptions(
+        iterations_max=12, penalty_initial=100.0, penalty_scaling=100.0,
+        use_backtracking_linesearch=True, parallel_linesearch=True, ls_phase_split=True,
+        ls_try_cubic_first=False, ls_armijo_only=True, ls_max_iters=8, throw_errors=False,
+        tol_stationarity=tol))
+    status = s.solve()
+    return int(status), s.get_iterations(), np.asarray(s.state.u, np.float64)
+
+
 def facade_runs():
     """altro_tpu's facade in float32 and float64 (see the module docstring)."""
     from altro_tpu.api import ALTROSolver as S
@@ -755,6 +817,22 @@ def facade_runs():
     row["du_f32_vs_f64_no_block"] = float(np.abs(u["f32", False] - u["f64", False]).max())
     print(json.dumps(row), flush=True)
 
+    runs = {(tag, tile): _facade_di_block(dt, tile, tol)
+            for dt, tag, tol in ((F32, "f32", 1e-4), (jnp.float64, "f64", 1e-4),
+                                 (F32, "f32_tol_1e-3", 1e-3)) for tile in (True, False)}
+    row = {"facade": "double_integrator_block_step"}
+    for (tag, tile), (status, iters, u) in runs.items():
+        row[f"{tag}_{'block_step' if tile else 'no_block_step'}"] = {
+            "status": status, "iterations": iters, "u_0": u[0].tolist()}
+    u = {k: v[2] for k, v in runs.items()}
+    row["du_f32_block_vs_no_block"] = float(np.abs(u["f32", True] - u["f32", False]).max())
+    row["du_f32_vs_f64_block"] = float(np.abs(u["f32", True] - u["f64", True]).max())
+    row["du_f32_tol_1e-3_block_vs_no_block"] = float(
+        np.abs(u["f32_tol_1e-3", True] - u["f32_tol_1e-3", False]).max())
+    row["du_f32_tol_1e-3_block_vs_f64"] = float(np.abs(u["f32_tol_1e-3", True]
+                                                        - u["f64", True]).max())
+    print(json.dumps(row), flush=True)
+
     for kind in ("goal", "quadratic", "generic"):
         r32 = _facade_di(F32, kind, 1e-3)
         r64 = _facade_di(jnp.float64, kind, 1e-4)
@@ -763,6 +841,219 @@ def facade_runs():
                                            "x_N": r32[2].tolist()},
                           "f64": {"status": r64[0], "iterations": r64[1], "x_N": r64[2].tolist()},
                           "x_N_f32_vs_f64": float(np.abs(r32[2] - r64[2]).max())}), flush=True)
+
+
+def _obstacle_problem(dt, N=30, t_obs=25, r_obs=0.75, with_obstacle=True):
+    """bench_all.py:580-617's problem (the obstacle row's) in dt."""
+    ref = load_scotty()
+    dm = float(np.deg2rad(60.0))
+    c_obs = [float(v) for v in ref.x[t_obs + N // 2][:2]]
+
+    def obs_fn(x, u, k):
+        dx_ = x[0] - c_obs[0]
+        dy_ = x[1] - c_obs[1]
+        return jnp.stack([r_obs * r_obs - dx_ * dx_ - dy_ * dy_])
+
+    cons = (
+        ConstraintSpec(fn=lambda x, u, k: jnp.stack([x[3] - dm, -dm - x[3]]),
+                       cone=Cone.NEGATIVE_ORTHANT, dim=2, active=jnp.ones(N + 1, bool),
+                       label="steering"),
+        ConstraintSpec(fn=lambda x, u, k: jnp.stack([u[0] - 8.0, -u[0], u[1] - 1.5,
+                                                     -1.5 - u[1]]),
+                       cone=Cone.NEGATIVE_ORTHANT, dim=4,
+                       active=jnp.ones(N + 1, bool).at[N].set(False), label="input bounds"))
+    if with_obstacle:
+        cons = cons + (ConstraintSpec(fn=obs_fn, cone=Cone.NEGATIVE_ORTHANT, dim=1,
+                                      active=jnp.ones(N + 1, bool), label="obstacle"),)
+    cost = lqr_cost_from_reference(
+        jnp.asarray(np.full((N + 1, 4), 1e-2), dt), jnp.asarray(np.full((N + 1, 2), 1e-3), dt),
+        jnp.asarray(ref.x[: N + 1], dt), jnp.asarray(ref.u[: N + 1], dt))
+    h = float(np.float32(ref.tf / ref.N))
+    problem = Problem(N=N, n=4, m=2, dynamics=midpoint(bicycle_continuous()), dynamics_jac=None,
+                      constraints=cons, cost=cost, h=jnp.full(N, h, dt),
+                      x0=jnp.asarray(ref.x[0], dt))
+    return problem, ref, np.asarray(c_obs), h
+
+
+def _obstacle_row(lanes, ticks, dt, exact=False, N=30, r_obs=0.75, start=0):
+    """The obstacle row's loop (bench_all.py:645-696) in dt from the first
+    `lanes` of the port's starts, over its ticks start .. start + ticks - 1
+    (a later start begins at ref.x[start] plus the same noise, warm-started
+    on that tick's window, as mpc.run_obstacle_mpc's `start`). Returns
+    (statuses, iterations, dists, errors [T, B] each, plant states
+    [T, B, 4], seconds)."""
+    from altro_tpu.parallel.batch import batch_init_state
+
+    problem, ref, c_obs, h = _obstacle_problem(dt, N=N, r_obs=r_obs)
+    opts = SolverOptions(
+        iterations_max=25, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+        throw_errors=False, use_backtracking_linesearch=True, penalty_warm_start=True,
+        penalty_warm_start_decay=0.5, parallel_linesearch=True, ls_phase_split=True,
+        ls_try_cubic_first=False, ls_armijo_only=True, ls_max_iters=24,
+        ls_failure_recovery=True, ls_recovery_max_fails=0, ls_best_decrease_fallback=True,
+        tol_stationarity_rel=1e-5, pallas_backward=False, exact_al_hessian=exact)
+    Qd = np.full(4, 1e-2)
+    xw = np.stack([ref.x[t: t + N + 1] for t in range(start, start + ticks + 1)])
+    qs = jnp.asarray(-(Qd[None, None, :] * xw), dt)
+    cs = 0.5 * np.sum(Qd[None, None, :] * xw * xw, axis=2)
+    cs[:, :N] += 0.5 * float(ref.u[0] @ (np.full(2, 1e-3) * ref.u[0]))
+    cs = jnp.asarray(cs, dt)
+    x0s = ref.x[start][None] + 0.02 * np.random.default_rng(7).standard_normal((1024, 4))
+    x = jnp.asarray(np.resize(x0s, (lanes, 4)), dt)
+    dyn = problem.dynamics
+
+    @jax.jit
+    def tick(x, st, q, c):
+        prob = dataclasses.replace(problem, cost=dataclasses.replace(problem.cost, q=q, c=c))
+        st, stats = jax.vmap(lambda x0_, s_: solve(dataclasses.replace(prob, x0=x0_), s_,
+                                                   opts))(x, st)
+        x = jax.vmap(lambda xi, ui: dyn(xi, ui, jnp.asarray(h, dt), 0))(x, st.u[:, 0])
+        return x, jax.vmap(shift_trajectory)(st), stats.iterations, stats.status
+
+    st = dataclasses.replace(
+        batch_init_state(problem, lanes),
+        u=jnp.tile(jnp.asarray([ref.u[0][0], 0.0], dt), (lanes, N, 1)),
+        x=jnp.tile(jnp.asarray(ref.x[start: start + N + 1], dt), (lanes, 1, 1)))
+    iters, statuses, xs = [], [], []
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        x, st, it, stat = tick(x, st, qs[t], cs[t])
+        iters.append(np.asarray(it))
+        statuses.append(np.asarray(stat))
+        xs.append(np.asarray(x, np.float64))
+    xs = np.stack(xs)
+    dist = np.linalg.norm(xs[:, :, :2] - c_obs[None, None], axis=2)
+    err = np.linalg.norm(xs[:, :, :2] - xw[1: ticks + 1, 0, None, :2], axis=2)
+    return np.stack(statuses), np.stack(iters), dist, err, xs, time.perf_counter() - t0
+
+
+def obstacle_rows(lanes, ticks=60, start=0, hessian="both", exact_lanes=256, ref_lanes=64,
+                  ref_ticks=10):
+    """The obstacle row in float32 over its ticks start .. start + ticks - 1
+    (Gauss-Newton at `lanes`, exact at min(lanes, exact_lanes); `hessian`
+    one of them or both), then, for both, f32 against f64 over the first
+    `ref_ticks` ticks of `ref_lanes` lanes under each Hessian."""
+    jax.config.update("jax_enable_x64", True)  # the f64 runs; every f32 array is typed
+    r_obs = 0.75
+    for name, B, exact in (("gauss_newton", lanes, False),
+                           ("exact", min(lanes, exact_lanes), True)):
+        if hessian not in ("both", name):
+            continue
+        status, iters, dist, err, _, secs = _obstacle_row(B, ticks, F32, exact=exact,
+                                                          start=start)
+        print(json.dumps({
+            "row": f"bicycle_obstacle_mpc_{name}", "lanes": B, "start": start, "ticks": ticks,
+            "success_rate": float(np.mean(status == 0)),
+            "statuses": {str(s): int(c) for s, c in zip(*np.unique(status, return_counts=True))},
+            "min_obstacle_clearance": float(dist.min()) - r_obs,
+            "mean_tracking_error": float(err.mean()),
+            "mean_iterations": float(iters.mean()), "max_iterations": int(iters.max()),
+            "cpu_seconds_with_compile": secs}), flush=True)
+    if hessian != "both":
+        return
+    for name, exact in (("gauss_newton", False), ("exact", True)):
+        s32, _, _, _, x32, _ = _obstacle_row(ref_lanes, ref_ticks, F32, exact=exact)
+        s64, _, _, _, x64, _ = _obstacle_row(ref_lanes, ref_ticks, jnp.float64, exact=exact)
+        dx = np.abs(x32 - x64).max(axis=(0, 2))  # per lane over the ticks
+        print(json.dumps({
+            "row": f"bicycle_obstacle_mpc_{name}_f32_vs_f64", "lanes": ref_lanes,
+            "ticks": ref_ticks, "status_agreement": float(np.mean(s32 == s64)),
+            "max_state_diff": float(dx.max()),
+            "lanes_within_1e-3": float(np.mean(dx <= 1e-3))}), flush=True)
+
+
+def _obstacle_loop(dt, with_obstacle, exact, tol, ticks=40, N=30, dx0=None):
+    """tests/test_obstacle_mpc.py's loop in dt (its `_build`: the steering
+    and input bounds declared diagonal and affine, radius 0.6 at
+    ref.x[15 + N // 2]); dx0 moves the plant's start off ref.x[0]."""
+    ref = load_scotty()
+    problem, _, c_obs, h = _obstacle_problem(dt, N=N, t_obs=15, r_obs=0.6,
+                                             with_obstacle=with_obstacle)
+    problem = dataclasses.replace(problem, constraints=tuple(
+        dataclasses.replace(spec, diag_hessian=True, affine=True)
+        if spec.label != "obstacle" else spec for spec in problem.constraints))
+    state = dataclasses.replace(
+        init_state(problem), u=jnp.tile(jnp.asarray([ref.u[0][0], 0.0], dt), (N, 1)),
+        x=jnp.asarray(ref.x[: N + 1], dt))
+    opts = SolverOptions(iterations_max=30, use_backtracking_linesearch=True,
+                         penalty_warm_start=True, throw_errors=False, tol_stationarity=tol,
+                         tol_primal_feasibility=tol, exact_al_hessian=exact)
+    run = jax.jit(solve, static_argnames=("opts",))
+    dyn = problem.dynamics
+    Qd = np.full(4, 1e-2)
+    c_u = 0.5 * float(ref.u[0] @ (np.full(2, 1e-3) * ref.u[0]))
+    if dx0 is not None:
+        problem = set_initial_state(problem, problem.x0 + jnp.asarray(dx0, dt))
+    x = problem.x0
+    dists, errs, statuses, iters = [], [], [], []
+    for t in range(ticks):
+        state, stats = run(problem, state, opts)
+        statuses.append(int(stats.status))
+        iters.append(int(stats.iterations))
+        x = dyn(x, state.u[0], problem.h[0], 0)
+        p = np.asarray(x, np.float64)[:2]
+        dists.append(float(np.linalg.norm(p - c_obs)))
+        errs.append(float(np.linalg.norm(p - ref.x[t + 1][:2])))
+        window = ref.x[t + 1: t + N + 2]
+        c_new = 0.5 * np.sum(Qd * window * window, axis=1)
+        c_new[:N] += c_u
+        problem = update_linear_costs(problem, q=jnp.asarray(-(Qd * window), dt),
+                                      c=jnp.asarray(c_new, dt))
+        problem = set_initial_state(problem, x)
+        state = shift_trajectory(state)
+    return {"min_dist": min(dists), "mean_tracking_error": float(np.mean(errs)),
+            "last_tracking_error": errs[-1],
+            "success_rate": float(np.mean(np.asarray(statuses) == 0)),
+            "statuses": {str(s): statuses.count(s) for s in sorted(set(statuses))},
+            "mean_iterations": float(np.mean(iters)), "max_iterations": max(iters)}
+
+
+def obstacle_loops():
+    """tests/test_obstacle_mpc.py's loop: f32 at 1e-3 and f64 at 1e-4, with
+    and without the disc, under each Hessian."""
+    jax.config.update("jax_enable_x64", True)
+    for dt, tol in ((F32, 1e-3), (jnp.float64, 1e-4)):
+        for exact in (False, True):
+            for with_obstacle in (True, False):
+                out = _obstacle_loop(dt, with_obstacle, exact, tol)
+                print(json.dumps({"row": "obstacle_loop", "dtype": jnp.dtype(dt).name,
+                                  "tol": tol, "exact": exact, "with_obstacle": with_obstacle,
+                                  **out}), flush=True)
+
+
+def obstacle_loop_draws(draws, scale=1e-6):
+    """The spread of tests/test_obstacle_mpc.py's float32 loop (the disc,
+    the Gauss-Newton Hessian, tolerance 1e-3) over starts moved off
+    ref.x[0] by scale N(0, 1) (numpy seed 0; draw 0 unmoved): JAX's loop
+    and, where torch is there, the port's plain loop on the CPU
+    (`mpc.run_obstacle_loop`) from the same starts, each draw's success
+    rate, statuses and trajectory numbers."""
+    jax.config.update("jax_enable_x64", True)
+    moves = scale * np.random.default_rng(0).standard_normal((draws, 4))
+    moves[0] = 0.0
+    try:
+        import torch
+
+        from altro_tpu_torch import mpc as port_mpc
+        from altro_tpu_torch.io.scotty import load_scotty as port_scotty
+    except ImportError:
+        torch = None
+    for i, dx0 in enumerate(moves):
+        out = _obstacle_loop(F32, True, False, 1e-3, dx0=dx0)
+        row = {"row": "obstacle_loop_draw", "draw": i, "scale": scale,
+               "jax_f32": {k: out[k] for k in ("success_rate", "statuses", "min_dist",
+                                               "mean_tracking_error", "last_tracking_error")}}
+        if torch is not None:
+            torch.set_num_threads(1)
+            res = port_mpc.run_obstacle_loop(port_scotty(), True, False, dx0=dx0,
+                                             opts=port_mpc.obstacle_loop_options(1e-3),
+                                             dtype=torch.float32, device="cpu")
+            m = res.metrics()
+            row["port_f32_cpu"] = {
+                "success_rate": m["success_rate"],
+                "statuses": {str(s): res.status.count(s) for s in sorted(set(res.status))},
+                **{k: m[k] for k in ("min_dist", "mean_tracking_error", "last_tracking_error")}}
+        print(json.dumps(row), flush=True)
 
 
 def main():
@@ -785,6 +1076,17 @@ def main():
     ap.add_argument("--facade", action="store_true",
                     help="run the facade's pendulum example, block-step configuration and "
                          "double-integrator cases")
+    ap.add_argument("--obstacle", action="store_true",
+                    help="run the obstacle-constrained bicycle MPC row under both Hessians")
+    ap.add_argument("--start", type=int, default=0,
+                    help="the obstacle row's first tick (default 0)")
+    ap.add_argument("--hessian", choices=("both", "gauss_newton", "exact"), default="both",
+                    help="the obstacle row's AL Hessian (default both)")
+    ap.add_argument("--obstacle-loop", action="store_true",
+                    help="run tests/test_obstacle_mpc.py's single-lane loop")
+    ap.add_argument("--obstacle-loop-draws", type=int, default=0,
+                    help="run that loop in float32 from this many starts 1e-6 apart (JAX's "
+                         "and the port's plain loop on the CPU)")
     ap.add_argument("--lanes", type=int, default=1024,
                     help="lanes of the batched rows (the tiled quadrotor row: a multiple "
                          "of 1024)")
@@ -803,8 +1105,16 @@ def main():
         single_lane_rows()
     if args.facade:
         facade_runs()
+    if args.obstacle:
+        obstacle_rows(args.lanes, ticks=args.ticks or 60, start=args.start,
+                      hessian=args.hessian)
+    if args.obstacle_loop:
+        obstacle_loops()
+    if args.obstacle_loop_draws:
+        obstacle_loop_draws(args.obstacle_loop_draws)
     if (args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
-            or args.single_lane_rows or args.facade or args.quadrotor_vmapped):
+            or args.single_lane_rows or args.facade or args.quadrotor_vmapped or args.obstacle
+            or args.obstacle_loop or args.obstacle_loop_draws):
         return
     tol = args.tol_stationarity
     for case, x0, kinds, kw in (
