@@ -220,11 +220,10 @@ def al_hess_diag(problem: Problem, ks, x, u, z, rho, terminal: bool):
     B = x.shape[-1]
     if terminal:
         u = _terminal_u(problem, x)
-        lxxd = problem.cost.Q[-1][None, :, None].expand(x.shape[0], -1, B)
+        lxxd = problem.cost.term_hess_diag(x.shape[0], B)
         luud = torch.zeros_like(u)
     else:
-        lxxd = problem.cost.Q[ks][..., None].expand(-1, -1, B)
-        luud = problem.cost.R[ks][..., None].expand(-1, -1, B)
+        lxxd, luud = problem.cost.stage_hess_diag(ks, B)
     convals = constraint_values(problem, ks, x, u)
     z_est, _ = projected_duals(problem, convals, z, rho)
     for spec, ze in zip(problem.constraints, z_est):

@@ -24,16 +24,22 @@ _STATE_FIELDS = ("x", "u", "y", "rho", "K", "d", "P", "p", "reg")
 
 def problem_from_numpy(arrays: dict, *, N: int, n: int, m: int, dynamics,
                        constraints: Sequence[ConstraintSpec] = (),
-                       dynamics_cols=None, dtype=torch.float64,
-                       device="cuda") -> Problem:
+                       dynamics_cols=None, batched: Sequence[str] = (),
+                       dtype=torch.float64, device="cuda") -> Problem:
     """Problem from numpy arrays: Q, R, q, r, c (DiagonalCost rows), h, x0,
     and optionally "active", one [N+1] mask per constraint group (it
-    replaces that group's `active`). Lands on the card unless `device`
-    says otherwise."""
+    replaces that group's `active`). `batched` names the leaves given one
+    row per lane, batch-major as JAX's `prob_axes` batches them ([B, ...]:
+    Q [B, N+1, n], c [B, N+1], h [B, N], x0 [B, n], ...); they land
+    lane-minor ([..., B]). Lands on the card unless `device` says
+    otherwise."""
     kw = dict(dtype=dtype, device=device)
 
     def t(name):
-        return torch.as_tensor(np.array(arrays[name]), **kw)
+        a = np.array(arrays[name])
+        if name in batched:
+            a = np.ascontiguousarray(np.moveaxis(a, 0, -1))
+        return torch.as_tensor(a, **kw)
 
     cost = DiagonalCost(Q=t("Q"), R=t("R"), q=t("q"), r=t("r"), c=t("c"))
     actives = arrays.get("active")

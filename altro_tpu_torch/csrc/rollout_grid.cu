@@ -36,6 +36,18 @@
 // trials past W compute copies and store nothing; every barrier is reached
 // by every thread.
 //
+// Per-lane cost rows (JAX's kernel streams Q, q, R, r, c and h per lane,
+// broadcasting the shared ones): the template flag LANE_COST moves those
+// six rows out of the block's shared rows into each lane's staged region
+// of the same cp.async double buffer, read at L[e * LANES] like K and d.
+// The cost row keeps its layout (Q, q, R, r, c, h), so the merit reads it
+// through one pointer and stride: the row itself (stride 1) or the lane's
+// copy (stride LANES). At the bicycle's (4, 2) that is 14 more floats a
+// lane and knot (30 to 44 at P = 2): at B=1024, W=8, N=30 the operands
+// grow from about 2.0 MB to 2.8 MB beside the 4 MB of state stacks the
+// grid writes. The shared instantiations (LANE_COST false) are the code
+// they were.
+//
 // The dynamics are a step of csrc/device_steps.cuh: BicycleFrame<FRAME>,
 // the twin of models/tile_steps.py::midpoint_cols(bicycle_cols(frame,
 // length, rear)) (P = 0 or 2), and PendulumMidpoint, the twin of
@@ -66,6 +78,7 @@ constexpr int CHUNK = 8;        // knots per staged chunk
 struct Ops {
   const float *xref, *uref, *K, *d;       // [N+1, NS, B], [N, NI, B], [N, NI, NS, B], [N, NI, B]
   const float *Q, *q, *R, *r, *c, *h;     // [N+1, NS], [N+1, NS], [N+1, NI], [N+1, NI], [N+1], [N]
+                                          // (each with a trailing [B] under LANE_COST)
   const float *cax, *cau, *cg, *act;      // [N+1, P, NS], [N+1, P, NI], [N+1, P], [N+1, P]
   const float *z0, *z1;                   // [N+1, p0, B], [N+1, P - p0, B] (constraint groups)
   const float *rho, *alphas, *x0;         // [B], [W], [NS, B]
@@ -74,33 +87,39 @@ struct Ops {
 };
 
 // Offsets of one knot's data in a staged chunk.
-template <int NS, int NI, int P>
+template <int NS, int NI, int P, bool LC>
 struct Chunk {
+  // the cost row's layout, in the block's rows or in a lane's region
+  static constexpr int CQ = 0, Cq = NS, CR = 2 * NS, Cr = 2 * NS + NI, CC = 2 * (NS + NI);
+  static constexpr int CH = CC + 1;
+  static constexpr int COST = CH + 1;
   // per lane (element e of lane l of knot kk at [(kk * LANE + e) * LANES + l])
   static constexpr int K = 0;  // NI x NS
   static constexpr int D = K + NI * NS;
   static constexpr int XR = D + NI;
   static constexpr int UR = XR + NS;
   static constexpr int Z = UR + NI;
-  static constexpr int LANE = Z + P;
-  // shared by the lanes (knot kk at [kk * ROW])
-  static constexpr int RQ = 0, Rq = NS, RR = 2 * NS, Rr = 2 * NS + NI, RC = 2 * (NS + NI);
-  static constexpr int RH = RC + 1;
-  static constexpr int AX = RH + 1;  // P x NS
-  static constexpr int AU = AX + P * NS;
-  static constexpr int CG = AU + P * NI;
-  static constexpr int ACT = CG + P;
-  static constexpr int ROW = ACT + P;
+  static constexpr int LCOST = Z + P;  // the lane's cost row (LC)
+  static constexpr int LANE = LC ? LCOST + COST : LCOST;
+  // shared by the lanes (knot kk at [kk * ROW]): the cost row unless LC,
+  // then the affine stacks; SAX.. are their offsets with the cost row in
+  static constexpr int RB = LC ? COST : 0;
+  static constexpr int SAX = COST;  // P x NS
+  static constexpr int SAU = SAX + P * NS;
+  static constexpr int SCG = SAU + P * NI;
+  static constexpr int SACT = SCG + P;
+  static constexpr int AX = SAX - RB, AU = SAU - RB, CG = SCG - RB, ACT = SACT - RB;
+  static constexpr int ROW = SACT + P - RB;
   static constexpr int ROWS = CHUNK * LANE * LANES;  // the rows follow the lanes' data
   static constexpr int BUF = ROWS + CHUNK * ROW;
 };
 
 // Copy chunk ch (knots ch * CHUNK ...) into buf with cp.async: the trial
 // threads of a lane split its entries, the block splits the rows.
-template <int NS, int NI, int P>
+template <int NS, int NI, int P, bool LC>
 __device__ __forceinline__ void stage_chunk(float* buf, const Ops& o, int ch, int lane, int bl,
                                             int y, int ny) {
-  using Ck = Chunk<NS, NI, P>;
+  using Ck = Chunk<NS, NI, P, LC>;
   const long S = o.Bsz;
   const int N = o.N, k0 = ch * CHUNK;
   for (int e = y; e < CHUNK * Ck::LANE; e += ny) {
@@ -115,37 +134,48 @@ __device__ __forceinline__ void stage_chunk(float* buf, const Ops& o, int ch, in
       if (k < N) src = o.xref + ((long)k * NS + f - Ck::XR) * S;
     } else if (f < Ck::Z) {
       if (k < N) src = o.uref + ((long)k * NI + f - Ck::UR) * S;
-    } else {
+    } else if (!LC || f < Ck::LCOST) {
       const int g = f - Ck::Z;
       src = (g < o.p0) ? o.z0 + ((long)k * o.p0 + g) * S
                        : o.z1 + ((long)k * (P - o.p0) + g - o.p0) * S;
+    } else {  // LC: the lane's cost row
+      const int g = f - Ck::LCOST;
+      if (g < Ck::Cq) src = o.Q + ((long)k * NS + g) * S;
+      else if (g < Ck::CR) src = o.q + ((long)k * NS + g - Ck::Cq) * S;
+      else if (g < Ck::Cr) src = o.R + ((long)k * NI + g - Ck::CR) * S;
+      else if (g < Ck::CC) src = o.r + ((long)k * NI + g - Ck::Cr) * S;
+      else if (g == Ck::CC) src = o.c + (long)k * S;
+      else if (k < N) src = o.h + (long)k * S;
     }
     if (src) __pipeline_memcpy_async(buf + (kk * Ck::LANE + f) * LANES + lane, src + bl, sizeof(float));
   }
+  if (Ck::ROW == 0) return;
+  constexpr int RW = Ck::ROW > 0 ? Ck::ROW : 1;
   float* rows = buf + Ck::ROWS;
   for (int e = y * LANES + lane; e < CHUNK * Ck::ROW; e += ny * LANES) {
-    const int kk = e / Ck::ROW, f = e % Ck::ROW, k = k0 + kk;
+    const int kk = e / RW, f = e % RW + Ck::RB, k = k0 + kk;
     if (k > N) break;
     const float* src;
-    if (f < Ck::Rq) src = o.Q + k * NS + f;
-    else if (f < Ck::RR) src = o.q + k * NS + f - Ck::Rq;
-    else if (f < Ck::Rr) src = o.R + k * NI + f - Ck::RR;
-    else if (f < Ck::RC) src = o.r + k * NI + f - Ck::Rr;
-    else if (f == Ck::RC) src = o.c + k;
-    else if (f == Ck::RH) src = (k < N) ? o.h + k : nullptr;
-    else if (f < Ck::AU) src = o.cax + k * P * NS + f - Ck::AX;
-    else if (f < Ck::CG) src = o.cau + k * P * NI + f - Ck::AU;
-    else if (f < Ck::ACT) src = o.cg + k * P + f - Ck::CG;
-    else src = o.act + k * P + f - Ck::ACT;
-    if (src) __pipeline_memcpy_async(rows + kk * Ck::ROW + f, src, sizeof(float));
+    if (f < Ck::Cq) src = o.Q + k * NS + f;
+    else if (f < Ck::CR) src = o.q + k * NS + f - Ck::Cq;
+    else if (f < Ck::Cr) src = o.R + k * NI + f - Ck::CR;
+    else if (f < Ck::CC) src = o.r + k * NI + f - Ck::Cr;
+    else if (f == Ck::CC) src = o.c + k;
+    else if (f == Ck::CH) src = (k < N) ? o.h + k : nullptr;
+    else if (f < Ck::SAU) src = o.cax + k * P * NS + f - Ck::SAX;
+    else if (f < Ck::SCG) src = o.cau + k * P * NI + f - Ck::SAU;
+    else if (f < Ck::SACT) src = o.cg + k * P + f - Ck::SCG;
+    else src = o.act + k * P + f - Ck::SACT;
+    if (src) __pipeline_memcpy_async(rows + kk * Ck::ROW + f - Ck::RB, src, sizeof(float));
   }
 }
 
-template <class Model, int P>
+template <class Model, int P, bool LC>
 __global__ void __launch_bounds__(LANES * MAX_TRIALS) rollout_grid_kernel(const Ops o, Model model) {
   constexpr int NS = Model::NS;
   constexpr int NI = Model::NI;
-  using Ck = Chunk<NS, NI, P>;
+  using Ck = Chunk<NS, NI, P, LC>;
+  constexpr int CS = LC ? LANES : 1;  // the cost row's stride
   extern __shared__ float smem[];
   const int lane = threadIdx.x, y = threadIdx.y, ny = blockDim.y;
   const int N = o.N;
@@ -166,10 +196,10 @@ __global__ void __launch_bounds__(LANES * MAX_TRIALS) rollout_grid_kernel(const 
 
   const int nchunks = (N + CHUNK) / CHUNK;  // knots 0..N
   float* const bufs[2] = {smem, smem + Ck::BUF};
-  stage_chunk<NS, NI, P>(bufs[0], o, 0, lane, bl, y, ny);
+  stage_chunk<NS, NI, P, LC>(bufs[0], o, 0, lane, bl, y, ny);
   __pipeline_commit();
   for (int ch = 0; ch < nchunks; ++ch) {
-    if (ch + 1 < nchunks) stage_chunk<NS, NI, P>(bufs[(ch + 1) & 1], o, ch + 1, lane, bl, y, ny);
+    if (ch + 1 < nchunks) stage_chunk<NS, NI, P, LC>(bufs[(ch + 1) & 1], o, ch + 1, lane, bl, y, ny);
     __pipeline_commit();
     __pipeline_wait_prior(1);
     __syncthreads();  // chunk ch is in place
@@ -181,6 +211,7 @@ __global__ void __launch_bounds__(LANES * MAX_TRIALS) rollout_grid_kernel(const 
       if (k > N) break;
       const float* L = ln + kk * Ck::LANE * LANES;  // this lane's entry e at L[e * LANES]
       const float* R = rows + kk * Ck::ROW;
+      const float* C = LC ? L + Ck::LCOST * LANES : R;  // the cost row, entry e at C[e * CS]
       // this lane's constraint rows at knot k
       float wax[P > 0 ? P : 1][NS], wau[P > 0 ? P : 1][NI], wg[P > 0 ? P : 1];
 #pragma unroll
@@ -207,15 +238,15 @@ __global__ void __launch_bounds__(LANES * MAX_TRIALS) rollout_grid_kernel(const 
         float sq = 0.0f, sl = 0.0f, su = 0.0f, sr = 0.0f;
 #pragma unroll
         for (int i = 0; i < NS; ++i) {
-          sq += R[Ck::RQ + i] * x[i] * x[i];
-          sl += R[Ck::Rq + i] * x[i];
+          sq += C[(Ck::CQ + i) * CS] * x[i] * x[i];
+          sl += C[(Ck::Cq + i) * CS] * x[i];
         }
 #pragma unroll
         for (int j = 0; j < NI; ++j) {
-          su += R[Ck::RR + j] * u[j] * u[j];
-          sr += R[Ck::Rr + j] * u[j];
+          su += C[(Ck::CR + j) * CS] * u[j] * u[j];
+          sr += C[(Ck::Cr + j) * CS] * u[j];
         }
-        float ph = phi + 0.5f * sq + sl + 0.5f * su + sr + R[Ck::RC];
+        float ph = phi + 0.5f * sq + sl + 0.5f * su + sr + C[Ck::CC * CS];
 #pragma unroll
         for (int e = 0; e < P; ++e) {
           float we = wg[e];
@@ -230,16 +261,16 @@ __global__ void __launch_bounds__(LANES * MAX_TRIALS) rollout_grid_kernel(const 
 #pragma unroll
           for (int i = 0; i < NS; ++i) xs[((long)k * NS + i) * S + b] = x[i];
         }
-        model.step(x, u, R[Ck::RH]);
+        model.step(x, u, C[Ck::CH * CS]);
         phi = ph;
       } else {  // terminal knot: state-only cost and constraint rows
         float sq = 0.0f, sl = 0.0f;
 #pragma unroll
         for (int i = 0; i < NS; ++i) {
-          sq += R[Ck::RQ + i] * x[i] * x[i];
-          sl += R[Ck::Rq + i] * x[i];
+          sq += C[(Ck::CQ + i) * CS] * x[i] * x[i];
+          sl += C[(Ck::Cq + i) * CS] * x[i];
         }
-        float ph = phi + 0.5f * sq + sl + R[Ck::RC];
+        float ph = phi + 0.5f * sq + sl + C[Ck::CC * CS];
 #pragma unroll
         for (int e = 0; e < P; ++e) {
           float we = wg[e];
@@ -494,13 +525,13 @@ int launch(const Ops& o, const QuadrotorAxisRK4& model, cudaStream_t s) {
 
 }  // namespace quad
 
-template <class Model, int P>
+template <class Model, int P, bool LC>
 int launch(const Ops& o, const Model& model, cudaStream_t s) {
-  auto kern = rollout_grid_kernel<Model, P>;
+  auto kern = rollout_grid_kernel<Model, P, LC>;
   const int trials = o.W < MAX_TRIALS ? o.W : MAX_TRIALS;
   const dim3 block(LANES, trials);
   const dim3 grid((o.Bsz + LANES - 1) / LANES, (o.W + trials - 1) / trials);
-  const size_t bytes = 2 * (size_t)Chunk<Model::NS, Model::NI, P>::BUF * sizeof(float);
+  const size_t bytes = 2 * (size_t)Chunk<Model::NS, Model::NI, P, LC>::BUF * sizeof(float);
   if (bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -511,9 +542,9 @@ int launch(const Ops& o, const Model& model, cudaStream_t s) {
 }
 
 template <class Model>
-int launch_p(const Ops& o, const Model& m, int P, cudaStream_t s) {
-  if (P == 0) return launch<Model, 0>(o, m, s);
-  if (P == 2) return launch<Model, 2>(o, m, s);
+int launch_p(const Ops& o, const Model& m, int P, bool lane_cost, cudaStream_t s) {
+  if (P == 0) return lane_cost ? launch<Model, 0, true>(o, m, s) : launch<Model, 0, false>(o, m, s);
+  if (P == 2) return lane_cost ? launch<Model, 2, true>(o, m, s) : launch<Model, 2, false>(o, m, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -525,14 +556,16 @@ int launch_p(const Ops& o, const Model& m, int P, cudaStream_t s) {
 // length, rear); (1, 1): the quadrotor RK4 step, P 0, params (mass,
 // gravity, arm, kf, km, Jx, Jy, Jz); (2, 0): the pendulum midpoint step,
 // P 0 or 2, params (mass, length, b, g); (3, 2): the double integrator's
-// exact step, P 0 or 2, no params. params lies in host memory.
+// exact step, P 0 or 2, no params. params lies in host memory. lane_cost
+// nonzero: Q, q, R, r, c and h hold one row per lane (a trailing [B]; not
+// for the quadrotor).
 extern "C" int rollout_grid_f32(
     const float* xref, const float* uref, const float* K, const float* d,
     const float* Q, const float* q, const float* R, const float* r,
     const float* c, const float* h, const float* cax, const float* cau,
     const float* cg, const float* act, const float* z0, const float* z1,
     const float* rho, const float* alphas, const float* x0,
-    float* phi, float* xstack, int N, int Bsz, int W, int P, int p0, int model,
+    float* phi, float* xstack, int N, int Bsz, int W, int P, int p0, int lane_cost, int model,
     int integrator, const float* params, void* stream) {
   if (N <= 0 || Bsz <= 0 || W <= 0 || (W + MAX_TRIALS - 1) / MAX_TRIALS > 65535 || p0 < 0 ||
       p0 > P)
@@ -540,19 +573,20 @@ extern "C" int rollout_grid_f32(
   const Ops o{xref, uref, K, d, Q, q, R, r, c, h, cax, cau, cg, act, z0, z1, rho, alphas, x0,
               phi, xstack, N, Bsz, W, p0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool lc = lane_cost != 0;
   if (model == 1 && integrator == 1) {
-    if (P != 0) return (int)cudaErrorInvalidValue;
+    if (P != 0 || lc) return (int)cudaErrorInvalidValue;
     const altro_dev::QuadrotorAxisRK4 m{params[0], params[1], params[2], params[3],
                                         params[4], params[5], params[6], params[7]};
     return quad::launch(o, m, s);
   }
   if (model == 2 && integrator == 0)
-    return launch_p(o, PendulumMidpoint{params[0], params[1], params[2], params[3]}, P, s);
-  if (model == 3 && integrator == 2) return launch_p(o, DoubleIntegrator{}, P, s);
+    return launch_p(o, PendulumMidpoint{params[0], params[1], params[2], params[3]}, P, lc, s);
+  if (model == 3 && integrator == 2) return launch_p(o, DoubleIntegrator{}, P, lc, s);
   if (model != 0 || integrator != 0) return (int)cudaErrorInvalidValue;
   const int frame = (int)params[0];
-  if (frame == 0) return launch_p(o, BicycleFrame<0>{params[1], params[2]}, P, s);
-  if (frame == 1) return launch_p(o, BicycleFrame<1>{params[1], params[2]}, P, s);
-  if (frame == 2) return launch_p(o, BicycleFrame<2>{params[1], params[2]}, P, s);
+  if (frame == 0) return launch_p(o, BicycleFrame<0>{params[1], params[2]}, P, lc, s);
+  if (frame == 1) return launch_p(o, BicycleFrame<1>{params[1], params[2]}, P, lc, s);
+  if (frame == 2) return launch_p(o, BicycleFrame<2>{params[1], params[2]}, P, lc, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -66,6 +66,11 @@ bench.py's closed loop (`child_main`, its problem, options, rescue and
   Scotty path, each tick one `parallel.batch.batched_tracking_solver`
   call with per-lane cost rows, under the sequential backtracking search
   and the dense backward kernel.
+* `tracking_tiled_starts`, `tracking_tiled_initial_states`,
+  `tracking_tiled_windows` and `run_tracking_tiled`: a fleet of B
+  bicycle controllers, each tracking the Scotty path from its own place,
+  through `solve_tiled` with the rescue (the bench's options): q and c
+  per lane (JAX's `prob_axes`), the trial-grid kernel's per-lane rows.
 * `obstacle_problem`, `obstacle_options`, `obstacle_initial_states` and
   `run_obstacle_mpc`: the obstacle-constrained bicycle MPC of
   scripts/bench_all.py (`bicycle_obstacle_mpc_B1024`, :566-730): B lanes
@@ -219,6 +224,12 @@ __all__ = [
     "obstacle_loop_options",
     "ObstacleLoopResult",
     "run_obstacle_loop",
+    "tracking_tiled_starts",
+    "tracking_tiled_initial_states",
+    "tracking_tiled_windows",
+    "run_tracking_tiled",
+    "closed_loop_metrics",
+    "per_lane_rows",
 ]
 
 Q_DIAG = 1e-2
@@ -574,6 +585,172 @@ def run_closed_loop(problem: Problem, ref, x_true0: torch.Tensor, *, ticks: int,
     seconds = time.perf_counter() - t0
     return ClosedLoopResult(iters, errs, statuses, rescue_ticks, x_true_b, state_b,
                             seconds)
+
+
+# ---------------------------------------------------------------------------
+# A fleet tracking its own places on the path through solve_tiled, the cost
+# rows per lane (JAX's `prob_axes` on q and c)
+# ---------------------------------------------------------------------------
+
+TRACKING_TILED_LAST_START = 400  # lane starts over knots 0 .. 400 of the path's 501
+
+
+def tracking_tiled_starts(batch: int, *, seed: int = 11) -> np.ndarray:
+    """[B] each lane's starting knot on the Scotty path, drawn from numpy's
+    default_rng(seed) over knots 0 .. 400: every window of 20 ticks at
+    N = 30 fits the path's 501 knots."""
+    return np.random.default_rng(seed).integers(0, TRACKING_TILED_LAST_START + 1, size=batch)
+
+
+def tracking_tiled_initial_states(ref, starts, *, seed: int = 12, noise: float = 0.05,
+                                  dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """[B, 4] plant states: each lane's reference start ref.x[s_b] plus
+    0.05 N(0, 1) from numpy's default_rng(seed)."""
+    xs = np.asarray(ref.x)[starts] + noise * np.random.default_rng(seed).standard_normal(
+        (len(starts), 4))
+    return torch.as_tensor(xs, dtype=dtype, device=device)
+
+
+def tracking_tiled_windows(ref, starts, N: int, ticks: int, *, dtype=torch.float32,
+                           device="cuda"):
+    """Each lane's sliding window and its linear cost rows per tick, as
+    bench.py's `_windows` builds the shared ones, lane-minor: x_ref
+    [T+1, N+1, n, B] (lane b's window at tick t is ref.x[s_b + t ..
+    s_b + t + N]), q = -Q x_ref [T+1, N+1, n, B] and c = 0.5 x_ref'Q x_ref
+    (+ 0.5 u'R u of ref.u[0] at the stage knots) [T+1, N+1, B]; formed in
+    float64, then cast."""
+    idx = (np.asarray(starts)[None, None, :] + np.arange(ticks + 1)[:, None, None]
+           + np.arange(N + 1)[None, :, None])  # [T+1, N+1, B]
+    xw = np.moveaxis(np.asarray(ref.x)[idx], -1, 2)  # [T+1, N+1, n, B]
+    Qd = np.full(4, Q_DIAG)[None, None, :, None]
+    qs = -(Qd * xw)
+    cs = 0.5 * np.sum(Qd * xw * xw, axis=2)
+    cs[:, :N] += 0.5 * float(ref.u[0] @ (np.full(2, R_DIAG) * ref.u[0]))
+    kw = dict(dtype=dtype, device=device)
+    return (torch.as_tensor(xw, **kw), torch.as_tensor(qs, **kw).contiguous(),
+            torch.as_tensor(cs, **kw).contiguous())
+
+
+def run_tracking_tiled(problem: Problem, ref, starts, x_true0: torch.Tensor, *,
+                       ticks: int = 20, opts: Optional[SolverOptions] = None,
+                       opts_rescue: Optional[SolverOptions] = None,
+                       vmapped: bool = False) -> ClosedLoopResult:
+    """A fleet of B bicycle controllers, each tracking the Scotty path from
+    its own place (`tracking_tiled_starts`), through the natively batched
+    solve: every tick each lane's q and c slide with its own window (one
+    row per lane, the per-lane rows of `rollout_grid.cu`'s LANE_COST
+    instantiations; Q, R, r and h shared), one warm-started
+    `rescue.solve_tiled_with_rescue` (the bench's options and rescue by
+    default), u_0 steps each lane's plant and the warm start shifts. The
+    warm start is each lane's own window as x and u = (ref.u[s_b][0], 0).
+    problem: `scotty_problem(ref)` (its q, c and x0 replaced per tick);
+    x_true0 [B, 4] (`tracking_tiled_initial_states`). The tracking error
+    after tick t is |x_true - ref.x[s_b + t + 1]| over the whole state, as
+    `run_closed_loop`'s. vmapped=True runs each tier through the vmapped solve
+    (`parallel.batch.solve_lanes`, the same iterates on the plain paths:
+    the row's float64 reference on the card) and merges the tiers as
+    `rescue.merge_rescue` does."""
+    if opts is None:
+        opts, opts_rescue = bench_options()
+    N, n, m = problem.N, problem.n, problem.m
+    B = x_true0.shape[0]
+    dt, dev = problem.dtype, problem.device
+    kw = dict(dtype=dt, device=dev)
+    xw, qs, cs = tracking_tiled_windows(ref, starts, N, ticks, dtype=dt, device=dev)
+    u0 = torch.zeros((B, N, m), **kw)
+    u0[:, :, 0] = torch.as_tensor(np.asarray(ref.u)[np.asarray(starts), 0], **kw)[:, None]
+    state0 = dataclasses.replace(batch_init_state(problem, B), u=u0,
+                                 x=xw[0].permute(2, 0, 1).contiguous())
+    if x_true0.is_cuda:
+        torch.cuda.synchronize(x_true0.device)
+    t0 = time.perf_counter()
+    st = tsv.state_to_lanes(state0)
+    x_true = tsv.batch_to_lanes(x_true0)
+    iters = torch.empty((ticks, B), dtype=torch.int32, device=dev)
+    errs = torch.empty((ticks, B), **kw)
+    statuses = torch.empty((ticks, B), dtype=torch.int32, device=dev)
+    rescue_ticks = 0
+    h = problem.h[0]
+    for t in range(ticks):
+        prob_t = dataclasses.replace(
+            problem, cost=dataclasses.replace(problem.cost, q=qs[t], c=cs[t]), x0=x_true)
+        if vmapped:
+            st1, stats = solve_lanes(prob_t, st, opts)
+            failed = stats.status != 0
+            if opts_rescue is not None and bool(torch.any(failed)):
+                st_r, stats_r = solve_lanes(prob_t, st1, opts_rescue)
+                st1, stats = rsc.merge_rescue(failed, st1, stats, st_r, stats_r)
+                rescue_ticks += 1
+            st = st1
+        elif opts_rescue is not None:
+            info = {}
+            st, stats = rsc.solve_tiled_with_rescue(prob_t, st, opts, opts_rescue, info)
+            rescue_ticks += int(info["rescued"])
+        else:
+            st, stats = tsv.solve_tiled(prob_t, st, opts)
+        x_true = problem.dynamics(x_true, st.u[0], h, 0)
+        st = tsv.shift_trajectory_tiled(st)
+        diff = x_true - xw[t + 1, 0]
+        errs[t] = torch.sqrt(torch.sum(diff * diff, dim=0))
+        iters[t] = stats.iterations
+        statuses[t] = stats.status
+    x_true_b = tsv.lanes_to_batch(x_true)
+    state_b = tsv.state_from_lanes(st)
+    if x_true0.is_cuda:
+        torch.cuda.synchronize(x_true0.device)
+    seconds = time.perf_counter() - t0
+    return ClosedLoopResult(iters, errs, statuses, rescue_ticks, x_true_b, state_b, seconds)
+
+
+def per_lane_rows(problem: Problem, B: int, *, seed: int = 31) -> Problem:
+    """The problem with every DiagonalCost leaf and h one row per lane
+    (lane-minor: Q, q [N+1, n, B], R, r [N+1, m, B], c [N+1, B], h [N, B]):
+    a tracking cost (`lqr_cost_from_reference`'s form) of each lane's own
+    reference, the problem's own (x_ref = -q / Q, u_ref = -r / R) moved by
+    0.05 N(0, 1), with its own weights, the problem's scaled by
+    1 + 0.5 U(0, 1), and its own steps h scaled by 1 + 0.1 U(0, 1), from
+    numpy's default_rng(seed). The operands of the trial-grid kernel's
+    LANE_COST instantiations: every row differs per lane, the terminal one
+    included, and the merit keeps the cancellation of the problem's own
+    cost. Q and R must be positive."""
+    rng = np.random.default_rng(seed)
+    cost = problem.cost
+    N = problem.N
+
+    def np_(t):
+        return t.double().cpu().numpy()
+
+    Q, R, q, r = np_(cost.Q), np_(cost.R), np_(cost.q), np_(cost.r)
+    xr = -q / Q
+    ur = -r / R
+    Qb = Q[..., None] * (1.0 + 0.5 * rng.random(Q.shape + (B,)))
+    Rb = R[..., None] * (1.0 + 0.5 * rng.random(R.shape + (B,)))
+    xb = xr[..., None] + 0.05 * rng.standard_normal(xr.shape + (B,))
+    ub = ur[..., None] + 0.05 * rng.standard_normal(ur.shape + (B,))
+    cb = 0.5 * np.sum(Qb * xb * xb, axis=1)
+    cb[:N] += 0.5 * np.sum(Rb * ub * ub, axis=1)[:N]
+    hb = np_(problem.h)[..., None] * (1.0 + 0.1 * rng.random(problem.h.shape + (B,)))
+    kw = dict(dtype=problem.dtype, device=problem.device)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), **kw)
+
+    new_cost = DiagonalCost(Q=t(Qb), R=t(Rb), q=t(-Qb * xb), r=t(-Rb * ub), c=t(cb))
+    return dataclasses.replace(problem, cost=new_cost, h=t(hb))
+
+
+def closed_loop_metrics(res: ClosedLoopResult) -> dict:
+    """A batched closed loop's numbers (unrounded): success, iterations and
+    tracking error over every lane and tick, and its times."""
+    T, B = res.iterations.shape
+    return {
+        "success_rate": float((res.status == 0).double().mean()),
+        "mean_iterations": float(res.iterations.double().mean()),
+        "mean_tracking_error": float(res.tracking_error.double().mean()),
+        "rescue_ticks": res.rescue_ticks,
+        "ms_per_tick": 1e3 * res.seconds / T,
+        "resolves_per_s": B * T / res.seconds,
+    }
 
 
 # ---------------------------------------------------------------------------

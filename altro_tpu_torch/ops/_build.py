@@ -43,7 +43,7 @@ _I = ctypes.c_int
 # C entry points of csrc/*.cu and their argument types. Every pointer and
 # the stream are c_void_p (a bare Python int would be cut to 32 bits).
 SIGNATURES = {
-    "rollout_grid_f32": [_P] * 19 + [_P] * 2 + [_I] * 7 + [_P] + [_P],
+    "rollout_grid_f32": [_P] * 19 + [_P] * 2 + [_I] * 8 + [_P] + [_P],
     "riccati_latency_f32": [_P] * 9 + [_P] * 7 + [_I] * 5 + [_P],
     "trial_rollout_f32": [_P] * 16 + [_P] * 2 + [_I] * 3 + [_I] * 2 + [_P] + [_P],
     "riccati_dense_f32": [_P] * 9 + [_P] * 7 + [_I] * 5 + [_P],

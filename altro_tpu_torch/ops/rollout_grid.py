@@ -19,8 +19,13 @@ cost rows and, for affine NEGATIVE_ORTHANT groups, from rho-premultiplied
 rows: w = wg - wax.x - wau.u equals z - rho c(x, u) on active knots, and
 the AL term is min(w, 0)^2 / (2 rho). It forms those rows itself from the
 lane-shared `affine_constraint_stacks`, the lane's duals z and its rho;
-`premultiplied_rows` is their plain twin. The wrapper runs no eager op
-besides allocating the outputs.
+`premultiplied_rows` is their plain twin. The cost rows (Q, q, R, r, c)
+and h are read once a block when every lane shares them, or one row per
+lane (the kernel's LANE_COST instantiations) when any of them is per
+lane, the shared ones broadcast to every lane as JAX's `_bcast_tiled`
+does (`lane_rows`, once a solve). The wrapper runs no eager op besides
+allocating the outputs (and broadcasting the rows when the caller did
+not pass them).
 """
 
 from __future__ import annotations
@@ -46,8 +51,10 @@ from altro_tpu_torch.problem import DiagonalCost, Problem
 
 __all__ = [
     "LAUNCHES",
+    "LANE_COST_LAUNCHES",
     "rollout_tiled_eligible",
     "ineligibility",
+    "lane_rows",
     "affine_constraint_stacks",
     "premultiplied_rows",
     "plain_rollout",
@@ -55,8 +62,10 @@ __all__ = [
     "rollout_grid",
 ]
 
-# Count of kernel launches (plain integer; the CPU path never adds to it).
+# Count of kernel launches (plain integer; the CPU path never adds to it), and
+# of those that ran a LANE_COST instantiation (per-lane cost rows and h).
 LAUNCHES = 0
+LANE_COST_LAUNCHES = 0
 
 # (model, integrator) pairs the CUDA kernel has a __device__ step for, and
 # the constraint row counts P each step is instantiated with.
@@ -86,9 +95,9 @@ def ineligibility(problem: Problem) -> Optional[str]:
         return f"device step is for n={ds.n}, m={ds.m}, problem has n={problem.n}, m={problem.m}"
     if not isinstance(problem.cost, DiagonalCost):
         return "the cost is not a DiagonalCost"
-    if problem.cost.per_lane:
-        return ("per-lane cost rows (q [N+1, n, B] or c [N+1, B]; the kernel reads rows "
-                "shared by all lanes)")
+    if (ds.model, ds.integrator) == (MODEL_QUADROTOR, INTEGRATOR_RK4) and per_lane(problem):
+        return ("per-lane cost rows or h (the quadrotor's kernel, "
+                "rollout_grid_quadrotor_kernel, reads rows shared by all lanes)")
     for spec in problem.constraints:
         if not (spec.affine and spec.cone is Cone.NEGATIVE_ORTHANT):
             return (f"constraint group {spec.label!r} is not an affine "
@@ -99,6 +108,28 @@ def ineligibility(problem: Problem) -> Optional[str]:
         return (f"{rows} constraint rows in {len(problem.constraints)} groups (the {name} "
                 f"step is instantiated for {step_rows} rows in at most two groups)")
     return None
+
+
+def per_lane(problem: Problem) -> bool:
+    """True when a cost leaf or h holds one row per lane."""
+    return problem.cost.per_lane or problem.h.ndim == 2
+
+
+def lane_rows(problem: Problem, Bsz: int):
+    """The kernel's cost rows and h one row per lane, contiguous: Q, q
+    [N+1, n, B], R, r [N+1, m, B], c [N+1, B], h [N, B], a shared leaf
+    broadcast to every lane (JAX's `_bcast_tiled`,
+    altro_tpu/ops/pallas_rollout_tiled.py:237-242); None when every leaf
+    is shared (the kernel then reads one row a block)."""
+    if not per_lane(problem):
+        return None
+    cost = problem.cost
+
+    def lanes(t, base):
+        return (t if t.ndim == base + 1 else t[..., None].expand(*t.shape, Bsz)).contiguous()
+
+    return {"Q": lanes(cost.Q, 2), "q": lanes(cost.q, 2), "R": lanes(cost.R, 2),
+            "r": lanes(cost.r, 2), "c": lanes(cost.c, 1), "h": lanes(problem.h, 1)}
 
 
 def rollout_tiled_eligible(problem: Problem) -> bool:
@@ -206,12 +237,12 @@ def rollout_grid_ref(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0):
 
 
 def rollout_grid(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0,
-                 stacks=None):
+                 stacks=None, rows=None):
     """W-trial rollout grid: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (or a raise). `stacks` are the problem's
-    `affine_constraint_stacks` (computed here when not given: pass them
-    once per solve)."""
-    global LAUNCHES
+    `affine_constraint_stacks` and `rows` its `lane_rows` (each computed
+    here when not given: pass them once per solve)."""
+    global LAUNCHES, LANE_COST_LAUNCHES
     if not x0.is_cuda:
         return rollout_grid_ref(problem, ref_x, ref_u, K, d, z, rho, alphas, x0)
     why = ineligibility(problem)
@@ -222,6 +253,12 @@ def rollout_grid(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0,
     cost = problem.cost
     if stacks is None:
         stacks = affine_constraint_stacks(problem)
+    if rows is None:
+        rows = lane_rows(problem, Bsz)
+    lane_cost = rows is not None
+    if not lane_cost:
+        rows = {"Q": cost.Q, "q": cost.q, "R": cost.R, "r": cost.r, "c": cost.c, "h": problem.h}
+    lb = (Bsz,) if lane_cost else ()
     cax, cau, cg, act = stacks
     P = cg.shape[1]
     z0 = z[0] if z else None
@@ -230,9 +267,9 @@ def rollout_grid(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0,
     ops = {
         "xref": (ref_x, (N + 1, n, Bsz)), "uref": (ref_u, (N, m, Bsz)),
         "K": (K, (N, m, n, Bsz)), "d": (d, (N, m, Bsz)),
-        "Q": (cost.Q, (N + 1, n)), "q": (cost.q, (N + 1, n)),
-        "R": (cost.R, (N + 1, m)), "r": (cost.r, (N + 1, m)),
-        "c": (cost.c, (N + 1,)), "h": (problem.h, (N,)),
+        "Q": (rows["Q"], (N + 1, n) + lb), "q": (rows["q"], (N + 1, n) + lb),
+        "R": (rows["R"], (N + 1, m) + lb), "r": (rows["r"], (N + 1, m) + lb),
+        "c": (rows["c"], (N + 1,) + lb), "h": (rows["h"], (N,) + lb),
         "cax": (cax, (N + 1, P, n)), "cau": (cau, (N + 1, P, m)),
         "cg": (cg, (N + 1, P)), "act": (act, (N + 1, P)),
         "z0": (z0, (N + 1, p0, Bsz)), "z1": (z1, (N + 1, P - p0, Bsz)),
@@ -250,7 +287,8 @@ def rollout_grid(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0,
     err = lib.rollout_grid_f32(
         *(None if t is None else t.data_ptr() for t, _ in ops.values()),
         phi.data_ptr(), xstack.data_ptr(),
-        N, Bsz, W, P, p0, ds.model, ds.integrator, device_params(ds), stream)
+        N, Bsz, W, P, p0, int(lane_cost), ds.model, ds.integrator, device_params(ds), stream)
     _build.check(err, "rollout_grid_f32")
     LAUNCHES += 1
+    LANE_COST_LAUNCHES += int(lane_cost)
     return phi, xstack

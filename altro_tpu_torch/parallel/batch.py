@@ -5,10 +5,11 @@ Counterpart: altro_tpu/parallel/batch.py (`batch_init_state`,
 `solve`; here the batch is written out: `vmap_solve` runs the
 lane-minor iteration that tile_solver.solve_tiled also runs
 (`tile_solver.lane_loop`), with the per-lane semantics of
-`jax.vmap(solve)`, every line search included but the light-payload
-grid. `batched_tracking_solver` gives each lane its own linear cost
-terms q and c (Q, R and r shared), as lane-minor rows of the
-`DiagonalCost`.
+`jax.vmap(solve)`, every line search included (the light-payload grid
+too), and reports per lane at a non-silent verbosity and through
+`iteration_callback`, as JAX's vmapped solve does. `batched_tracking_solver`
+gives each lane its own linear cost terms q and c (Q, R and r shared),
+as lane-minor rows of the `DiagonalCost`.
 """
 
 from __future__ import annotations
@@ -20,7 +21,12 @@ from altro_tpu_torch import tile_solver as tsv
 from altro_tpu_torch.linesearch import Trace
 from altro_tpu_torch.options import SolverOptions
 from altro_tpu_torch.problem import DiagonalCost, Problem
-from altro_tpu_torch.solver import SolverState, grid_search_refusal, init_state
+from altro_tpu_torch.solver import (
+    SolverState,
+    check_pallas_backward,
+    grid_search_refusal,
+    init_state,
+)
 
 __all__ = ["batch_init_state", "solve_lanes", "vmap_solve", "batched_tracking_solver"]
 
@@ -34,11 +40,7 @@ def batch_init_state(problem: Problem, batch: int) -> SolverState:
 def _check(who: str, opts: SolverOptions) -> None:
     """JAX's option errors (ValueError), then what the port does not run
     (NotImplementedError naming the option)."""
-    if opts.pallas_backward and (opts.parallel_riccati or opts.symmetrize_ctg):
-        raise ValueError(
-            "pallas_backward is mutually exclusive with parallel_riccati and "
-            "symmetrize_ctg (the fused kernel implements the plain serial "
-            "recursion); disable one of them")
+    check_pallas_backward(opts)
     if opts.ls_armijo_only and not (opts.rti_mode or opts.ls_phase_split):
         raise ValueError(
             "ls_armijo_only requires ls_phase_split (or rti_mode): without the phase-split "

@@ -13,10 +13,11 @@ Conventions of the port:
   The knot index `k` is an int or an integer tensor that broadcasts
   against the batch dims. One lane is the case `batch = ()`.
 * Cost methods take knot stacks in the solver's lane-minor layout,
-  `x [K, n, B]`, `u [K, m, B]`, with `ks` the `[K]` knot indices; cost
-  data are shared by all lanes (`Q [N+1, n]` etc.), except that the
-  linear terms may be per lane (`q [N+1, n, B]`, `c [N+1, B]`), as
-  `parallel.batch.batched_tracking_solver` gives them.
+  `x [K, n, B]`, `u [K, m, B]`, with `ks` the `[K]` knot indices. Each
+  leaf of a DiagonalCost is shared by all lanes (`Q [N+1, n]`, `c [N+1]`)
+  or holds one row per lane on a trailing lane axis (`Q [N+1, n, B]`,
+  `c [N+1, B]`), leaf by leaf, as JAX's `prob_axes` batches any leaf;
+  `Problem.h` likewise (`[N]` or `[N, B]`).
 * Jacobians of user callables come from forward-mode automatic
   differentiation over the batch (`lane_jacobian`), the counterpart of
   `jax.jacfwd`; GenericCost's gradients and Hessians from `torch.func`'s
@@ -92,6 +93,17 @@ def _last(arr):
     return arr[-1] if arr.ndim == 3 else arr[-1][:, None]
 
 
+def _consts(c, ks):
+    """Per-knot constants at knots ks: [K, 1] shared ([N+1]) or [K, B]
+    per lane ([N+1, B])."""
+    return c[ks] if c.ndim == 2 else c[ks][:, None]
+
+
+def _diag_rows(rows, B):
+    """Diagonal rows [K, w, 1 or B] as lane stacks of matrices [K, w, w, B]."""
+    return torch.diag_embed(rows.movedim(-1, 1)).movedim(1, -1).expand(-1, -1, -1, B)
+
+
 # ---------------------------------------------------------------------------
 # Costs
 # ---------------------------------------------------------------------------
@@ -102,9 +114,10 @@ class DiagonalCost:
     """0.5 x'diag(Q)x + q'x + 0.5 u'diag(R)u + r'u + c, stacked over knots.
 
     Q, q: [N+1, n];  R, r: [N+1, m] (row N unused);  c: [N+1]. On
-    lane-minor data q may be [N+1, n, B] and c [N+1, B], one row per
-    lane (altro_tpu/parallel/batch.py:45-64 vmaps them); Q, R, r stay
-    shared.
+    lane-minor data any leaf may carry a trailing lane axis, one row per
+    lane (Q, q [N+1, n, B], R, r [N+1, m, B], c [N+1, B]), as JAX's
+    `prob_axes` batches any leaf (altro_tpu/tile_solver.py:118-123,
+    altro_tpu/parallel/batch.py:45-64); a leaf without it stays shared.
     """
 
     Q: torch.Tensor
@@ -121,17 +134,23 @@ class DiagonalCost:
             + torch.sum(q * x, dim=1)
             + 0.5 * torch.sum(u * (R * u), dim=1)
             + torch.sum(r * u, dim=1)
-            + (self.c[ks] if self.c.ndim == 2 else self.c[ks][:, None])
+            + _consts(self.c, ks)
         )
 
     @property
+    def lane_leaves(self) -> Tuple[str, ...]:
+        """The names of the leaves that hold one row per lane."""
+        return tuple(name for name, base in (("Q", 2), ("q", 2), ("R", 2), ("r", 2), ("c", 1))
+                     if getattr(self, name).ndim == base + 1)
+
+    @property
     def per_lane(self) -> bool:
-        """True when q or c holds one row per lane."""
-        return self.q.ndim == 3 or self.c.ndim == 2
+        """True when any leaf holds one row per lane."""
+        return bool(self.lane_leaves)
 
     def term_value(self, x):
         """[K, B] terminal cost of x [K, n, B]."""
-        Q, q = self.Q[-1][:, None], _last(self.q)
+        Q, q = _last(self.Q), _last(self.q)
         return 0.5 * torch.sum(x * (Q * x), dim=1) + torch.sum(q * x, dim=1) + self.c[-1]
 
     def stage_grad(self, ks, x, u):
@@ -139,19 +158,26 @@ class DiagonalCost:
                 _rows(self.R, ks) * u + _rows(self.r, ks))
 
     def term_grad(self, x):
-        return self.Q[-1][:, None] * x + _last(self.q)
+        return _last(self.Q) * x + _last(self.q)
 
     def stage_hess(self, ks, x, u):
         """Dense (lxx [K, n, n, B], luu [K, m, m, B], lux [K, m, n, B])."""
         B = x.shape[-1]
-        lxx = torch.diag_embed(self.Q[ks])[..., None].expand(-1, -1, -1, B)
-        luu = torch.diag_embed(self.R[ks])[..., None].expand(-1, -1, -1, B)
+        lxx = _diag_rows(_rows(self.Q, ks), B)
+        luu = _diag_rows(_rows(self.R, ks), B)
         lux = x.new_zeros((x.shape[0], u.shape[1], x.shape[1], B))
         return lxx, luu, lux
 
+    def stage_hess_diag(self, ks, B):
+        """The Hessian diagonals (lxx [K, n, B], luu [K, m, B])."""
+        return (_rows(self.Q, ks).expand(-1, -1, B), _rows(self.R, ks).expand(-1, -1, B))
+
+    def term_hess_diag(self, K, B):
+        """The terminal Hessian diagonal [K, n, B]."""
+        return _last(self.Q)[None].expand(K, -1, B)
+
     def term_hess(self, x):
-        return torch.diag(self.Q[-1])[None, :, :, None].expand(
-            x.shape[0], -1, -1, x.shape[-1])
+        return _diag_rows(_last(self.Q)[None], x.shape[-1]).expand(x.shape[0], -1, -1, -1)
 
 
 def _mv(M, v):
@@ -347,7 +373,8 @@ class Problem:
     h, k) -> [n, n+m, *batch] optional. Or dynamics=None and linear
     dynamics arrays A [N, n, n], B [N, n, m], f_aff [N, n], shared by all
     lanes: x' = A x + B u + f (the reference's SetLinearDynamics). x0: [n]
-    for one lane, or [n, B] lane-minor for the batched solve.
+    for one lane, or [n, B] lane-minor for the batched solve. h: [N], or
+    [N, B] for one step length per lane and knot in the batched solves.
     dynamics_cols: the column-form step
     (models/tile_steps.py) that the batched rollout kernel runs on the
     card; dynamics_tile: the block-form step ([W, n] trial rows) that the
@@ -361,7 +388,7 @@ class Problem:
     dynamics_jac: Optional[Callable[..., torch.Tensor]]
     constraints: Tuple[ConstraintSpec, ...]
     cost: object  # DiagonalCost, QuadraticCost or GenericCost
-    h: torch.Tensor  # [N]
+    h: torch.Tensor  # [N], or [N, B] per lane
     x0: torch.Tensor
     A: Optional[torch.Tensor] = None  # [N, n, n]
     B: Optional[torch.Tensor] = None  # [N, n, m]
@@ -400,7 +427,18 @@ class Problem:
             return (torch.einsum("ij...,j...->i...", A, x.expand((self.n,) + batch))
                     + torch.einsum("ij...,j...->i...", B, u.expand((self.m,) + batch))
                     + self._knot_rows(self.f_aff, k, batch))
-        return self.dynamics(x, u, self.h[k], k)
+        return self.dynamics(x, u, self.h_at(k), k)
+
+    def h_at(self, k):
+        """The step length at knot k, broadcasting against the batch dims:
+        a shared h [N] gives h[k]; a per-lane h [N, B] gives [B] for an
+        int k and [..., B] for a knot tensor [..., 1] (knots along the
+        leading batch dims, the lanes last)."""
+        if self.h.ndim == 1:
+            return self.h[k]
+        if torch.is_tensor(k) and k.ndim and k.shape[-1] == 1:
+            return self.h[k[..., 0]]
+        return self.h[k]
 
     def dyn_expansion(self, k, x, u):
         """(A [n, n, *batch], B [n, m, *batch]) of the dynamics at (x, u)
@@ -410,9 +448,9 @@ class Problem:
                                            k.shape if torch.is_tensor(k) else ())
             return self._knot_rows(self.A, k, batch), self._knot_rows(self.B, k, batch)
         if self.dynamics_jac is not None:
-            J = self.dynamics_jac(x, u, self.h[k], k)
+            J = self.dynamics_jac(x, u, self.h_at(k), k)
             return J[:, : self.n], J[:, self.n:]
-        return lane_jacobian(self.dynamics, x, u, self.h[k], k)
+        return lane_jacobian(self.dynamics, x, u, self.h_at(k), k)
 
     def init_duals(self) -> Tuple[torch.Tensor, ...]:
         """Zero dual variables, one [N+1, dim] tensor per constraint group."""

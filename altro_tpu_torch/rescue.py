@@ -20,7 +20,7 @@ from altro_tpu_torch.options import SolverOptions
 from altro_tpu_torch.problem import Problem
 from altro_tpu_torch.solver import SolverState, SolveStats
 
-__all__ = ["rescue_options", "solve_tiled_with_rescue"]
+__all__ = ["rescue_options", "solve_tiled_with_rescue", "merge_rescue"]
 
 
 def rescue_options(opts: SolverOptions,
@@ -46,11 +46,14 @@ def solve_tiled_with_rescue(
 ) -> Tuple[SolverState, SolveStats]:
     """`tile_solver.solve_tiled` plus the conditional failed-lane rescue.
 
-    Same layout contract as `solve_tiled`. Rescued lanes take the rescue's
-    state and stats, with iterations summed over both tiers. When `info`
-    is a dict, info["rescued"] records whether the rescue ran. On CUDA
-    tensors both tiers' options are checked against the kernels' reach
-    (`tile_solver.kernel_refusal`) before either tier runs.
+    Same layout contract as `solve_tiled`: any leaf of the DiagonalCost
+    and h may hold one row per lane, and both tiers take them as the
+    problem carries them (altro_tpu/rescue.py:57-77). Rescued lanes take
+    the rescue's state and stats, with iterations summed over both tiers
+    (`merge_rescue`). When `info` is a dict, info["rescued"] records
+    whether the rescue ran. On CUDA tensors both tiers' options are
+    checked against the kernels' reach (`tile_solver.kernel_refusal`)
+    before either tier runs.
     """
     for o in (opts, opts_rescue):
         tsv.refuse_on_card("solve_tiled_with_rescue", problem, o, vmapped=False)
@@ -62,9 +65,15 @@ def solve_tiled_with_rescue(
     if not rescued:
         return st, stats
     st_r, stats_r = tsv.solve_tiled(problem, st, opts_rescue)
-    fields = dataclasses.fields(SolverState)
+    return merge_rescue(failed, st, stats, st_r, stats_r)
+
+
+def merge_rescue(failed, st, stats, st_r, stats_r) -> Tuple[SolverState, SolveStats]:
+    """The rescue's merge, lane-minor: the failed lanes [B] take the
+    rescue's state and stats, iterations summed over both tiers; the other
+    lanes keep the primary tier's bit for bit."""
     merged = {}
-    for f in fields:
+    for f in dataclasses.fields(SolverState):
         r, m = getattr(st_r, f.name), getattr(st, f.name)
         if f.name == "z":
             merged[f.name] = tuple(torch.where(failed, a, b) for a, b in zip(r, m))

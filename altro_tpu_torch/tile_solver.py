@@ -51,16 +51,23 @@ from altro_tpu_torch.ops.riccati_dense import riccati_backward_dense
 from altro_tpu_torch.ops.rollout_grid import (
     affine_constraint_stacks,
     ineligibility,
+    lane_rows,
     rollout_grid,
     rollout_grid_ref,
 )
 from altro_tpu_torch.options import SolverOptions
 from altro_tpu_torch.problem import Problem
+from altro_tpu_torch.options import Verbosity
 from altro_tpu_torch.solver import (
     SolverState,
     SolveStats,
+    al_total_cost_lanes,
+    banner_end,
+    banner_start,
     complementarity,
+    emit,
     feasibility,
+    reports,
     stationarity,
     total_cost,
 )
@@ -226,11 +233,17 @@ def solve_tiled(problem: Problem, state: SolverState,
     """Lane-minor batched solve. Returns (SolverState, SolveStats), the
     state lane-minor and the stats [B] per lane.
 
-    problem.x0 is [n, B]; the cost, the constraints and h are shared by
-    all lanes. On CUDA tensors the backward pass runs its kernel and the
-    line-search rollout its kernel when `pallas_rollout_tiled` (the plain
-    grid otherwise, on any device); a problem they cannot take is refused
-    before anything runs (`kernel_refusal`). On CPU tensors the plain
+    problem.x0 is [n, B]. Each leaf of the DiagonalCost (Q, q, R, r, c)
+    and h is shared by all lanes or holds one row per lane on a trailing
+    lane axis, leaf by leaf, as JAX's `prob_axes` batches them; the
+    constraints are shared. The backward kernel (csrc/riccati_dense.cu)
+    takes the expansions per lane whatever the cost's leaves are; the
+    trial-grid kernel reads per-lane rows in its LANE_COST
+    instantiations (`rollout_grid.lane_rows`, once a solve). On CUDA
+    tensors the backward pass runs its kernel and the line-search rollout
+    its kernel when `pallas_rollout_tiled` (the plain grid otherwise, on
+    any device); a problem they cannot take is refused before anything
+    runs (`kernel_refusal`). On CPU tensors the plain
     versions run. `pallas_backward` is not read (as in JAX) and
     stats.dphi is NaN. layer_seconds: as `lane_loop`'s.
     """
@@ -280,6 +293,16 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
     blocks, machine passes), "passes" (the machine's loop passes) and,
     when vmapped, "trials" ([B], each lane's ls_iterations summed over the
     iterations it ran).
+
+    vmapped=True also reports as `jax.vmap(solve)` does through its debug
+    callbacks (altro_tpu/solver.py:790, :1176-1200, :1232): at a non-silent
+    verbosity each lane's first line (its initial AL cost); every trip,
+    for every lane in lane order, the frozen ones included (a batched
+    while loop runs its body for every lane), `iteration_callback(iter,
+    phi, stat, feas, alpha, rho)` and the INNER line, or at OUTER the
+    outer line; and each lane's last line. One host read a trip; nothing
+    at SILENT without a callback. JAX prints the lanes' lines unordered
+    within a trip; the port prints them in lane order.
     """
     trace = trace or Trace()
     trace.start()
@@ -332,7 +355,15 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
     c2 = opts.ls_c2
     slack = opts.ls_armijo_slack
     kernel_grid = not vmapped and opts.pallas_rollout_tiled
-    stacks = affine_constraint_stacks(problem) if x0.is_cuda and kernel_grid else None
+    stacks = rows = None
+    if x0.is_cuda and kernel_grid:  # the kernel's constraint stacks and cost rows, once
+        stacks = affine_constraint_stacks(problem)
+        rows = lane_rows(problem, Bsz)
+
+    report = vmapped and reports(opts)
+    if vmapped and opts.verbose > Verbosity.SILENT:  # each lane's first line
+        for cost in al_total_cost_lanes(problem, x_init, state.u, state.z, rho0).tolist():
+            banner_start(cost)
 
     c = dict(
         x=x_init, u=state.u, y=state.y, z=state.z, rho=rho0, K=state.K,
@@ -356,7 +387,7 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
         return rollout_grid(problem, c["x"].contiguous(), c["u"].contiguous(),
                             g.K, g.d, tuple(zj.contiguous() for zj in c["z"]),
                             c["rho"].contiguous(), alphas,
-                            x0.contiguous(), stacks=stacks)
+                            x0.contiguous(), stacks=stacks, rows=rows)
 
     def dphi_at(x, alpha, c, g):
         """The merit derivative along the trial rolled out to x: its
@@ -426,8 +457,11 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
                 return ti.merit_tiled(problem, c["x"], c["u"], g.K, g.d, g.P, g.p, c["z"],
                                       c["rho"], alpha, x0)
 
+            # a reporting solve searches every lane, as JAX's batched body does
+            # (the frozen lanes' reports show that search; _freeze drops it)
             ls = wolfe_line_search_lanes(merit_full, phi0, dphi0, 1.0, ls_opts, aux0=payload0,
-                                         active=active, trace=trace)
+                                         active=torch.ones_like(active) if report else active,
+                                         trace=trace)
             lap("sequential_search")
             payload_ls = ls.aux
             ls_alpha, code, n_iters, aux_alpha = ls.alpha, ls.code, ls.n_iters, ls.aux_alpha
@@ -600,6 +634,13 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
             stop = converged | ls_failed | bp_failed
         stop = stop | diverged
 
+        if report:  # every lane, the frozen ones included, from one host read
+            rows = torch.stack([t.to(dtype) for t in (
+                c["iter"], phi0, phi_m, dphi0, dphi_m, alpha_st, ls_iters, stat, feas,
+                c["rho"], rho_new, do_dual)]).T.tolist()
+            for it, *vals in rows:
+                emit(opts, int(it), *vals)
+
         new = dict(
             x=x_m, u=u_m, y=y_m, z=z_new, rho=rho_new, K=g.K, d=g.d, P=g.P,
             p=g.p, reg=reg_used, convals=convals_m, A=A_m, B=B_m,
@@ -613,6 +654,9 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
         active = lane_active(c)
         lap("update")
 
+    if vmapped and opts.verbose > Verbosity.SILENT:  # each lane's last line
+        for it, st in zip(c["iter"].tolist(), c["status"].tolist()):
+            banner_end(it, st)
     status = torch.where(
         (c["status"] == _UNSOLVED) & (c["iter"] >= opts.iterations_max),
         torch.full_like(c["status"], int(SolveStatus.MAX_ITERATIONS)), c["status"])

@@ -306,32 +306,50 @@ def _per_lane_costs(prob, lanes=3):
 
 
 def test_per_lane_costs_refuse_the_trial_grid_kernel():
-    """The trial-grid kernel reads cost rows shared by all lanes: with
-    per-lane q and c, `solve_tiled` on the card is refused under
+    """The trial-grid kernel reads per-lane cost rows in its LANE_COST
+    instantiations: with per-lane q and c (or h) the bicycle's problem is
+    taken by both batched kernels. The quadrotor's kernel
+    (rollout_grid_quadrotor_kernel) reads rows shared by all lanes: with
+    per-lane rows `solve_tiled` on the card is refused under
     `pallas_rollout_tiled` before anything runs, with the reason and the
     plain grid's switch; without it (and in the vmapped solve, which runs
     the plain grid) nothing is refused."""
-    prob = _per_lane_costs(_bicycle(2))
-    why = tsv.kernel_refusal(prob, OPTS, vmapped=False)
-    assert "rollout_grid" in why and "per-lane cost rows" in why
-    assert "pallas_rollout_tiled=False" in why
-    assert tsv.kernel_refusal(prob, OPTS.replace(pallas_rollout_tiled=False),
-                              vmapped=False) is None
-    assert tsv.kernel_refusal(prob, OPTS.replace(pallas_backward=True), vmapped=True) is None
-    with pytest.raises(NotImplementedError, match="solve_tiled: .*per-lane cost rows"):
-        tsv.solve_tiled(dataclasses.replace(prob, x0=_OnCard()), None, OPTS)
+    bike = _per_lane_costs(_bicycle(2))
+    assert tsv.kernel_refusal(bike, OPTS, vmapped=False) is None
+    bike_h = dataclasses.replace(_bicycle(2), h=_bicycle(2).h[:, None].expand(-1, 3))
+    assert tsv.kernel_refusal(bike_h, OPTS, vmapped=False) is None
+    for prob in (_per_lane_costs(_problem("quadrotor_full")),
+                 dataclasses.replace(_problem("quadrotor_full"),
+                                     h=_problem("quadrotor_full").h[:, None].expand(-1, 3))):
+        opts = mpc.quadrotor_tiled_options()
+        why = tsv.kernel_refusal(prob, opts, vmapped=False)
+        assert "rollout_grid" in why and "per-lane cost rows" in why
+        assert "rollout_grid_quadrotor_kernel" in why and "pallas_rollout_tiled=False" in why
+        assert tsv.kernel_refusal(prob, opts.replace(pallas_rollout_tiled=False),
+                                  vmapped=False) is None
+        assert tsv.kernel_refusal(prob, mpc.quadrotor_options(), vmapped=True) is None
+        with pytest.raises(NotImplementedError, match="solve_tiled: .*per-lane cost rows"):
+            tsv.solve_tiled(dataclasses.replace(prob, x0=_OnCard()), None, opts)
 
 
 @pytest.mark.parametrize("change", [dict(parallel_linesearch=False), dict(ls_phase_split=False),
                                     {"use_backtracking_linesearch": False,
-                                     "parallel_linesearch": False}],
-                         ids=["sequential_backtracking", "non_split_grid", "strong_wolfe"])
+                                     "parallel_linesearch": False},
+                                    dict(ls_grid_x_only=False),
+                                    dict(iteration_callback=print)],
+                         ids=["sequential_backtracking", "non_split_grid", "strong_wolfe",
+                              "light_payload_grid", "iteration_callback"])
 def test_solve_tiled_keeps_refusing_the_other_searches(change):
-    """As JAX's solve_tiled (altro_tpu/tile_solver.py:286-291), the port's
-    takes the phase-split x-only Armijo-only grid or RTI only: the
-    searches the vmapped solve now runs are a ValueError there."""
+    """As JAX's solve_tiled (altro_tpu/tile_solver.py:133-147, :286-291),
+    the port's takes the phase-split x-only Armijo-only grid or RTI only,
+    without an iteration_callback: the searches the vmapped solve runs,
+    the light-payload grid among them, and the callback are a ValueError
+    there, on the card as on the CPU."""
     with pytest.raises(ValueError, match="solve_tiled supports"):
         tsv.solve_tiled(_bicycle(2), None, OPTS.replace(**change))
+    with pytest.raises(ValueError, match="solve_tiled supports"):
+        tsv.solve_tiled(dataclasses.replace(_bicycle(2), x0=_OnCard()), None,
+                        OPTS.replace(**change))
 
 
 def test_default_options_vmap_solve_refuses_a_shape_before_launching():

@@ -900,13 +900,14 @@ def test_batched_tracking_tick_launches_riccati_dense(dev):
 
 def test_refused_batched_tracking_launches_nothing(dev):
     """On the card, `batched_tracking_solver` at a shape the dense kernel
-    lacks and `solve_tiled` with per-lane cost rows under
+    lacks and `solve_tiled` with per-lane cost rows on the quadrotor's
+    grid kernel (which reads rows shared by all lanes; the bicycle's
+    LANE_COST instantiations take them since the per-lane slice) under
     `pallas_rollout_tiled` are refused before anything launches."""
     import dataclasses
 
     from altro_tpu_torch import mpc
     from altro_tpu_torch import tile_solver as tsv
-    from altro_tpu_torch.io.scotty import load_scotty
     from altro_tpu_torch.options import SolverOptions
     from altro_tpu_torch.parallel.batch import batch_init_state, batched_tracking_solver
     from altro_tpu_torch.problem import Problem, lqr_cost_from_reference
@@ -926,15 +927,15 @@ def test_refused_batched_tracking_launches_nothing(dev):
         batched_tracking_solver(prob, SolverOptions(pallas_backward=True))(
             torch.zeros((Bsz, n), **kw), torch.zeros((Bsz, N + 1, n), **kw),
             torch.zeros((Bsz, N + 1), **kw), batch_init_state(prob, Bsz))
-    scotty = mpc.scotty_problem(load_scotty(), N=N, device=dev)
+    quad = mpc.quadrotor_waypoint_problem(N=N, device=dev)
     lanes_cost = dataclasses.replace(
-        scotty.cost, q=scotty.cost.q[..., None].expand(-1, -1, Bsz).contiguous(),
-        c=scotty.cost.c[:, None].expand(-1, Bsz).contiguous())
-    tiled = dataclasses.replace(scotty, cost=lanes_cost, x0=scotty.x0[:, None].expand(-1, Bsz)
+        quad.cost, q=quad.cost.q[..., None].expand(-1, -1, Bsz).contiguous(),
+        c=quad.cost.c[:, None].expand(-1, Bsz).contiguous())
+    tiled = dataclasses.replace(quad, cost=lanes_cost, x0=quad.x0[:, None].expand(-1, Bsz)
                                 .contiguous())
     with pytest.raises(NotImplementedError, match="per-lane cost rows"):
-        tsv.solve_tiled(tiled, tsv.state_to_lanes(batch_init_state(scotty, Bsz)),
-                        mpc.bench_options()[0])
+        tsv.solve_tiled(tiled, tsv.state_to_lanes(batch_init_state(quad, Bsz)),
+                        mpc.quadrotor_tiled_options())
     torch.cuda.synchronize()
     assert _kernel_launches() == before
 
@@ -1202,3 +1203,171 @@ def test_obstacle_paths_on_card(dev):
     loop = mpc.run_obstacle_loop(ref, True, ticks=2, opts=mpc.obstacle_loop_options(1e-3),
                                  device=dev)
     assert rl.LAUNCHES > before and len(loop.status) == 2
+
+
+# The per-lane slice: rollout_grid.cu's LANE_COST instantiations (every cost
+# row and h one row per lane), the tracking row on both batched kernels, the
+# single-lane options and the vmapped verbosity on the card.
+
+
+def _f32_floor(prob, args):
+    """The plain grid's own float32 rounding of phi on these inputs: its
+    largest relative distance (to max(|phi|, 1)) from the same rollout in
+    float64 on the CPU."""
+    import dataclasses
+
+    from altro_tpu_torch.ops import rollout_grid as rg
+
+    def f64(t):
+        return tuple(f64(a) for a in t) if isinstance(t, tuple) else t.double().cpu()
+
+    c = prob.cost
+    prob64 = dataclasses.replace(
+        prob, cost=type(c)(*(f64(getattr(c, f)) for f in ("Q", "R", "q", "r", "c"))),
+        h=f64(prob.h), x0=f64(prob.x0),
+        constraints=tuple(dataclasses.replace(g, active=g.active.cpu(), jac=None)
+                          for g in prob.constraints))
+    p32 = rg.rollout_grid_ref(prob, *args)[0].double().cpu()
+    p64 = rg.rollout_grid_ref(prob64, *f64(tuple(args)))[0]
+    return float(((p32 - p64).abs() / p64.abs().clamp(min=1.0)).max())
+
+
+def _check_lane_cost(prob, args, Bsz, W, Nk, n):
+    """The LANE_COST kernel against the plain grid on the same per-lane
+    rows (`mpc.per_lane_rows`): phi to 1e-4 relative (chip_smoke.py's gate),
+    or, where the plain grid's own float32 rounding of these inputs is
+    larger (`_f32_floor`: the pendulum at P=0 reaches 1.4e-4 with per-lane
+    steps), to twice that; states to 1e-4 of their scale."""
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch.ops import rollout_grid as rg
+
+    prob = mpc.per_lane_rows(prob, Bsz, seed=Bsz)
+    before = (rg.LAUNCHES, rg.LANE_COST_LAUNCHES)
+    pk, xk = rg.rollout_grid(prob, *args)
+    pr, xr = rg.rollout_grid_ref(prob, *args)
+    torch.cuda.synchronize()
+    assert (rg.LAUNCHES, rg.LANE_COST_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert pk.shape == (W, Bsz) and xk.shape == (W, Nk + 1, n, Bsz)
+    assert bool(torch.isfinite(pk).all())
+    dphi = float(((pk - pr).abs() / pr.abs().clamp(min=1.0)).max())
+    assert dphi < 1e-4 or dphi < 2 * _f32_floor(prob, args), dphi
+    assert float((xk - xr).abs().max()) < 1e-4 * max(1.0, float(xr.abs().max()))
+
+
+@pytest.mark.parametrize("frame", ["cog", "rear", "front"])
+@pytest.mark.parametrize("P", [0, 2])
+@pytest.mark.parametrize("Bsz, W", [(1, 4), (33, 12), (2000, 8)])
+def test_rollout_kernel_lane_cost_matches_plain(dev, Bsz, W, P, frame):
+    """Every bicycle (frame, P) LANE_COST instantiation: per-lane Q, q, R,
+    r, c and h (the steering rows active at the terminal knot), ragged
+    lane tiles, a trial count past one block's 8, 20 knots."""
+    prob, args = _rollout_inputs(dev, Bsz=Bsz, Nk=20, W=W, P=P, frame=frame)
+    _check_lane_cost(prob, args, Bsz, W, 20, 4)
+
+
+@pytest.mark.parametrize("model", ["pendulum", "double_integrator"])
+@pytest.mark.parametrize("P", [0, 2])
+@pytest.mark.parametrize("Bsz, W", [(33, 12), (1024, 8)])
+def test_rollout_kernel_lane_cost_other_models_match_plain(dev, model, Bsz, W, P):
+    """The pendulum's and the double integrator's LANE_COST instantiations
+    (P 0 and 2; the double integrator's rows active at every knot)."""
+    import dataclasses
+
+    from altro_tpu_torch import mpc
+
+    if model == "pendulum":
+        prob, args = _pendulum_rollout_inputs(dev, Bsz, W, P)
+        n = 2
+    else:
+        prob, args = mpc.double_integrator_grid_operands(Bsz, 30, W, P, device=dev)
+        if P == 0:
+            prob = dataclasses.replace(prob, constraints=())
+        n = 4
+    _check_lane_cost(prob, args, Bsz, W, 30, n)
+
+
+def test_rollout_kernel_shared_rows_launch_the_shared_instantiation(dev):
+    from altro_tpu_torch.ops import rollout_grid as rg
+
+    prob, args = _rollout_inputs(dev, Bsz=64, Nk=8, W=4)
+    before = (rg.LAUNCHES, rg.LANE_COST_LAUNCHES)
+    rg.rollout_grid(prob, *args)
+    assert (rg.LAUNCHES, rg.LANE_COST_LAUNCHES) == (before[0] + 1, before[1])
+
+
+def test_quadrotor_grid_refuses_per_lane_rows(dev):
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch.ops import rollout_grid as rg
+
+    prob, args = _quad_rollout_inputs(dev, 64, 8, 4)
+    before = rg.LAUNCHES
+    with pytest.raises(NotImplementedError, match="per-lane cost rows"):
+        rg.rollout_grid(mpc.per_lane_rows(prob, 64), *args)
+    assert rg.LAUNCHES == before
+
+
+def test_tracking_tiled_on_card_tracks_plain_path(dev):
+    """Two ticks of the tracking row at 16 lanes on both batched kernels
+    (the grid's LANE_COST instantiation) agree with the plain CPU path in
+    f64: statuses equal, plant states within 1e-2."""
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch.io.scotty import load_scotty
+    from altro_tpu_torch.ops import riccati_backward as rb
+    from altro_tpu_torch.ops import rollout_grid as rg
+
+    ref = load_scotty()
+    starts = mpc.tracking_tiled_starts(16)
+    out = []
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        prob = mpc.scotty_problem(ref, N=30, dtype=dtype, device=device)
+        x0 = mpc.tracking_tiled_initial_states(ref, starts, dtype=dtype, device=device)
+        before = (rb.LAUNCHES, rg.LANE_COST_LAUNCHES)
+        out.append(mpc.run_tracking_tiled(prob, ref, starts, x0, ticks=2))
+        launched = (rb.LAUNCHES > before[0], rg.LANE_COST_LAUNCHES > before[1])
+        assert launched == ((True, True) if device == dev else (False, False))
+    a, b = out
+    assert float((a.status.cpu() == b.status).double().mean()) >= 0.9
+    assert float((a.x_true.double().cpu() - b.x_true).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("variant", ["rti_mode", "light_grid", "pallas_backward"])
+def test_single_lane_options_on_card(dev, variant):
+    """The Scotty window under rti_mode, the light-payload grid and
+    pallas_backward in f32 on the card: SUCCESS; the latency kernel
+    launches unless pallas_backward (JAX's unbatched fused backward is its
+    scan: no kernel), and the trial-rollout kernel never (JAX's light grid
+    and RTI step take no merit_grid)."""
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch.io.scotty import load_scotty
+    from altro_tpu_torch.ops import riccati_latency as rl
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    kw = {"rti_mode": dict(rti_mode=True, ls_phase_split=True),
+          "light_grid": dict(parallel_linesearch=True, ls_phase_split=True,
+                             ls_grid_x_only=False, ls_armijo_only=True, ls_max_iters=24),
+          "pallas_backward": dict(pallas_backward=True)}[variant]
+    prob, st = mpc.scotty_reference_problem(load_scotty(), N=30, device=dev)
+    before = (rl.LAUNCHES, tr.LAUNCHES)
+    res = mpc.run_bicycle_window(prob, st, mpc.bicycle_window_options().replace(**kw))
+    assert res.metrics()["status"] == 0
+    assert (rl.LAUNCHES > before[0]) == (variant != "pallas_backward")
+    assert tr.LAUNCHES == before[1]
+
+
+def test_vmapped_verbosity_on_card(dev, capsys):
+    """One vmapped tick at 3 lanes with Verbosity.INNER and a callback: a
+    first and a last line per lane, one line and one call per lane and
+    trip."""
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch.options import Verbosity
+
+    calls = []
+    prob = mpc.batched_tracking_problem(device=dev)
+    x0 = mpc.batched_tracking_initial_states(3, device=dev)
+    opts = mpc.batched_tracking_options().replace(verbose=Verbosity.INNER,
+                                                  iteration_callback=lambda *a: calls.append(a))
+    res = mpc.run_batched_tracking(prob, x0, ticks=1, opts=opts)
+    out = capsys.readouterr().out
+    trips = int(res.iterations.max())
+    assert out.count("STARTING ALTRO") == 3 and out.count("ALTRO SOLVE FINISHED") == 3
+    assert out.count("  iter = ") == 3 * trips and len(calls) == 3 * trips

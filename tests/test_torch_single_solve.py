@@ -134,22 +134,25 @@ def test_solve_matches_jax_solve_f64(variant, offset, override):
 
 
 @pytest.mark.parametrize("kw,word", [
-    (dict(rti_mode=True), "rti_mode"),
-    (dict(pallas_backward=True), "pallas_backward"),
+    (dict(rti_mode=True), None),
+    (dict(pallas_backward=True, symmetrize_ctg=False), None),
     (dict(iteration_callback=lambda *a: None), None),
     (dict(verbose=2), None),
     (dict(exact_al_hessian=True), None),
     (dict(parallel_riccati=True), "parallel_riccati"),
-    (dict(ls_grid_x_only=False), "ls_grid_x_only"),
+    (dict(ls_grid_x_only=False), None),
 ], ids=["rti_mode", "pallas_backward", "iteration_callback", "verbose", "exact_al_hessian",
         "parallel_riccati", "ls_grid_x_only"])
 def test_solve_refuses_unported_options(kw, word, capsys):
     """Options the single-lane solve does not implement are refused by
-    name; iteration_callback and verbose (word None), refused until the
-    facade's slice ported them, now run and leave the solve unchanged; so
-    does exact_al_hessian (word None), refused until the obstacle row's
-    slice ported it: on this problem's affine bound it equals the
-    Gauss-Newton Hessian of dense expansions (diag_expansion=False)."""
+    name (parallel_riccati). The others run: iteration_callback and
+    verbose (ported with the facade) leave the solve unchanged; so does
+    exact_al_hessian (ported with the obstacle row): on this problem's
+    affine bound it equals the Gauss-Newton Hessian of dense expansions
+    (diag_expansion=False). Since the per-lane slice: ls_grid_x_only=False
+    (the light-payload grid) takes the x-only grid's trials and payloads,
+    pallas_backward (dense expansions, the plain recursion) the dense
+    solve's, to roundoff; rti_mode takes the full step every iteration."""
     ref = load_scotty()
     prob = mpc.scotty_problem(ref, N=6, dtype=torch.float64, device="cpu")
     st = mpc.long_horizon_state(prob, ref)
@@ -158,10 +161,22 @@ def test_solve_refuses_unported_options(kw, word, capsys):
             solver.solve(prob, st, T_OPTS.replace(**kw))
         return
     st1, stats1 = solver.solve(prob, st, T_OPTS.replace(**kw))
-    base = T_OPTS.replace(diag_expansion=False) if "exact_al_hessian" in kw else T_OPTS
+    if "rti_mode" in kw:
+        assert int(stats1.status) == 0
+        assert float(stats1.alpha) == 1.0 and int(stats1.ls_iterations) == 1
+        return
+    base = T_OPTS
+    if "exact_al_hessian" in kw:
+        base = T_OPTS.replace(diag_expansion=False)
+    if "pallas_backward" in kw:
+        base = T_OPTS.replace(diag_expansion=False, symmetrize_ctg=False)
     st0, stats0 = solver.solve(prob, st, base)
     assert int(stats1.status) == int(stats0.status)
     assert int(stats1.iterations) == int(stats0.iterations)
+    if "pallas_backward" in kw or "ls_grid_x_only" in kw:
+        np.testing.assert_allclose(st1.x.numpy(), st0.x.numpy(), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(st1.u.numpy(), st0.u.numpy(), rtol=0, atol=1e-12)
+        return
     assert torch.equal(st1.x, st0.x) and torch.equal(st1.u, st0.u)
     assert ("ALTRO SOLVE FINISHED" in capsys.readouterr().out) == ("verbose" in kw)
 

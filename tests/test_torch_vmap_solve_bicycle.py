@@ -180,30 +180,39 @@ def test_armijo_only_vmapped_solve_equals_solve_tiled():
     assert bool(torch.isnan(s_v.dphi[stepped]).all())
 
 
-@pytest.mark.parametrize("change, name", [
-    (dict(ls_grid_x_only=False), "ls_grid_x_only"),
-    (dict(rti_mode=True, parallel_linesearch=False, ls_grid_x_only=False), "ls_grid_x_only"),
-    (dict(parallel_riccati=True, pallas_backward=False), "parallel_riccati"),
-    (dict(exact_al_hessian=True), None),
-    (dict(iteration_callback=print), "iteration_callback"),
-    (dict(verbose=Verbosity.INNER), "verbose"),
+@pytest.mark.parametrize("change, name, base", [
+    (dict(ls_grid_x_only=False), None, {}),
+    (dict(rti_mode=True, parallel_linesearch=False, ls_grid_x_only=False), None,
+     dict(rti_mode=True, parallel_linesearch=False)),
+    (dict(parallel_riccati=True, pallas_backward=False), "parallel_riccati", None),
+    (dict(exact_al_hessian=True), None, {}),
+    (dict(iteration_callback=print), None, {}),
+    (dict(verbose=Verbosity.INNER), None, {}),
 ])
-def test_vmap_solve_refuses_unported_options(change, name):
-    """Options the vmapped solve does not port are refused by name;
-    exact_al_hessian (name None), refused until the obstacle row's slice
-    ported it, runs: on the affine steering bound it equals the
-    Gauss-Newton solve lane for lane (the dense backward is on in OPTS)."""
+def test_vmap_solve_refuses_unported_options(change, name, base, capsys):
+    """Options the vmapped solve does not port are refused by name
+    (parallel_riccati). The others run: exact_al_hessian (ported with the
+    obstacle row) on the affine steering bound equals the Gauss-Newton
+    solve lane for lane (the dense backward is on in OPTS), and
+    iteration_callback and verbose (ported with the per-lane slice) leave
+    the solve as it was; the light-payload grid (ls_grid_x_only=False, in
+    the grid and in the RTI step) takes the x-only route's iterates, to
+    roundoff."""
     prob, st = _port_start()
-    if name is None:
-        p, xt = _tick_problem(prob, 0, None), torch.as_tensor(_x_true0())
-        st1, s1 = vmap_solve(p, OPTS.replace(**change))(xt, st)
-        st0, s0 = vmap_solve(p, OPTS)(xt, st)
-        for f in ("status", "iterations", "ls_iterations"):
-            assert torch.equal(getattr(s1, f), getattr(s0, f)), f
-        assert torch.equal(st1.x, st0.x) and torch.equal(st1.u, st0.u)
+    if name is not None:
+        with pytest.raises(NotImplementedError, match=name):
+            vmap_solve(prob, OPTS.replace(**change))
         return
-    with pytest.raises(NotImplementedError, match=name):
-        vmap_solve(prob, OPTS.replace(**change))
+    p, xt = _tick_problem(prob, 0, None), torch.as_tensor(_x_true0())
+    st1, s1 = vmap_solve(p, OPTS.replace(**change))(xt, st)
+    st0, s0 = vmap_solve(p, OPTS.replace(**base))(xt, st)
+    for f in ("status", "iterations", "ls_iterations"):
+        assert torch.equal(getattr(s1, f), getattr(s0, f)), f
+    if "ls_grid_x_only" in change:
+        np.testing.assert_allclose(st1.x.numpy(), st0.x.numpy(), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(st1.u.numpy(), st0.u.numpy(), rtol=0, atol=1e-12)
+        return
+    assert torch.equal(st1.x, st0.x) and torch.equal(st1.u, st0.u)
 
 
 @pytest.mark.parametrize("change", [dict(parallel_riccati=True), dict(symmetrize_ctg=True)])

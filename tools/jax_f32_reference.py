@@ -7,10 +7,13 @@
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --single-lane-rows
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --facade
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --quadrotor-vmapped [--ticks T] [--lanes B]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --quadrotor-latency [--ticks T]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --obstacle [--ticks T] [--lanes B]
         [--start S] [--hessian both|gauss_newton|exact]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --obstacle-loop
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --obstacle-loop-draws K
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --tracking-tiled [--lanes B] [--ticks T]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --single-lane-options
 
 Runs altro_tpu (the reference package, not the port) in float32 on the
 CPU: the three double integrator oracles of
@@ -79,6 +82,8 @@ the batched tracking's sequential-backtracking ticks): success rate,
 final waypoint distance and mean iterations at a cut depth, what
 chip_smoke.py's `quadrotor_mpc` gates rest on. Each lane's iterates do
 not depend on the others, so B=256 gives the first 256 lanes of B=1024.
+With --quadrotor-latency it runs the single-lane latency row of --quadrotor
+alone, T ticks (`--ticks`, default 100).
 
 With --facade it runs altro_tpu's `ALTROSolver` in float32 and float64:
 examples/pendulum_swingup.py's solve (status, iterations, objective,
@@ -119,6 +124,28 @@ the Gauss-Newton Hessian) from K starts moved 1e-6 N(0, 1) off ref.x[0]
 (the first unmoved), in JAX and in the port's plain loop on the CPU: the
 spread of its success rate under roundoff-sized changes, what the
 `obstacle_loop` success floor rests on.
+
+With --tracking-tiled it runs the port's `tracking_tiled_mpc` row through
+altro_tpu's own `solve_tiled` with the failed-lane rescue in float32: B
+bicycle lanes (default 1024), each tracking the Scotty path from its own
+knot s_b (numpy default_rng(11) over knots 0 .. 400; the plant at
+ref.x[s_b] + 0.05 N(0, 1), default_rng(12)), q and c per lane through
+`prob_axes`, sliding with each lane's window, the bench's options and
+rescue, the batched backward in interpret mode and the scan grid, 20
+ticks (`--ticks`): success rate, mean iterations and mean tracking error
+(|x - ref.x[s_b + t + 1]|), what chip_smoke.py's `tracking_tiled_mpc`
+gates rest on; then its first 5 ticks of 256 lanes in float32 against
+float64 through jax.vmap(solve) with the rescue (JAX's tiled kernels take
+float32 only): status agreement, the largest plant-state difference and
+the share of lanes within 1e-3.
+
+With --single-lane-options it runs the Scotty window of scripts/
+bench_all.py (`bicycle_scotty_window_N30`, its problem, warm start and
+options) under the single-lane options the port's `single_lane_options`
+phase drives: `rti_mode` (the phase-split x-only full step), the
+light-payload grid (`ls_grid_x_only=False`) and `pallas_backward`, each
+in float32 and float64: status, iterations, ls_iterations and x_N, what
+that phase's gates rest on.
 """
 
 from __future__ import annotations
@@ -304,6 +331,17 @@ def quadrotor_vmapped_row(lanes, ticks=100, switch_every=25, N=30):
                          np.asarray(x), time.perf_counter() - t0)), flush=True)
 
 
+def _quadrotor_tiled_opts():
+    """The tiled row's options (bench_all.py:371-398, tiled branch), the scan grid."""
+    return SolverOptions(
+        iterations_max=15, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+        throw_errors=False, rti_mode=False, use_backtracking_linesearch=True,
+        parallel_linesearch=True, ls_phase_split=True, ls_try_cubic_first=False,
+        ls_max_iters=8, penalty_warm_start=True, ls_armijo_only=True,
+        tol_stationarity_rel=1e-5, pallas_backward=True, pallas_rollout_tiled=False,
+        ls_armijo_slack=1e-6)
+
+
 def quadrotor_rows(lanes, ticks=100, switch_every=25, N=30):
     """The two quadrotor rows (scripts/bench_all.py:322-564) in float32."""
     from altro_tpu import tile_solver as tsv
@@ -312,36 +350,11 @@ def quadrotor_rows(lanes, ticks=100, switch_every=25, N=30):
 
     problem, dyn, q_wp, c_wp, wp_idx, x0, row = _quadrotor_setup(lanes, ticks, switch_every, N)
     n, m = problem.n, problem.m
-    # the tiled row's options (bench_all.py:371-398, tiled branch), the scan grid
-    qopts = SolverOptions(
-        iterations_max=15, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
-        throw_errors=False, rti_mode=False, use_backtracking_linesearch=True,
-        parallel_linesearch=True, ls_phase_split=True, ls_try_cubic_first=False,
-        ls_max_iters=8, penalty_warm_start=True, ls_armijo_only=True,
-        tol_stationarity_rel=1e-5, pallas_backward=True, pallas_rollout_tiled=False,
-        ls_armijo_slack=1e-6)
+    qopts = _quadrotor_tiled_opts()
 
     import time
 
-    # single-lane latency row (bench_all.py:514-564) on lane 0
-    lopts = dataclasses.replace(qopts, pallas_backward=False, ls_armijo_only=True,
-                                pallas_latency_backward=True)
-    run = jax.jit(solve, static_argnames=("opts",))
-    st = dataclasses.replace(init_state(problem), u=jnp.full((N, m), QUAD_HOVER, F32))
-    x = jnp.asarray(x0[0])
-    iters, statuses = [], []
-    t0 = time.perf_counter()
-    for t in range(ticks):
-        w = wp_idx[t]
-        prob = dataclasses.replace(problem, x0=x, cost=dataclasses.replace(
-            problem.cost, q=q_wp[w], c=c_wp[w]))
-        st, stats = run(prob, st, lopts)
-        x = dyn(x, st.u[0], jnp.asarray(0.05, F32), 0)
-        st = shift_trajectory(st)
-        iters.append(int(stats.iterations))
-        statuses.append(int(stats.status))
-    print(json.dumps(row("quadrotor_latency_B1", iters, statuses, np.asarray(x)[None],
-                         time.perf_counter() - t0)), flush=True)
+    quadrotor_latency_row(ticks, switch_every, N, qopts)
 
     # tiled waypoint MPC (bench_all.py:433-472)
     tsv._FORCE_INTERPRET = True  # the Pallas backward off the TPU; the grid is the scan
@@ -371,6 +384,35 @@ def quadrotor_rows(lanes, ticks=100, switch_every=25, N=30):
         statuses.append(np.asarray(stat).reshape(-1))
     print(json.dumps(row("quadrotor_waypoint_mpc_B1024_tiled", np.stack(iters),
                          np.stack(statuses), tsv.tiles_to_batch(x_t),
+                         time.perf_counter() - t0)), flush=True)
+
+
+def quadrotor_latency_row(ticks=100, switch_every=25, N=30, qopts=None):
+    """The single-lane quadrotor latency row (bench_all.py:514-564) on lane
+    0 of the port's starts, in float32, `ticks` ticks."""
+    import time
+
+    problem, dyn, q_wp, c_wp, wp_idx, x0, row = _quadrotor_setup(1, ticks, switch_every, N)
+    m = problem.m
+    if qopts is None:
+        qopts = _quadrotor_tiled_opts()
+    lopts = dataclasses.replace(qopts, pallas_backward=False, ls_armijo_only=True,
+                                pallas_latency_backward=True)
+    run = jax.jit(solve, static_argnames=("opts",))
+    st = dataclasses.replace(init_state(problem), u=jnp.full((N, m), QUAD_HOVER, F32))
+    x = jnp.asarray(x0[0])
+    iters, statuses = [], []
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        w = wp_idx[t]
+        prob = dataclasses.replace(problem, x0=x, cost=dataclasses.replace(
+            problem.cost, q=q_wp[w], c=c_wp[w]))
+        st, stats = run(prob, st, lopts)
+        x = dyn(x, st.u[0], jnp.asarray(0.05, F32), 0)
+        st = shift_trajectory(st)
+        iters.append(int(stats.iterations))
+        statuses.append(int(stats.status))
+    print(json.dumps(row("quadrotor_latency_B1", iters, statuses, np.asarray(x)[None],
                          time.perf_counter() - t0)), flush=True)
 
 
@@ -1056,6 +1098,169 @@ def obstacle_loop_draws(draws, scale=1e-6):
         print(json.dumps(row), flush=True)
 
 
+def _tracking_tiled_opts(rescue):
+    """bench.py's options (:198-215, the phase-split x-only Armijo-only grid
+    of width 8, one block) and its rescue (R=10), the scan grid."""
+    from altro_tpu.rescue import rescue_options
+
+    opts = SolverOptions(
+        iterations_max=10, use_backtracking_linesearch=True, tol_stationarity=1e-3,
+        tol_primal_feasibility=1e-3, throw_errors=False, penalty_warm_start=True,
+        penalty_warm_start_decay=1.0, parallel_linesearch=True, ls_phase_split=True,
+        ls_try_cubic_first=False, ls_parallel_width=8, ls_max_iters=8, ls_armijo_slack=0.0,
+        ls_failure_recovery=False, ls_recovery_max_fails=2, ls_best_decrease_fallback=True,
+        ls_armijo_only=True, ls_grid_x_only=True, pallas_rollout_tiled=False)
+    return (opts, rescue_options(opts, iterations_max=10, recovery_max_fails=0)) if rescue \
+        else opts
+
+
+def _tracking_tiled_setup(lanes, ticks, dt, N=30):
+    """The row's problem (the bench's), each lane's start, plant states and
+    sliding (q, c) [T+1, B, N+1, ...] (mpc.tracking_tiled_windows)."""
+    ref = load_scotty()
+    dm = 60 * np.pi / 180.0
+    problem = Problem(
+        N=N, n=4, m=2, dynamics=midpoint(bicycle_continuous()), dynamics_jac=None,
+        constraints=(ConstraintSpec(fn=lambda x, u, k: jnp.stack([x[3] - dm, -dm - x[3]]),
+                                    cone=Cone.NEGATIVE_ORTHANT, dim=2,
+                                    active=jnp.ones(N + 1, bool), diag_hessian=True,
+                                    affine=True),),
+        cost=lqr_cost_from_reference(jnp.full((N + 1, 4), 1e-2, dt),
+                                     jnp.full((N + 1, 2), 1e-3, dt),
+                                     jnp.asarray(ref.x[: N + 1], dt),
+                                     jnp.asarray(ref.u[: N + 1], dt)),
+        h=jnp.full(N, float(np.float32(ref.tf / ref.N)), dt), x0=jnp.asarray(ref.x[0], dt))
+    starts = np.random.default_rng(11).integers(0, 401, size=1024)[:lanes]
+    x0 = (np.asarray(ref.x)[starts]
+          + 0.05 * np.random.default_rng(12).standard_normal((1024, 4))[:lanes])
+    idx = starts[:, None, None] + np.arange(ticks + 1)[None, :, None] + np.arange(N + 1)
+    xw = np.moveaxis(np.asarray(ref.x)[idx], 0, 1)  # [T+1, B, N+1, 4]
+    Qd = np.full(4, 1e-2)
+    qs = -(Qd * xw)
+    cs = 0.5 * np.sum(Qd * xw * xw, axis=-1)
+    cs[:, :, :N] += 0.5 * float(ref.u[0] @ (np.full(2, 1e-3) * ref.u[0]))
+    u0 = np.zeros((lanes, N, 2))
+    u0[:, :, 0] = np.asarray(ref.u)[starts, 0][:, None]
+    return problem, ref, starts, x0, xw, qs, cs, u0
+
+
+def tracking_tiled_row(lanes, ticks=20, ref_lanes=256, ref_ticks=5):
+    """The port's tracking_tiled_mpc row through JAX's solve_tiled with the
+    rescue, q and c per lane through prob_axes, in float32; then f32 against
+    f64 over its first ticks through jax.vmap(solve)."""
+    from altro_tpu import tile_solver as tsv
+    from altro_tpu.ops.tile_iter import tile_vmap
+    from altro_tpu.parallel.batch import batch_init_state
+    from altro_tpu.rescue import solve_tiled_with_rescue
+
+    jax.config.update("jax_enable_x64", True)  # the f64 run; every f32 array is typed
+    problem, ref, starts, x0, xw, qs, cs, u0 = _tracking_tiled_setup(lanes, ticks, F32)
+    N = problem.N
+    opts, opts_r = _tracking_tiled_opts(True)
+    tsv._FORCE_INTERPRET = True  # the Pallas backward off the TPU; the grid is the scan
+    axes = dataclasses.replace(
+        problem, cost=dataclasses.replace(problem.cost, Q=False, R=False, q=True, r=False,
+                                          c=True),
+        h=False, x0=True, A=False, B=False, f_aff=False,
+        constraints=tuple(dataclasses.replace(s, active=False) for s in problem.constraints))
+    h = jnp.asarray(problem.h[0], F32)
+    plant = tile_vmap(lambda xk, uk: problem.dynamics(xk, uk, h, 0), (True, True))
+
+    @jax.jit
+    def tick(x_t, st_t, q_t, c_t):
+        prob = dataclasses.replace(problem, x0=x_t,
+                                   cost=dataclasses.replace(problem.cost, q=q_t, c=c_t))
+        st_t, stats = solve_tiled_with_rescue(prob, axes, st_t, opts, opts_r)
+        return plant(x_t, st_t.u[:, 0]), tsv.shift_trajectory_tiled(st_t), stats
+
+    st_t = tsv.state_to_tiles(dataclasses.replace(
+        batch_init_state(problem, lanes), u=jnp.asarray(u0, F32),
+        x=jnp.asarray(xw[0], F32)))
+    x_t = tsv.batch_to_tiles(jnp.asarray(x0, F32))
+    iters, statuses, errs = [], [], []
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        x_t, st_t, stats = tick(x_t, st_t, tsv.batch_to_tiles(jnp.asarray(qs[t], F32)),
+                                tsv.batch_to_tiles(jnp.asarray(cs[t], F32)))
+        iters.append(np.asarray(tsv.tiles_to_batch(stats.iterations)).reshape(-1))
+        statuses.append(np.asarray(tsv.tiles_to_batch(stats.status)).reshape(-1))
+        x = np.asarray(tsv.tiles_to_batch(x_t), np.float64)
+        errs.append(np.linalg.norm(x - xw[t + 1, :, 0], axis=1))
+    status, it = np.stack(statuses), np.stack(iters)
+    print(json.dumps({
+        "row": "tracking_tiled_mpc", "lanes": lanes, "ticks": ticks,
+        "success_rate": float(np.mean(status == 0)),
+        "statuses": {str(k): int(v) for k, v in zip(*np.unique(status, return_counts=True))},
+        "mean_iterations": float(it.mean()), "max_iterations": int(it.max()),
+        "mean_tracking_error": float(np.mean(errs)),
+        "cpu_seconds_with_compile": time.perf_counter() - t0}), flush=True)
+
+    def vmapped(dt):
+        prob, _, _, x0r, xwr, qsr, csr, u0r = _tracking_tiled_setup(ref_lanes, ref_ticks, dt)
+        o, o_r = _tracking_tiled_opts(True)
+
+        @jax.jit
+        def tick(x, st, q, c):
+            def solve_all(s, op):
+                return jax.vmap(lambda x0_, s_, q_, c_: solve(dataclasses.replace(
+                    prob, x0=x0_, cost=dataclasses.replace(prob.cost, q=q_, c=c_)), s_, op))(
+                    x, s, q, c)
+
+            st1, stats1 = solve_all(st, o)
+            failed = stats1.status != 0
+            st2, stats2 = solve_all(st1, o_r)
+            pick = lambda a, b: jnp.where(failed.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+            st = jax.tree.map(pick, st2, st1)
+            status = jnp.where(failed, stats2.status, stats1.status)
+            u0_ = st.u[:, 0]
+            x = jax.vmap(lambda xi, ui: prob.dynamics(xi, ui, prob.h[0], 0))(x, u0_)
+            return x, jax.vmap(shift_trajectory)(st), status
+
+        st = dataclasses.replace(batch_init_state(prob, ref_lanes), u=jnp.asarray(u0r, dt),
+                                 x=jnp.asarray(xwr[0], dt))
+        x = jnp.asarray(x0r, dt)
+        xs, sts = [], []
+        for t in range(ref_ticks):
+            x, st, stat = tick(x, st, jnp.asarray(qsr[t], dt), jnp.asarray(csr[t], dt))
+            xs.append(np.asarray(x, np.float64))
+            sts.append(np.asarray(stat))
+        return np.stack(xs), np.stack(sts)
+
+    x32, s32 = vmapped(F32)
+    x64, s64 = vmapped(jnp.float64)
+    dx = np.abs(x32 - x64).max(axis=(0, 2))
+    print(json.dumps({
+        "row": "tracking_tiled_mpc_f32_vs_f64", "lanes": ref_lanes, "ticks": ref_ticks,
+        "status_agreement": float(np.mean(s32 == s64)), "max_state_diff": float(dx.max()),
+        "lanes_within_1e-3": float(np.mean(dx <= 1e-3))}), flush=True)
+
+
+SINGLE_LANE_OPTIONS = {  # variant: overrides of the Scotty window row's options
+    "rti_mode": dict(rti_mode=True, ls_phase_split=True, ls_grid_x_only=True),
+    "light_grid": dict(parallel_linesearch=True, ls_phase_split=True, ls_grid_x_only=False,
+                       ls_try_cubic_first=False, ls_armijo_only=True, ls_max_iters=24),
+    "pallas_backward": dict(pallas_backward=True),
+}
+
+
+def single_lane_options():
+    """The Scotty window row under rti_mode, the light-payload grid and
+    pallas_backward, in float32 and float64 (see the module docstring)."""
+    jax.config.update("jax_enable_x64", True)  # the f64 runs; every f32 array is typed
+    for variant, kw in SINGLE_LANE_OPTIONS.items():
+        row = {"row": "bicycle_scotty_window_N30", "variant": variant, "options": kw}
+        for dt, tag in ((F32, "f32"), (jnp.float64, "f64")):
+            problem, state, opts = _single_lane_problems(dt)["bicycle_scotty_window_N30"]
+            opts = dataclasses.replace(opts, **kw)
+            st, stats = jax.block_until_ready(jax.jit(lambda s: solve(problem, s, opts))(state))
+            row[tag] = {"status": int(stats.status), "iterations": int(stats.iterations),
+                        "ls_iterations": int(stats.ls_iterations),
+                        "x_N": np.asarray(st.x[-1], np.float64).tolist()}
+        row["x_N_f32_vs_f64"] = float(np.abs(np.asarray(row["f32"]["x_N"])
+                                             - np.asarray(row["f64"]["x_N"])).max())
+        print(json.dumps(row), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tol-stationarity", type=float, default=1e-4)
@@ -1068,6 +1273,8 @@ def main():
                     help="run examples/batched_mpc.py's loop under three searches")
     ap.add_argument("--single-lane-rows", action="store_true",
                     help="run the rocket, the cart-pole and the single-lane BASELINE rows")
+    ap.add_argument("--quadrotor-latency", action="store_true",
+                    help="run the single-lane quadrotor latency row alone (--ticks, default 100)")
     ap.add_argument("--quadrotor-vmapped", action="store_true",
                     help="run the vmapped quadrotor waypoint row through jax.vmap(solve)")
     ap.add_argument("--ticks", type=int, default=None,
@@ -1087,6 +1294,12 @@ def main():
     ap.add_argument("--obstacle-loop-draws", type=int, default=0,
                     help="run that loop in float32 from this many starts 1e-6 apart (JAX's "
                          "and the port's plain loop on the CPU)")
+    ap.add_argument("--tracking-tiled", action="store_true",
+                    help="run the tracking_tiled_mpc row through JAX's solve_tiled with q and c "
+                         "per lane")
+    ap.add_argument("--single-lane-options", action="store_true",
+                    help="run the Scotty window row under rti_mode, the light-payload grid and "
+                         "pallas_backward")
     ap.add_argument("--lanes", type=int, default=1024,
                     help="lanes of the batched rows (the tiled quadrotor row: a multiple "
                          "of 1024)")
@@ -1101,6 +1314,8 @@ def main():
         batched_tracking_rows(args.lanes, ticks=args.ticks)
     if args.quadrotor_vmapped:
         quadrotor_vmapped_row(args.lanes, ticks=args.ticks or 100)
+    if args.quadrotor_latency:
+        quadrotor_latency_row(ticks=args.ticks or 100)
     if args.single_lane_rows:
         single_lane_rows()
     if args.facade:
@@ -1112,9 +1327,14 @@ def main():
         obstacle_loops()
     if args.obstacle_loop_draws:
         obstacle_loop_draws(args.obstacle_loop_draws)
+    if args.tracking_tiled:
+        tracking_tiled_row(args.lanes, ticks=args.ticks or 20)
+    if args.single_lane_options:
+        single_lane_options()
     if (args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
             or args.single_lane_rows or args.facade or args.quadrotor_vmapped or args.obstacle
-            or args.obstacle_loop or args.obstacle_loop_draws):
+            or args.obstacle_loop or args.obstacle_loop_draws or args.tracking_tiled
+            or args.single_lane_options or args.quadrotor_latency):
         return
     tol = args.tol_stationarity
     for case, x0, kinds, kw in (
