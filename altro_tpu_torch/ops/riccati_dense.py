@@ -24,6 +24,8 @@ that module's docstring for the equations and the failure contract).
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from altro_tpu_torch.ops.riccati_backward import (
@@ -34,12 +36,14 @@ from altro_tpu_torch.ops.riccati_backward import (
 )
 from altro_tpu_torch.tvlqr import TVLQRGains
 
-__all__ = ["LAUNCHES", "KERNEL_SHAPES", "riccati_backward_dense",
+__all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "KERNEL_SHAPES", "riccati_backward_dense",
            "riccati_backward_batch_major"]
 
 # Count of this wrapper's kernel launches (plain integer; the CPU path
 # never adds to it).
 LAUNCHES = 0
+# The same launches by instantiation, (n, m, lux, f) -> count.
+VARIANT_LAUNCHES = collections.Counter()
 
 
 def riccati_backward_dense(A, B, f, lxx, luu, lux, lx, lu, reg) -> Gains:
@@ -56,6 +60,7 @@ def riccati_backward_dense(A, B, f, lxx, luu, lux, lx, lu, reg) -> Gains:
         return riccati_backward_ref(A, B, lxx, luu, lx, lu, reg, lux=lux, f=f)
     g = launch_kernel("riccati_dense", A, B, f, lxx, luu, lux, lx, lu, reg, False)
     LAUNCHES += 1
+    VARIANT_LAUNCHES[(A.shape[1], B.shape[2], lux is not None, f is not None)] += 1
     return g
 
 

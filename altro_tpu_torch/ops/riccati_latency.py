@@ -23,16 +23,21 @@ here.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from altro_tpu_torch.ops import _build
 from altro_tpu_torch.ops.riccati_backward import riccati_backward_ref
 from altro_tpu_torch.tvlqr import TVLQRGains
 
-__all__ = ["LAUNCHES", "KERNEL_SHAPES", "riccati_latency_ref", "output_views", "riccati_latency"]
+__all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "KERNEL_SHAPES", "riccati_latency_ref",
+           "output_views", "riccati_latency"]
 
 # Count of kernel launches (plain integer; the CPU path never adds to it).
 LAUNCHES = 0
+# The same launches by instantiation, (n, m, diag_x, diag_u, lux, f) -> count.
+VARIANT_LAUNCHES = collections.Counter()
 
 # (n, m) pairs the CUDA kernel is instantiated for (csrc/riccati_latency.cu's
 # entry guard and dispatch): the bicycle and double integrator, the
@@ -119,4 +124,5 @@ def riccati_latency(A, B, lxx, luu, lx, lu, reg=0.0, lux=None, f=None,
         N, n, m, int(diag_x), int(diag_u), torch.cuda.current_stream(A.device).cuda_stream)
     _build.check(err, "riccati_latency_f32")
     LAUNCHES += 1
+    VARIANT_LAUNCHES[(n, m, diag_x, diag_u, lux is not None, f is not None)] += 1
     return g

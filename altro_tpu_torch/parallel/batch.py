@@ -28,7 +28,8 @@ from altro_tpu_torch.solver import (
     init_state,
 )
 
-__all__ = ["batch_init_state", "solve_lanes", "vmap_solve", "batched_tracking_solver"]
+__all__ = ["batch_init_state", "solve_lanes", "vmap_solve", "batched_tracking_solver",
+           "check_options"]
 
 
 def batch_init_state(problem: Problem, batch: int) -> SolverState:
@@ -37,7 +38,7 @@ def batch_init_state(problem: Problem, batch: int) -> SolverState:
     return s.map(lambda a: a.expand((batch,) + a.shape).contiguous())
 
 
-def _check(who: str, opts: SolverOptions) -> None:
+def check_options(who: str, opts: SolverOptions) -> None:
     """JAX's option errors (ValueError), then what the port does not run
     (NotImplementedError naming the option)."""
     check_pallas_backward(opts)
@@ -59,7 +60,7 @@ def solve_lanes(problem: Problem, state: SolverState, opts: SolverOptions = Solv
     lane-minor; returns (state lane-minor, stats [B]). Closed loops call
     this to keep their lanes lane-minor across ticks. layer_seconds: a
     dict that gains host seconds by layer (`tile_solver.lane_loop`)."""
-    _check("solve_lanes", opts)
+    check_options("solve_lanes", opts)
     tsv.refuse_on_card("solve_lanes", problem, opts, vmapped=True)
     return tsv.lane_loop(problem, state, opts, vmapped=True, trace=Trace(layer_seconds))
 
@@ -85,7 +86,7 @@ def vmap_solve(problem: Problem, opts: SolverOptions = SolverOptions()):
     problem the dense kernel cannot take raises with its reason
     (`tile_solver.kernel_refusal`) when called, before anything runs.
     """
-    _check("vmap_solve", opts)
+    check_options("vmap_solve", opts)
 
     def run(x0, state: SolverState):
         tsv.refuse_on_card("vmap_solve", dataclasses.replace(problem, x0=x0), opts, vmapped=True)
@@ -114,7 +115,7 @@ def batched_tracking_solver(problem: Problem, opts: SolverOptions = SolverOption
     """
     if not isinstance(problem.cost, DiagonalCost):
         raise TypeError("batched_tracking_solver requires a DiagonalCost")
-    _check("batched_tracking_solver", opts)
+    check_options("batched_tracking_solver", opts)
 
     def run(x0, q, c, state: SolverState):
         tsv.refuse_on_card("batched_tracking_solver", dataclasses.replace(problem, x0=x0), opts,

@@ -1,10 +1,11 @@
 """Problem definition: costs, constraints, dynamics (PyTorch port).
 
-Counterpart: altro_tpu/problem.py (`Problem`, `DiagonalCost`,
+Counterpart: altro_tpu/problem.py (`Problem`, `Cost`, `DiagonalCost`,
 `ConstraintSpec`, `lqr_cost_from_reference`, `Problem.dyn_step`,
-`Problem.dyn_expansion`, `Problem.linear_dynamics`): the diagonal,
-quadratic and generic costs, nonlinear dynamics and linear dynamics
-arrays (A, B, f_aff).
+`Problem.dyn_expansion`, `Problem.linear_dynamics`, and the pytree
+registration, whose data leaves are `problem_leaves` /
+`problem_with_leaves` here): the diagonal, quadratic and generic costs,
+nonlinear dynamics and linear dynamics arrays (A, B, f_aff).
 
 Conventions of the port:
 
@@ -34,6 +35,7 @@ import torch
 from altro_tpu_torch.cones import Cone
 
 __all__ = [
+    "Cost",
     "DiagonalCost",
     "QuadraticCost",
     "GenericCost",
@@ -41,6 +43,8 @@ __all__ = [
     "Problem",
     "lqr_cost_from_reference",
     "lane_jacobian",
+    "problem_leaves",
+    "problem_with_leaves",
 ]
 
 
@@ -109,8 +113,33 @@ def _diag_rows(rows, B):
 # ---------------------------------------------------------------------------
 
 
+class Cost:
+    """Cost interface over knot stacks (lane-minor, see the module
+    docstring): stage knots (k < N) have state and input terms, the
+    terminal knot is state-only. A dataclass cost's floating-point tensor
+    fields are its data leaves (`problem_leaves`)."""
+
+    def stage_value(self, ks, x, u):
+        raise NotImplementedError
+
+    def term_value(self, x):
+        raise NotImplementedError
+
+    def stage_grad(self, ks, x, u):
+        raise NotImplementedError
+
+    def term_grad(self, x):
+        raise NotImplementedError
+
+    def stage_hess(self, ks, x, u):
+        raise NotImplementedError
+
+    def term_hess(self, x):
+        raise NotImplementedError
+
+
 @dataclasses.dataclass(frozen=True)
-class DiagonalCost:
+class DiagonalCost(Cost):
     """0.5 x'diag(Q)x + q'x + 0.5 u'diag(R)u + r'u + c, stacked over knots.
 
     Q, q: [N+1, n];  R, r: [N+1, m] (row N unused);  c: [N+1]. On
@@ -191,7 +220,7 @@ def _lanes_of(M, B):
 
 
 @dataclasses.dataclass(frozen=True)
-class QuadraticCost:
+class QuadraticCost(Cost):
     """0.5 x'Qx + q'x + 0.5 u'Ru + r'u + u'Hx + c, stacked over knots.
 
     Q: [N+1, n, n];  R: [N+1, m, m];  H: [N+1, m, n];  q, r, c as in
@@ -243,7 +272,7 @@ class QuadraticCost:
 
 
 @dataclasses.dataclass(frozen=True)
-class GenericCost:
+class GenericCost(Cost):
     """User cost callables: `stage(x, u, k)` and `term(x)`, each on
     component-first tensors with trailing batch dims (`x [n, *batch]`,
     `u [m, *batch]`, k an int or an integer tensor broadcasting against
@@ -458,3 +487,46 @@ class Problem:
             torch.zeros((self.N + 1, spec.dim), dtype=self.dtype, device=self.device)
             for spec in self.constraints
         )
+
+
+# ---------------------------------------------------------------------------
+# Data leaves
+# ---------------------------------------------------------------------------
+
+
+def _is_float(t) -> bool:
+    return torch.is_tensor(t) and t.is_floating_point()
+
+
+def _cost_leaf_names(cost) -> Tuple[str, ...]:
+    if not dataclasses.is_dataclass(cost):
+        return ()
+    return tuple(f.name for f in dataclasses.fields(cost) if _is_float(getattr(cost, f.name)))
+
+
+def problem_leaves(problem: Problem) -> Tuple[Tuple[str, torch.Tensor], ...]:
+    """The problem's floating-point data leaves as (name, tensor) pairs, in
+    the order of JAX's `tree_flatten` of a `Problem`: the cost's arrays in
+    field order (DiagonalCost Q, R, q, r, c; QuadraticCost Q, R, H, q, r,
+    c; none for GenericCost), then h, x0 and, when present, A, B, f_aff.
+    The constraints' `active` masks are not floats and carry no gradient
+    (JAX's float0 leaves): they stay with the problem."""
+    leaves = [(f"cost.{name}", getattr(problem.cost, name))
+              for name in _cost_leaf_names(problem.cost)]
+    leaves += [("h", problem.h), ("x0", problem.x0)]
+    leaves += [(name, getattr(problem, name)) for name in ("A", "B", "f_aff")
+               if getattr(problem, name) is not None]
+    return tuple(leaves)
+
+
+def problem_with_leaves(problem: Problem, leaves) -> Problem:
+    """The problem with its data leaves replaced, in `problem_leaves`'
+    order (the counterpart of JAX's `tree_unflatten`)."""
+    names = [name for name, _ in problem_leaves(problem)]
+    if len(leaves) != len(names):
+        raise ValueError(f"problem_with_leaves: {len(leaves)} leaves for {len(names)}")
+    new = dict(zip(names, leaves))
+    cost_kw = {name[5:]: t for name, t in new.items() if name.startswith("cost.")}
+    cost = dataclasses.replace(problem.cost, **cost_kw) if cost_kw else problem.cost
+    return dataclasses.replace(problem, cost=cost, **{
+        name: t for name, t in new.items() if not name.startswith("cost.")})

@@ -11,6 +11,14 @@ double_integrator_test.cpp), tests/test_pendulum.py (`make_problem`,
 orthant row and touchdown equality the SOC rows of scripts/bench_all.py
 solve. The Scotty MPC problem is `mpc.scotty_reference_problem`.
 
+The differentiable solve's and the vmapped rescue's oracles have theirs
+here too: tests/test_diff.py's problems (`_di_problem`,
+`_pendulum_problem` with its `rebuilt`, the control-bounded `build`) as
+functions of the data their gradients are taken in (`diff_di_problem`,
+`diff_pendulum_problem`, `diff_bounded_problem`), and tests/
+test_rescue.py's (`_problem`, `_batch`, `OPTS`: `rescue_pendulum_problem`,
+`rescue_pendulum_batch`, `rescue_pendulum_options`).
+
 The single-lane rows of scripts/bench_all.py and the JAX package's
 cart-pole oracle have theirs here too: `cartpole_swingup_problem`
 (tests/test_models_extra.py::test_cartpole_swing_up),
@@ -37,6 +45,7 @@ from altro_tpu_torch.models.double_integrator import double_integrator_dynamics
 from altro_tpu_torch.models.integrators import midpoint, rk4
 from altro_tpu_torch.models.pendulum import pendulum_continuous
 from altro_tpu_torch.models.rocket import GRAVITY, rocket_continuous
+from altro_tpu_torch.options import SolverOptions
 from altro_tpu_torch.problem import (
     ConstraintSpec,
     DiagonalCost,
@@ -57,6 +66,14 @@ __all__ = [
     "cartpole_swingup_problem",
     "double_integrator_goal_problem",
     "pendulum_bounded_problem",
+    "DIFF_TIGHT",
+    "diff_di_start",
+    "diff_di_problem",
+    "diff_pendulum_problem",
+    "diff_bounded_problem",
+    "rescue_pendulum_problem",
+    "rescue_pendulum_batch",
+    "rescue_pendulum_options",
 ]
 
 DI_N, DI_DIM, DI_H = 10, 2, 0.5  # tf = 5
@@ -239,3 +256,104 @@ def pendulum_bounded_problem(N: int = 50, u_bound: float = 8.0, *, dtype=torch.f
     problem = pendulum_problem(N, 3.0, (torque,), dtype=dtype, device=device)
     st = init_state(problem)
     return problem, dataclasses.replace(st, u=torch.full_like(st.u, 0.1))
+
+
+# tests/test_diff.py's options of its pendulum and control-bounded cases
+DIFF_TIGHT = dict(tol_stationarity=1e-9, tol_primal_feasibility=1e-9)
+_DIFF_N, _DIFF_H = 10, 0.1
+
+
+def diff_di_start(*, dtype=torch.float64, device="cuda"):
+    """(q[0], x0) of tests/test_diff.py's `_di_problem()`: (-1, -0.5, 0, 0)
+    and (1, 2, 0, 0)."""
+    kw = dict(dtype=dtype, device=device)
+    return torch.tensor([-1.0, -0.5, 0.0, 0.0], **kw), torch.tensor([1.0, 2.0, 0.0, 0.0], **kw)
+
+
+def diff_di_problem(q_row0, x0) -> Problem:
+    """tests/test_diff.py's `_di_problem` (the planar double integrator,
+    N=10, h=0.1, Q=(1, 1, 0.1, 0.1), R=1e-2, q=(-1, -0.5, 0, 0)) with q[0]
+    and x0 given: tensors on one device and dtype, so gradients flow into
+    them."""
+    N, n, m = _DIFF_N, 4, 2
+    kw = dict(dtype=x0.dtype, device=x0.device)
+    q_rest, _ = diff_di_start(**kw)
+    cost = DiagonalCost(Q=torch.tensor([1.0, 1.0, 0.1, 0.1], **kw).repeat(N + 1, 1),
+                        R=torch.full((N + 1, m), 1e-2, **kw),
+                        q=torch.cat([q_row0[None], q_rest.repeat(N, 1)]),
+                        r=torch.zeros((N + 1, m), **kw), c=torch.zeros(N + 1, **kw))
+    return Problem(N=N, n=n, m=m, dynamics=double_integrator_dynamics(), dynamics_jac=None,
+                   constraints=(), cost=cost, h=torch.full((N,), _DIFF_H, **kw), x0=x0)
+
+
+def diff_pendulum_problem(Qd) -> Problem:
+    """tests/test_diff.py's near-upright pendulum (`_pendulum_problem`,
+    N=20, h=0.05, terminal Q=(30, 30), R=0.1, goal (pi, 0), from
+    (pi - 0.4, 0.3)) with stage weights Qd [2] (its `rebuilt(Qd)`: q and c
+    of the goal cost follow Qd); on Qd's device and dtype."""
+    N, n, m = 20, 2, 1
+    kw = dict(dtype=Qd.dtype, device=Qd.device)
+    Q = torch.cat([Qd.expand(N, n), torch.tensor([[30.0, 30.0]], **kw)])
+    xg = torch.tensor([np.pi, 0.0], **kw)
+    cost = DiagonalCost(Q=Q, R=torch.full((N + 1, m), 1e-1, **kw), q=-Q * xg,
+                        r=torch.zeros((N + 1, m), **kw), c=0.5 * torch.sum(Q * xg * xg, dim=1))
+    return Problem(N=N, n=n, m=m, dynamics=midpoint(pendulum_continuous()), dynamics_jac=None,
+                   constraints=(), cost=cost, h=torch.full((N,), 0.05, **kw),
+                   x0=torch.tensor([np.pi - 0.4, 0.3], **kw))
+
+
+def diff_bounded_problem(q_row0, u_bnd: float = 0.5) -> Problem:
+    """tests/test_diff.py's control-bounded double integrator (`build`):
+    `diff_di_problem` from its x0 with |u| <= u_bnd at every stage knot."""
+    _, x0 = diff_di_start(dtype=q_row0.dtype, device=q_row0.device)
+    prob = diff_di_problem(q_row0, x0)
+    bound = ConstraintSpec(fn=lambda x, u, k: torch.cat([u - u_bnd, -u_bnd - u]),
+                           cone=Cone.NEGATIVE_ORTHANT, dim=4,
+                           active=_mask(prob.N, q_row0.device, terminal=False))
+    return dataclasses.replace(prob, constraints=(bound,))
+
+
+_RESCUE_N = 30
+
+
+def rescue_pendulum_problem(*, dtype=torch.float64, device="cuda") -> Problem:
+    """tests/test_rescue.py's `_problem()`: the pendulum swing-up (midpoint,
+    N=30, h=0.06) to (pi, 0) with |torque| <= 6 (affine rows on u)."""
+    N, n, m = _RESCUE_N, 2, 1
+    kw = dict(dtype=dtype, device=device)
+    Qd = torch.full((N + 1, n), 1e-1, **kw)
+    Qd[N] *= 100.0
+    torque = ConstraintSpec(fn=lambda x, u, k: torch.cat([u - 6.0, -6.0 - u]),
+                            cone=Cone.NEGATIVE_ORTHANT, dim=2,
+                            active=_mask(N, device, terminal=False), label="torque",
+                            diag_hessian=True, affine=True)
+    cost = lqr_cost_from_reference(Qd, torch.full((N + 1, m), 1e-3, **kw),
+                                   torch.tensor([np.pi, 0.0], **kw).repeat(N + 1, 1),
+                                   torch.zeros((N + 1, m), **kw))
+    return Problem(N=N, n=n, m=m, dynamics=midpoint(pendulum_continuous()), dynamics_jac=None,
+                   constraints=(torque,), cost=cost, h=torch.full((N,), 0.06, **kw),
+                   x0=torch.zeros(n, **kw))
+
+
+def rescue_pendulum_batch(problem: Problem, lanes: int = 8):
+    """tests/test_rescue.py's `_batch` at `lanes` lanes: (x0 [B, 2], state
+    [B, ...]), the first half at the upright equilibrium with zero torque
+    (converges at once), the second hanging with a poor guess (u = 0.1)."""
+    kw = dict(dtype=problem.dtype, device=problem.device)
+    half = lanes // 2
+    x0 = torch.cat([torch.tensor([np.pi, 0.0], **kw).expand(half, 2),
+                    torch.zeros((lanes - half, 2), **kw)])
+    st = init_state(problem)
+    u = torch.cat([torch.zeros((half,) + tuple(st.u.shape), **kw),
+                   torch.full((lanes - half,) + tuple(st.u.shape), 0.1, **kw)])
+    state = st.map(lambda a: a.expand((lanes,) + tuple(a.shape)).contiguous())
+    return x0, dataclasses.replace(state, u=u)
+
+
+def rescue_pendulum_options() -> SolverOptions:
+    """tests/test_rescue.py's `OPTS`: a budget of 3, the phase-split
+    Armijo-only grid of 8."""
+    return SolverOptions(
+        iterations_max=3, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+        throw_errors=False, use_backtracking_linesearch=True, parallel_linesearch=True,
+        ls_phase_split=True, ls_try_cubic_first=False, ls_armijo_only=True, ls_max_iters=8)

@@ -1,7 +1,8 @@
 """Two-tier failed-lane rescue for batched MPC resolves (PyTorch port).
 
 Counterpart: altro_tpu/rescue.py (`rescue_options`,
-`solve_tiled_with_rescue`). After the standard-budget batched solve,
+`solve_tiled_with_rescue`, `vmap_solve_with_rescue`). After the
+standard-budget batched solve,
 lanes whose status is not SUCCESS are solved again from their post-solve
 state with the rescue options; healthy lanes keep their primary state
 bit for bit. The JAX `lax.cond` on any-lane-failed becomes one host sync
@@ -17,10 +18,12 @@ import torch
 
 from altro_tpu_torch import tile_solver as tsv
 from altro_tpu_torch.options import SolverOptions
+from altro_tpu_torch.parallel.batch import check_options
 from altro_tpu_torch.problem import Problem
 from altro_tpu_torch.solver import SolverState, SolveStats
 
-__all__ = ["rescue_options", "solve_tiled_with_rescue", "merge_rescue"]
+__all__ = ["rescue_options", "solve_tiled_with_rescue", "vmap_solve_with_rescue",
+           "merge_rescue"]
 
 
 def rescue_options(opts: SolverOptions,
@@ -57,14 +60,50 @@ def solve_tiled_with_rescue(
     """
     for o in (opts, opts_rescue):
         tsv.refuse_on_card("solve_tiled_with_rescue", problem, o, vmapped=False)
-    st, stats = tsv.solve_tiled(problem, state, opts)
+    return _with_rescue(lambda st, o: tsv.solve_tiled(problem, st, o), state, opts,
+                        opts_rescue, info)
+
+
+def vmap_solve_with_rescue(
+    problem: Problem,
+    x0_batch: torch.Tensor,
+    state_batch: SolverState,
+    opts: SolverOptions,
+    opts_rescue: SolverOptions,
+    info: Optional[dict] = None,
+) -> Tuple[SolverState, SolveStats]:
+    """The vmapped solve (`parallel.batch.vmap_solve`'s lane loop) plus the
+    conditional failed-lane rescue, batch-major at its edges: `problem`
+    holds the shared data, x0_batch [B, n] and state_batch (leaves
+    [B, ...]) the lanes'. Returns (state [B, ...], stats [B]): rescued
+    lanes take the rescue's state and stats, iterations summed over both
+    tiers (`merge_rescue`); the others keep the primary tier's bit for
+    bit. The rescue runs only when a lane failed (one host read). When
+    `info` is a dict, info["rescued"] records whether it ran. Options and
+    kernels are checked for both tiers before either runs
+    (`parallel.batch.check_options`, `tile_solver.refuse_on_card`)."""
+    for o in (opts, opts_rescue):
+        check_options("vmap_solve_with_rescue", o)
+        tsv.refuse_on_card("vmap_solve_with_rescue", dataclasses.replace(problem, x0=x0_batch),
+                           o, vmapped=True)
+    prob = dataclasses.replace(problem, x0=tsv.batch_to_lanes(x0_batch))
+    st, stats = _with_rescue(lambda st, o: tsv.lane_loop(prob, st, o, vmapped=True),
+                             tsv.state_to_lanes(state_batch), opts, opts_rescue, info)
+    return tsv.state_from_lanes(st), stats
+
+
+def _with_rescue(run, state, opts, opts_rescue, info) -> Tuple[SolverState, SolveStats]:
+    """run(state, opts) (a lane-minor batched solve), then, when a lane
+    failed (one host read), run(its state, opts_rescue) merged into the
+    failed lanes (`merge_rescue`); info["rescued"] records whether it ran."""
+    st, stats = run(state, opts)
     failed = stats.status != 0
     rescued = bool(torch.any(failed))
     if info is not None:
         info["rescued"] = rescued
     if not rescued:
         return st, stats
-    st_r, stats_r = tsv.solve_tiled(problem, st, opts_rescue)
+    st_r, stats_r = run(st, opts_rescue)
     return merge_rescue(failed, st, stats, st_r, stats_r)
 
 

@@ -5,7 +5,8 @@ Counterpart: altro_tpu/solver.py (`SolverState`, `SolveStats`,
 `total_cost`, and the single-lane `solve` with its helpers:
 `open_loop_rollout`, `merit_function`, `merit_rollout_phi_x`,
 `light_from_xstack`, `al_gradients`, `complete_merit_payload`,
-`merit0_derivative`, `dynamics_expansions`, `_cost_expansions_and_cost`,
+`merit0_derivative`, `dynamics_expansions`, `al_expansions`,
+`_cost_expansions_and_cost`,
 `_cost_expansions_and_cost_diag`, `_retry_loop`, `backward_adaptive`,
 `_alpha0_merit_out`, `_trajectory_convals`, `al_total_cost`). The
 batched solve is tile_solver.solve_tiled.
@@ -104,6 +105,7 @@ __all__ = [
     "light_from_xstack",
     "complete_merit_payload",
     "dynamics_expansions",
+    "al_expansions",
     "stationarity",
     "feasibility",
     "complementarity",
@@ -467,6 +469,16 @@ def _cost_expansions_and_cost(problem: Problem, x, u, z, rho, exact=False):
     lx, lu, lxx, luu, lux, phi0 = ti.cost_expansions_tiled(
         problem, _l(x), _l(u), _lz(z), rho.reshape(1), diag=False, exact=exact)
     return _u(lx), _u(lu), _u(lxx), _u(luu), _u(lux), phi0[0]
+
+
+def al_expansions(problem: Problem, x, u, z, rho):
+    """Per-knot AL cost expansions (dense, Gauss-Newton) and dynamics
+    expansions along one lane's trajectory: (A [N, n, n], B [N, n, m],
+    lx [N+1, n], lu [N, m], lxx [N+1, n, n], luu [N, m, m], lux [N, m, n]),
+    JAX's order."""
+    lx, lu, lxx, luu, lux, _ = _cost_expansions_and_cost(problem, x, u, z, rho)
+    A, B = dynamics_expansions(problem, x, u)
+    return A, B, lx, lu, lxx, luu, lux
 
 
 def _cost_expansions_and_cost_diag(problem: Problem, x, u, z, rho):

@@ -141,7 +141,7 @@ class _OnCard:
 
 
 @pytest.mark.parametrize("entry", ["solve_tiled", "solve_tiled_with_rescue", "solve_lanes",
-                                   "vmap_solve"])
+                                   "vmap_solve", "vmap_solve_with_rescue"])
 def test_entry_points_refuse_before_anything_runs(entry):
     prob = dataclasses.replace(_linear_problem(n=4), x0=_OnCard())
     fused = OPTS.replace(pallas_backward=True)
@@ -151,6 +151,8 @@ def test_entry_points_refuse_before_anything_runs(entry):
                                                                           OPTS_R),
         "solve_lanes": lambda: batch.solve_lanes(prob, None, fused),
         "vmap_solve": lambda: batch.vmap_solve(_linear_problem(n=4), fused)(_OnCard(), None),
+        "vmap_solve_with_rescue": lambda: rescue.vmap_solve_with_rescue(
+            _linear_problem(n=4), _OnCard(), None, OPTS, fused),
     }
     with pytest.raises(NotImplementedError, match=f"{entry}: .*n=4, m=1"):
         calls[entry]()
@@ -436,3 +438,35 @@ def test_facade_refuses_on_the_card_before_anything_runs(build, words, plain):
     if build is _facade_3x2:  # the float32 problem runs on the (3, 2) instantiation
         s32 = _facade_on_card(lambda: _facade_3x2(torch.float32))
         assert solver.single_lane_refusal(s32.problem, s32._opts) is None
+
+
+class _OnCardF64(_OnCard):
+    dtype = torch.float64
+
+
+def test_implicit_solve_refuses_what_the_gauss_newton_kernels_cannot_take():
+    """diff.implicit_solve's Gauss-Newton backward on the card: one lane
+    runs riccati_latency (it has (4, 1), float32 only), a vmapped batch
+    riccati_dense (no (4, 1)); float64 or a missing shape is refused
+    before anything runs, under pallas_backward too, and
+    pallas_latency_backward=False (the plain backward) or a CPU problem is
+    never refused."""
+    from altro_tpu_torch import diff
+
+    on_card = dataclasses.replace(_linear_problem(n=4), x0=_OnCard())
+    assert diff.gn_refusal(on_card, SolverOptions(), vmapped=False) is None
+    why = diff.gn_refusal(on_card, SolverOptions(), vmapped=True)
+    assert "riccati_dense" in why and "n=4, m=1" in why
+    f64 = dataclasses.replace(_linear_problem(n=4, dtype=torch.float64), x0=_OnCardF64())
+    why = diff.gn_refusal(f64, SolverOptions(), vmapped=False)
+    assert "riccati_latency" in why and "torch.float64" in why
+    plain = SolverOptions(pallas_latency_backward=False)
+    assert diff.gn_refusal(f64, plain, vmapped=False) is None
+    assert diff.gn_refusal(_linear_problem(n=3), SolverOptions(), vmapped=True) is None
+    fused = SolverOptions(pallas_backward=True)  # does not make the backward plain
+    for vmapped in (False, True):
+        assert "torch.float64" in diff.gn_refusal(f64, fused, vmapped=vmapped)
+        assert diff.gn_refusal(f64, fused.replace(pallas_latency_backward=False),
+                               vmapped=vmapped) is None
+    with pytest.raises(NotImplementedError, match="implicit_solve: .*riccati_latency.*float64"):
+        diff.implicit_solve(f64)

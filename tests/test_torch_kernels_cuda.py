@@ -1371,3 +1371,146 @@ def test_vmapped_verbosity_on_card(dev, capsys):
     trips = int(res.iterations.max())
     assert out.count("STARTING ALTRO") == 3 and out.count("ALTRO SOLVE FINISHED") == 3
     assert out.count("  iter = ") == 3 * trips and len(calls) == 3 * trips
+
+
+# diff.implicit_solve's Gauss-Newton backward (ops/gn_backward.py): one lane on
+# riccati_latency.cu, a vmapped batch on riccati_dense.cu through the operator's
+# vmap rule; learned.py's loop on both.
+
+
+def _gn_operands(dev, Bsz, Nk=20, seed=31):
+    """Batch-major one-lane operands of the Gauss-Newton backward at (4, 2):
+    A = I + 0.05 randn, B = 0.3 randn, SPD dense lxx and luu, a small lux,
+    lx = 0 and lu = -w random (the implicit solve's LQR problem)."""
+    rng = np.random.default_rng(seed)
+    n, m = 4, 2
+
+    def spd(count, d):
+        Wm = rng.standard_normal((Bsz, count, d, d))
+        return np.einsum("bkij,bklj->bkil", Wm, Wm) / d + np.eye(d)
+
+    arrays = (np.eye(n) + 0.05 * rng.standard_normal((Bsz, Nk, n, n)),
+              0.3 * rng.standard_normal((Bsz, Nk, n, m)), spd(Nk + 1, n), spd(Nk, m),
+              0.02 * rng.standard_normal((Bsz, Nk, m, n)), np.zeros((Bsz, Nk + 1, n)),
+              rng.standard_normal((Bsz, Nk, m)))
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous() for a in arrays]
+
+
+def _close_gains(a, b):
+    K, d, P, p = a
+    K2, d2, P2, p2 = b
+    assert float((K - K2).abs().max()) < 1e-4
+    assert float((d - d2).abs().max()) < 1e-4
+    assert float(((P - P2).abs() / (1 + P2.abs())).max()) < 1e-5
+    assert float(((p - p2).abs() / (1 + p2.abs())).max()) < 1e-5
+
+
+@pytest.mark.parametrize("Bsz", [1, 33, 300, 1024])
+def test_gn_backward_vmap_rule_matches_latency_kernel_and_plain(dev, Bsz):
+    """The operator's vmap rule (the batched dense <4, 2, f=0, lux=1, diag=0>,
+    one launch) against the one-lane latency kernel lane by lane and
+    against the plain recursion."""
+    from altro_tpu_torch.ops import riccati_dense as rd
+    from altro_tpu_torch.ops import riccati_latency as rl
+    from altro_tpu_torch.ops.gn_backward import gn_backward
+
+    ops = _gn_operands(dev, Bsz)
+    reg = torch.zeros((), device=dev)
+    before_d = rd.LAUNCHES
+    batched = torch.func.vmap(lambda *a: gn_backward(*a, reg, True))(*ops)
+    torch.cuda.synchronize()
+    assert rd.LAUNCHES == before_d + 1
+    plain = torch.func.vmap(lambda *a: gn_backward(*a, reg, False))(*ops)
+    assert rd.LAUNCHES == before_d + 1
+    _close_gains(batched, plain)
+    lanes = sorted({0, Bsz // 2, Bsz - 1})
+    before_l = rl.LAUNCHES
+    for b in lanes:
+        one = gn_backward(*(t[b] for t in ops), reg, True)
+        _close_gains([g[b] for g in batched], one)
+        _close_gains(one, [g[b] for g in plain])
+    assert rl.LAUNCHES == before_l + len(lanes)
+
+
+def test_implicit_solve_on_card(dev):
+    """learned.py's task-loss gradient in float32 on the kernels (the solve's
+    backward and the Gauss-Newton backward on riccati_latency.cu) against
+    the float64 plain one on the card; its vmapped gradient over 4 lanes of
+    x0 launches riccati_dense.cu; float64 on the kernels is refused."""
+    import dataclasses
+
+    from altro_tpu_torch import diff, learned
+    from altro_tpu_torch.ops import riccati_dense as rd
+    from altro_tpu_torch.ops import riccati_latency as rl
+    from altro_tpu_torch.options import SolverOptions
+
+    plain = SolverOptions(pallas_latency_backward=False)
+    grads = {}
+    for dtype, opts in ((torch.float32, SolverOptions()), (torch.float64, plain)):
+        theta = torch.zeros(3, dtype=dtype, device=dev, requires_grad=True)
+        before = rl.LAUNCHES
+        learned.task_loss(theta, opts).backward()
+        grads[dtype] = theta.grad.double()
+        assert (rl.LAUNCHES > before) == (dtype == torch.float32)
+    rel = float(((grads[torch.float32] - grads[torch.float64]).abs()
+                 / grads[torch.float64].abs().max()).max())
+    assert rel < 1e-4, rel
+
+    prob = learned.build_problem(torch.zeros(3, device=dev))
+
+    def loss(x0):
+        x, u = diff.implicit_solve(dataclasses.replace(prob, x0=x0))
+        return torch.sum(x[-1] ** 2)
+
+    x0s = prob.x0 + 0.1 * torch.arange(4, device=dev, dtype=torch.float32)[:, None]
+    before = rd.LAUNCHES
+    g = torch.func.vmap(torch.func.grad(loss))(x0s)
+    assert rd.LAUNCHES == before + 1 and bool(torch.isfinite(g).all())
+    with pytest.raises(NotImplementedError, match="riccati_latency.*float64"):
+        learned.task_loss(torch.zeros(3, dtype=torch.float64, device=dev))
+
+
+def test_implicit_solve_with_pallas_backward_runs_the_gauss_newton_kernels(dev):
+    """`pallas_backward=True` leaves the Gauss-Newton backward on its kernels:
+    one lane's gradient launches riccati_latency.cu's dense (4, 2) with lux,
+    and vmap(grad) over 4 lanes of x0 riccati_dense.cu once more than its
+    batched forward does (which launches it under `pallas_backward`); both
+    match the plain backward."""
+    import dataclasses
+
+    from altro_tpu_torch import diff, learned
+    from altro_tpu_torch.ops import riccati_dense as rd
+    from altro_tpu_torch.ops import riccati_latency as rl
+    from altro_tpu_torch.options import SolverOptions
+
+    prob = learned.build_problem(torch.zeros(3, device=dev))
+    x0s = prob.x0 + 0.1 * torch.arange(4, device=dev, dtype=torch.float32)[:, None]
+
+    def grad_of(opts):
+        def loss(x0):
+            x, u = diff.implicit_solve(dataclasses.replace(prob, x0=x0), opts=opts)
+            return torch.sum(x[-1] ** 2) + 0.05 * torch.sum(u ** 2)
+
+        return torch.func.grad(loss)
+
+    fused = SolverOptions(pallas_backward=True)
+    plain = fused.replace(pallas_latency_backward=False)
+    gn_lane = (4, 2, False, False, True, False)
+    before = rl.VARIANT_LAUNCHES[gn_lane]
+    g1 = grad_of(fused)(x0s[0])
+    assert rl.VARIANT_LAUNCHES[gn_lane] == before + 1
+
+    def dense_launches(fn):
+        before, before_l = rd.LAUNCHES, rl.LAUNCHES
+        out = fn()
+        assert rl.LAUNCHES == before_l
+        return out, rd.LAUNCHES - before
+
+    _, forward = dense_launches(lambda: torch.func.vmap(
+        lambda x0: diff.implicit_solve(dataclasses.replace(prob, x0=x0), opts=fused)[0])(x0s))
+    g, both = dense_launches(lambda: torch.func.vmap(grad_of(fused))(x0s))
+    g_plain, forward_only = dense_launches(lambda: torch.func.vmap(grad_of(plain))(x0s))
+    assert forward > 0 and both == forward + 1 and forward_only == forward
+    scale = float(g_plain.abs().max())
+    assert float((g - g_plain).abs().max()) < 1e-4 * scale
+    assert float((g1 - g_plain[0]).abs().max()) < 1e-4 * scale

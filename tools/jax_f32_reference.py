@@ -14,6 +14,9 @@
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --obstacle-loop-draws K
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --tracking-tiled [--lanes B] [--ticks T]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --single-lane-options
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --learned-mpc [--draws K]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --implicit-grad [--lanes B] [--iterations I]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --vmap-rescue [--lanes B]
 
 Runs altro_tpu (the reference package, not the port) in float32 on the
 CPU: the three double integrator oracles of
@@ -146,6 +149,33 @@ phase drives: `rti_mode` (the phase-split x-only full step), the
 light-payload grid (`ls_grid_x_only=False`) and `pallas_backward`, each
 in float32 and float64: status, iterations, ls_iterations and x_N, what
 that phase's gates rest on.
+
+With --learned-mpc it runs examples/learned_mpc.py's loop (its
+`build_problem`, the task loss through `implicit_solve`, `optax.adam(0.1)`,
+40 steps) in float64 and float32: the task loss at steps 0, 20 and 39 and
+after the last update, the weights at step 39 and after it, and each
+float32 number's relative distance from the float64 one; with --draws K
+also K float32 loops from log-weights moved 1e-6 N(0, 1) (numpy seed 5):
+the spread of the float32 loop under roundoff-sized changes. What
+chip_smoke.py's `learned_mpc` gates rest on.
+
+With --implicit-grad it runs tests/test_diff.py's four configurations
+through `implicit_solve` in float64 and float32 with the tests' options:
+the linear-quadratic gradients in q[0] and x0 (both methods), the
+pendulum's in Qd (cg and tvlqr), the control-bounded one in q[0], and
+`jax.vmap(jax.grad)` over B lanes of x0 (x0 + 0.1 N(0, 1), numpy seed 16)
+against the single-lane gradients of lanes 0, B/2 and B-1; each float32
+gradient's largest distance from the float64 one relative to the float64
+gradient's largest entry; `--iterations` caps the pendulum's and the
+bounded problem's solves (the tests' default 200). What chip_smoke.py's
+`implicit_grad` gates rest on.
+
+With --vmap-rescue it runs tests/test_rescue.py's problem and batch at B
+lanes (half easy, half hard) through `vmap_solve_with_rescue` with the
+test's options and the rescue to 40 iterations, in float32 and float64:
+statuses and iterations counted by half, the primary-only run's failed
+lanes, and the largest float32-vs-float64 difference of x and u. What
+chip_smoke.py's `vmap_rescue` gates rest on.
 """
 
 from __future__ import annotations
@@ -1261,6 +1291,189 @@ def single_lane_options():
         print(json.dumps(row), flush=True)
 
 
+def _module(path, name):
+    """A module of the repo loaded from its file (an example or a test's
+    problem builders)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _learned_loop(ex, dt, theta0, steps=40):
+    import optax
+
+    from altro_tpu.diff import implicit_solve
+
+    def task_loss(lw):
+        x, u = implicit_solve(ex.build_problem(lw, dtype=dt))
+        return 100.0 * jnp.sum(x[-1] ** 2) + 0.05 * jnp.sum(u ** 2)
+
+    theta = jnp.asarray(theta0, dt)
+    loss_and_grad = jax.jit(jax.value_and_grad(task_loss))
+    opt = optax.adam(0.1)
+    opt_state = opt.init(theta)
+    losses, weights = [], []
+    for _ in range(steps):
+        loss, g = loss_and_grad(theta)
+        losses.append(float(loss))
+        weights.append(np.exp(np.asarray(theta, np.float64)).tolist())
+        updates, opt_state = opt.update(g, opt_state)
+        theta = optax.apply_updates(theta, updates)
+    losses.append(float(loss_and_grad(theta)[0]))
+    weights.append(np.exp(np.asarray(theta, np.float64)).tolist())
+    return {"loss_0": losses[0], "loss_20": losses[20], "loss_39": losses[39],
+            "loss_final": losses[-1], "weights_39": weights[39], "weights_final": weights[-1]}
+
+
+def learned_mpc_loops(draws=0):
+    """examples/learned_mpc.py's loop in float64 and float32 (see the
+    module docstring)."""
+    jax.config.update("jax_enable_x64", True)
+    ex = _module("examples/learned_mpc.py", "learned_mpc_example")
+    runs = {tag: _learned_loop(ex, dt, np.zeros(3)) for dt, tag in ((jnp.float64, "f64"),
+                                                                   (F32, "f32"))}
+
+    def rel(a, b):
+        return float(np.max(np.abs(np.asarray(a) - np.asarray(b)) / np.abs(np.asarray(b))))
+
+    spread = {k: rel(runs["f32"][k], runs["f64"][k]) for k in runs["f64"]}
+    print(json.dumps({"row": "learned_mpc", **runs, "f32_vs_f64_rel": spread}), flush=True)
+    if draws:
+        rng = np.random.default_rng(5)
+        out = [_learned_loop(ex, F32, 1e-6 * rng.standard_normal(3)) for _ in range(draws)]
+        print(json.dumps({"row": "learned_mpc_f32_draws", "draws": draws, "scale": 1e-6,
+                          "f32_vs_f64_rel": {k: max(rel(o[k], runs["f64"][k]) for o in out)
+                                             for k in runs["f64"]},
+                          "loss_final": [o["loss_final"] for o in out],
+                          "weights_final": [o["weights_final"] for o in out]}), flush=True)
+
+
+def _diff_problems(td, dt):
+    """tests/test_diff.py's three problems in dtype dt, each a function of
+    the parameter its gradient is taken in."""
+    def lqr(q, x0):
+        pb = td._di_problem(dtype=dt)
+        c = pb.cost
+        return dataclasses.replace(pb, cost=DiagonalCost(c.Q, c.R, c.q.at[0].set(q), c.r, c.c),
+                                   x0=x0)
+
+    def pendulum(Qd):
+        base = td._pendulum_problem([1.0, 0.1], dtype=dt)
+        Q = base.cost.Q.at[: base.N].set(jnp.broadcast_to(Qd, (base.N, 2)))
+        xg = jnp.asarray([np.pi, 0.0], dt)
+        return dataclasses.replace(base, cost=DiagonalCost(
+            Q, base.cost.R, -Q * xg, base.cost.r, 0.5 * jnp.sum(Q * xg * xg, axis=1)))
+
+    def bounded(q):
+        pb = lqr(q, td._di_problem(dtype=dt).x0)
+        bound = ConstraintSpec(fn=lambda x, u, k: jnp.concatenate([u - 0.5, -0.5 - u]),
+                               cone=Cone.NEGATIVE_ORTHANT, dim=4,
+                               active=jnp.arange(pb.N + 1) < pb.N)
+        return dataclasses.replace(pb, constraints=(bound,))
+
+    return lqr, pendulum, bounded
+
+
+def implicit_grads(lanes=1024, iterations=200):
+    """tests/test_diff.py's four configurations in float64 and float32 (see
+    the module docstring)."""
+    jax.config.update("jax_enable_x64", True)
+    import sys
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    td = _module("tests/test_diff.py", "test_diff_problems")
+    from altro_tpu.diff import implicit_solve
+
+    tight = dict(tol_stationarity=1e-9, tol_primal_feasibility=1e-9, iterations_max=iterations)
+    x0_noise = 0.1 * np.random.default_rng(16).standard_normal((lanes, 4))
+    out = {}
+    for dt, tag in ((jnp.float64, "f64"), (F32, "f32")):
+        lqr, pendulum, bounded = _diff_problems(td, dt)
+        pb0 = td._di_problem(dtype=dt)
+
+        def loss(pb, opts, method="tvlqr"):
+            return td._loss_of_solution(*implicit_solve(pb, opts=opts, method=method))
+
+        g = {}
+        for method in ("tvlqr", "cg"):
+            gq, gx = jax.jit(jax.grad(lambda q, x0: loss(lqr(q, x0), SolverOptions(), method),
+                                      argnums=(0, 1)))(pb0.cost.q[0], pb0.x0)
+            g[f"lqr_{method}_q"], g[f"lqr_{method}_x0"] = gq, gx
+            g[f"pendulum_{method}"] = jax.jit(jax.grad(
+                lambda Qd: loss(pendulum(Qd), SolverOptions(**tight), method)))(
+                    jnp.asarray([1.0, 0.1], dt))
+        g["bounded_tvlqr"] = jax.jit(jax.grad(lambda q: loss(bounded(q), SolverOptions(
+            **tight, penalty_max=1e10))))(pb0.cost.q[0] * 4.0)
+        vloss = jax.grad(lambda x0: loss(lqr(pb0.cost.q[0], x0), SolverOptions()))
+        x0s = pb0.x0 + jnp.asarray(x0_noise, dt)
+        t0 = time.perf_counter()
+        vg = jax.block_until_ready(jax.jit(jax.vmap(vloss))(x0s))
+        vmap_s = time.perf_counter() - t0
+        single = jax.jit(vloss)
+        picks = sorted({0, lanes // 2, lanes - 1})
+        vs_single = max(float(jnp.max(jnp.abs(vg[b] - single(x0s[b]))) / float(
+            jnp.max(jnp.abs(vg[b])))) for b in picks)
+        g["vmap_lanes"] = vg
+        out[tag] = {k: np.asarray(v, np.float64) for k, v in g.items()}
+        out[tag + "_meta"] = {"vmap_vs_single_rel": vs_single, "vmap_seconds": vmap_s}
+    rows = {}
+    for k, ref in out["f64"].items():
+        scale = max(float(np.abs(ref).max()), 1e-300)
+        rows[k] = {"f64": ref.tolist() if ref.size <= 8 else None,
+                   "f32_vs_f64_rel": float(np.abs(out["f32"][k] - ref).max()) / scale}
+    print(json.dumps({"row": "implicit_grad", "lanes": lanes, "iterations": iterations,
+                      "grads": rows,
+                      "f64": out["f64_meta"], "f32": out["f32_meta"]}), flush=True)
+
+
+def vmap_rescue_row(lanes=1024):
+    """tests/test_rescue.py's problem and batch at B lanes through
+    `vmap_solve_with_rescue` in float32 and float64 (see the module
+    docstring)."""
+    jax.config.update("jax_enable_x64", True)
+    import sys
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    tr = _module("tests/test_rescue.py", "test_rescue_problem")
+    from altro_tpu.parallel.batch import batch_init_state
+    from altro_tpu.rescue import rescue_options, vmap_solve_with_rescue
+
+    half = lanes // 2
+    runs = {}
+    for dt, tag in ((jnp.float64, "f64"), (F32, "f32")):
+        base = tr._problem()
+        problem = jax.tree_util.tree_map(
+            lambda a: a.astype(dt) if jnp.issubdtype(a.dtype, jnp.floating) else a, base)
+        x0b = jnp.asarray(np.concatenate([np.tile([np.pi, 0.0], (half, 1)),
+                                          np.zeros((half, 2))]), dt)
+        states = batch_init_state(problem, lanes)
+        u0 = np.concatenate([np.zeros((half, tr.N, 1)), np.full((half, tr.N, 1), 0.1)])
+        states = dataclasses.replace(states, u=jnp.asarray(u0, dt))
+
+        def one(x0, st):
+            return solve(dataclasses.replace(problem, x0=x0), st, tr.OPTS)
+
+        _, stats_p = jax.jit(jax.vmap(one))(x0b, states)
+        st, stats = jax.jit(lambda x0, s: vmap_solve_with_rescue(
+            problem, x0, s, tr.OPTS, rescue_options(tr.OPTS, iterations_max=40)))(x0b, states)
+        status, iters = np.asarray(stats.status), np.asarray(stats.iterations)
+        runs[tag] = {"primary_failed_hard": int((np.asarray(stats_p.status)[half:] != 0).sum()),
+                     "primary_failed_easy": int((np.asarray(stats_p.status)[:half] != 0).sum()),
+                     "status_easy": sorted(set(status[:half].tolist())),
+                     "status_hard": sorted(set(status[half:].tolist())),
+                     "iterations_easy": sorted(set(iters[:half].tolist())),
+                     "iterations_hard": sorted(set(iters[half:].tolist())),
+                     "x": np.asarray(st.x, np.float64), "u": np.asarray(st.u, np.float64)}
+    diff = {k: float(np.abs(runs["f32"][k] - runs["f64"][k]).max()) for k in ("x", "u")}
+    for r in runs.values():
+        del r["x"], r["u"]
+    print(json.dumps({"row": "vmap_rescue", "lanes": lanes, **runs, "f32_vs_f64_max_abs": diff}),
+          flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tol-stationarity", type=float, default=1e-4)
@@ -1300,6 +1513,17 @@ def main():
     ap.add_argument("--single-lane-options", action="store_true",
                     help="run the Scotty window row under rti_mode, the light-payload grid and "
                          "pallas_backward")
+    ap.add_argument("--learned-mpc", action="store_true",
+                    help="run examples/learned_mpc.py's loop in float64 and float32")
+    ap.add_argument("--draws", type=int, default=0,
+                    help="float32 learned-MPC loops from log-weights 1e-6 apart")
+    ap.add_argument("--implicit-grad", action="store_true",
+                    help="run tests/test_diff.py's gradients in float64 and float32")
+    ap.add_argument("--iterations", type=int, default=200,
+                    help="iterations_max of --implicit-grad's pendulum and bounded solves")
+    ap.add_argument("--vmap-rescue", action="store_true",
+                    help="run tests/test_rescue.py's batch at --lanes through "
+                         "vmap_solve_with_rescue")
     ap.add_argument("--lanes", type=int, default=1024,
                     help="lanes of the batched rows (the tiled quadrotor row: a multiple "
                          "of 1024)")
@@ -1331,7 +1555,13 @@ def main():
         tracking_tiled_row(args.lanes, ticks=args.ticks or 20)
     if args.single_lane_options:
         single_lane_options()
-    if (args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
+    if args.learned_mpc:
+        learned_mpc_loops(args.draws)
+    if args.implicit_grad:
+        implicit_grads(args.lanes, args.iterations)
+    if args.vmap_rescue:
+        vmap_rescue_row(args.lanes)
+    if (args.learned_mpc or args.implicit_grad or args.vmap_rescue or args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
             or args.single_lane_rows or args.facade or args.quadrotor_vmapped or args.obstacle
             or args.obstacle_loop or args.obstacle_loop_draws or args.tracking_tiled
             or args.single_lane_options or args.quadrotor_latency):
