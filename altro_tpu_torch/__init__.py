@@ -17,9 +17,10 @@ Internal layout is lane-minor, [N(+1), entry..., B]; public functions
 keep the JAX batch-major layout [B, ...].
 
 The top-level names are altro_tpu's (altro_tpu/__init__.py), less
-`ensure_backend` (the TPU platform probe, not ported) and the `export`
-module with its four functions (`call_exported`, `export_mpc_server`,
-`load_exported`, `save_exported`; not ported yet).
+`ensure_backend` (the TPU platform probe, not ported). The `export`
+module records the warm-started MPC tick with `torch.export` as a saved
+load-and-call artifact (`export_mpc_server`, `save_exported`,
+`load_exported`, `call_exported`).
 """
 
 from altro_tpu_torch.cones import (
@@ -60,6 +61,13 @@ from altro_tpu_torch.rescue import (
     solve_tiled_with_rescue,
     vmap_solve_with_rescue,
 )
-from altro_tpu_torch import al, checkpoint, io, linesearch, models, mpc, ops, parallel, profiling
+from altro_tpu_torch.export import (
+    call_exported,
+    export_mpc_server,
+    load_exported,
+    save_exported,
+)
+from altro_tpu_torch import (al, checkpoint, export, io, linesearch, models, mpc, ops, parallel,
+                             profiling)
 
 __version__ = "0.1.0"

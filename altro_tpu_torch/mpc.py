@@ -293,6 +293,37 @@ def mpc_step(problem: Problem, state: SolverState, x_measured, x_ref_window,
     return new_state.u[0], new_state, stats
 
 
+def update_tracking_window_lanes(problem: Problem, x_ref_window, u_ref_window) -> Problem:
+    """`update_tracking_window` for lane-minor windows x_ref [N+1, n, B],
+    u_ref [N+1, m, B]: Q and R kept, (q, r, c) one row per lane, each entry
+    as `lqr_cost_from_reference` forms it (the vmapped `mpc_step`'s cost)."""
+    cost = problem.cost
+    if not isinstance(cost, DiagonalCost):
+        raise TypeError("update_tracking_window_lanes requires a DiagonalCost")
+    Q, R = cost.Q[..., None], cost.R[..., None]
+    c = 0.5 * torch.sum(Q * x_ref_window * x_ref_window, dim=1)
+    cu = 0.5 * torch.sum(R * u_ref_window * u_ref_window, dim=1)
+    not_term = (torch.arange(Q.shape[0], device=Q.device) != Q.shape[0] - 1)[:, None]
+    return dataclasses.replace(problem, cost=dataclasses.replace(
+        cost, q=-Q * x_ref_window, r=-R * u_ref_window, c=c + cu * not_term.to(cu.dtype)))
+
+
+def mpc_step_lanes(problem: Problem, state: SolverState, x_measured, x_ref_window,
+                   u_ref_window, opts: SolverOptions = SolverOptions()):
+    """`mpc_step` on B lanes at once, batch-major at its edges (x_measured
+    [B, n], x_ref [B, N+1, n], u_ref [B, N+1, m], state [B, ...]): each
+    lane's window, measured state and shifted warm start through the
+    vmapped solve (`parallel.batch.solve_lanes`), the counterpart of
+    `jax.vmap(mpc_step)`. Returns (u0 [B, m], the new state, stats [B])."""
+    lanes = tsv.batch_to_lanes
+    prob = dataclasses.replace(
+        update_tracking_window_lanes(problem, lanes(x_ref_window), lanes(u_ref_window)),
+        x0=lanes(x_measured))
+    st, stats = solve_lanes(prob, tsv.shift_trajectory_tiled(tsv.state_to_lanes(state)), opts)
+    st = tsv.state_from_lanes(st)
+    return st.u[:, 0], st, stats
+
+
 def _steering_fn(x, u, k):
     return torch.stack([x[3] - DELTA_MAX, -DELTA_MAX - x[3]])
 
@@ -2023,3 +2054,171 @@ def double_integrator_grid_operands(B: int, N: int, W: int, P: int, *, seed: int
     rho = 1.0 + 9.0 * rng.random(B)
     x0 = xr[0] + 0.05 * rng.standard_normal((n, B))
     return prob, (t(xr), t(ur), t(K), t(d), z, t(rho), t(0.5 ** np.arange(W)), t(x0))
+
+
+# ---------------------------------------------------------------------------
+# The warm-started controller through the exported artifact (mpc_latency_aot,
+# scripts/bench_all.py:212-320)
+# ---------------------------------------------------------------------------
+
+AOT_DELTA_MAX = float(np.deg2rad(60.0))  # bench_all.py:149
+
+
+def _aot_steering_fn(x, u, k):
+    return torch.stack([x[3] - AOT_DELTA_MAX, -AOT_DELTA_MAX - x[3]])
+
+
+def aot_latency_problem(ref, N: int = 30, *, dtype=torch.float32, device="cuda") -> Problem:
+    """The `mpc_latency_aot` row's problem as bench_all.py:229-252 builds
+    it: the bench's bicycle (4, 2) with midpoint on the Scotty path,
+    horizon N, Q = 1e-2, R = 1e-3 on the first window, and the steering
+    bound |delta| <= 60 deg as a plain `fn` with `diag_hessian=True` (no
+    Jacobian given, not declared affine; no column or block step, so every
+    rollout runs through the problem's own dynamics)."""
+    n, m = 4, 2
+    kw = dict(dtype=dtype, device=device)
+    cost = lqr_cost_from_reference(
+        torch.full((N + 1, n), Q_DIAG, **kw), torch.full((N + 1, m), R_DIAG, **kw),
+        torch.as_tensor(ref.x[: N + 1], **kw), torch.as_tensor(ref.u[: N + 1], **kw))
+    steering = ConstraintSpec(
+        fn=_aot_steering_fn, cone=Cone.NEGATIVE_ORTHANT, dim=2,
+        active=torch.ones(N + 1, dtype=torch.bool, device=device), label="steering",
+        diag_hessian=True)
+    return Problem(
+        N=N, n=n, m=m, dynamics=midpoint(bicycle_continuous()), dynamics_jac=None,
+        constraints=(steering,), cost=cost,
+        h=torch.full((N,), float(np.float32(ref.tf / ref.N)), **kw),
+        x0=torch.as_tensor(ref.x[0], **kw))
+
+
+def aot_latency_options(pallas_backward: bool = False) -> SolverOptions:
+    """The row's options (bench_all.py:253-258 on its f32 options :47-50):
+    10 iterations at tolerance 1e-3, penalty warm start, the phase-split
+    Armijo-only x-only grid of width 8 with 8 trials; the plain grids
+    (`pallas_rollout=False`, `pallas_rollout_tiled=False`: the steering
+    bound is not declared affine, so no trial kernel takes the problem).
+    pallas_backward=True is the `mpc_latency_aot_B8_dense` line's: the
+    batch on the dense backward kernel."""
+    return SolverOptions(
+        iterations_max=10, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+        throw_errors=False, use_backtracking_linesearch=True, penalty_warm_start=True,
+        parallel_linesearch=True, ls_phase_split=True, ls_armijo_only=True,
+        ls_grid_x_only=True, ls_max_iters=8, pallas_rollout=False, pallas_rollout_tiled=False,
+        pallas_backward=pallas_backward)
+
+
+def aot_latency_inputs(problem: Problem, ref, batch: Optional[int]):
+    """The row's serving inputs (bench_all.py:265-279): the state at the
+    reference window with u = (u_ref[0][0], 0) at every knot, the measured
+    state ref.x[1] and the window ref.x[1 : N+2], ref.u[1 : N+2]; each
+    repeated on a leading axis of `batch` lanes unless batch is None.
+    Returns (x_measured, x_ref, u_ref, state dict)."""
+    from altro_tpu_torch.export import state_to_arrays
+
+    N = problem.N
+    kw = dict(dtype=problem.dtype, device=problem.device)
+    st = dataclasses.replace(
+        init_state(problem),
+        u=torch.tensor([ref.u[0][0], 0.0], **kw).repeat(N, 1),
+        x=torch.as_tensor(ref.x[: N + 1], **kw))
+    args = [torch.as_tensor(ref.x[1], **kw), torch.as_tensor(ref.x[1: N + 2], **kw),
+            torch.as_tensor(ref.u[1: N + 2], **kw), state_to_arrays(st)]
+    if batch is None:
+        return tuple(args)
+
+    def tile(a):
+        return a.expand((batch,) + a.shape).contiguous()
+
+    return (*(tile(a) for a in args[:3]), {k: tile(v) for k, v in args[3].items()})
+
+
+def _blocking_ms(fn, reps: int, device) -> np.ndarray:
+    """Host milliseconds of `reps` calls, each waited for on the device."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return np.sort(np.asarray(times))
+
+
+def export_mpc_latency_aot(problem: Problem, opts: SolverOptions, batch: Optional[int],
+                           path: str, platform: Optional[str] = None) -> float:
+    """Export the row's tick (`export.export_mpc_server`, traced on the
+    problem's device, for `platform`, by default that device's) and save
+    it to `path`. Returns the export's seconds (tracing, not saving)."""
+    from altro_tpu_torch.export import export_mpc_server, save_exported
+
+    t0 = time.perf_counter()
+    art = export_mpc_server(problem, opts, batch=batch,
+                            platforms=(platform or problem.device.type,))
+    seconds = time.perf_counter() - t0
+    save_exported(art, path)
+    return seconds
+
+
+def run_mpc_latency_aot(problem: Problem, ref, opts: SolverOptions, batch: Optional[int],
+                        path: str, *, calls: int = 60, chained: int = 100, warm: int = 2,
+                        export_s: Optional[float] = None) -> dict:
+    """The `mpc_latency_aot` row (bench_all.py:259-318) on the port: export
+    the tick to `path` (`export_mpc_latency_aot`; with `export_s` given, the
+    artifact at `path` was exported elsewhere, in that many seconds), load
+    it, converge the warm start with `warm` calls, then time `calls`
+    blocking calls (p50, p90), a chain of `chained` calls fed state to state
+    with one wait at the end, and the transport floor: a trivial exported
+    add over the same state dict, blocking. The calls run on the problem's
+    device. Returns the row's numbers (milliseconds and seconds
+    unrounded), its `iterations` (the largest of the last call's lanes),
+    `inputs`: the blocking calls' (x_measured, x_ref, u_ref, state dict),
+    `result`: the last blocking call's (u0, state dict, stats dict) and
+    `server`: the loaded artifact."""
+    from altro_tpu_torch.export import call_exported, load_exported
+
+    dev = problem.device
+    if export_s is None:
+        export_s = export_mpc_latency_aot(problem, opts, batch, path)
+    t0 = time.perf_counter()
+    srv = load_exported(path)
+    xm, xr, ur, st = aot_latency_inputs(problem, ref, batch)
+    call_exported(srv, xm, xr, ur, st)  # builds the module (and the kernels) once
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    for _ in range(warm):
+        _, st, _ = call_exported(srv, xm, xr, ur, st)
+    out = []
+
+    def one():
+        out[:] = [call_exported(srv, xm, xr, ur, st)]
+
+    times = _blocking_ms(one, calls, dev)
+    t0 = time.perf_counter()
+    st_c = st
+    for _ in range(chained):
+        u0, st_c, _ = call_exported(srv, xm, xr, ur, st_c)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    chained_ms = (time.perf_counter() - t0) / chained * 1e3
+
+    class _Floor(torch.nn.Module):
+        def forward(self, a, s):
+            return a + 1.0, {k: v + 1.0 for k, v in s.items()}
+
+    floor = torch.export.export(_Floor(), (xm, st), strict=False).module()
+    floor(xm, st)
+    ftimes = _blocking_ms(lambda: floor(xm, st), calls, dev)
+    u0, st_last, stats = out[0]
+    return {
+        "p50_call_ms": float(times[len(times) // 2]),
+        "p90_call_ms": float(times[int(len(times) * 0.9)]),
+        "chained_call_ms": chained_ms,
+        "dispatch_floor_p50_ms": float(ftimes[len(ftimes) // 2]),
+        "iterations": int(stats["iterations"].max()),
+        "export_s": export_s,
+        "load_s": load_s,
+        "inputs": (xm, xr, ur, st),
+        "result": (u0, st_last, stats),
+        "server": srv,
+    }

@@ -204,12 +204,15 @@ def plain_rollout(step, ref_x, ref_u, K, d, alphas, x0):
     return xs, us
 
 
-def rollout_grid_ref(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0):
+def rollout_grid_ref(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0, states=None):
     """Plain W-trial rollout through the problem's own dynamics and AL cost.
 
     ref_x [N+1, n, B], ref_u [N, m, B], K [N, m, n, B], d [N, m, B],
     z per group [N+1, p, B], rho [B], alphas [W] or [W, B] (per lane), x0 [n, B].
-    Returns (phi [W, B], xstack [W, N+1, n, B]).
+    Returns (phi [W, B], xstack [W, N+1, n, B]). states(ref_x, ref_u, K,
+    d, alphas, x0) -> (xstack, ustack): the rollout of the states, by
+    default `plain_rollout` (the exported graph passes its scan,
+    graph_solve.scan_rollout).
 
     The JAX scan adds each knot's AL cost inside the sequential step; the
     cost needs only that knot's (x, u), so here the states roll out with
@@ -219,9 +222,12 @@ def rollout_grid_ref(problem: Problem, ref_x, ref_u, K, d, z, rho, alphas, x0):
     """
     N = problem.N
     W, (n, Bsz) = alphas.shape[0], x0.shape
-    xs, us = plain_rollout(
-        lambda k, x, u: problem.dyn_step(k, x.movedim(1, 0), u.movedim(1, 0)).movedim(0, 1),
-        ref_x, ref_u, K, d, alphas, x0)
+    if states is None:
+        xs, us = plain_rollout(
+            lambda k, x, u: problem.dyn_step(k, x.movedim(1, 0), u.movedim(1, 0)).movedim(0, 1),
+            ref_x, ref_u, K, d, alphas, x0)
+    else:
+        xs, us = states(ref_x, ref_u, K, d, alphas, x0)
     x = xs[:, N]
     ks = torch.arange(N, device=x0.device).repeat(W)  # trial-major: row w * N + k
     zs = tuple(zj[:N].repeat(W, 1, 1) for zj in z)

@@ -20,6 +20,7 @@ import torch
 
 from altro_tpu_torch import al
 from altro_tpu_torch.linesearch import Trace
+from altro_tpu_torch.ops.library import retry_lanes
 from altro_tpu_torch.ops.rollout_grid import rollout_grid_ref
 
 __all__ = [
@@ -120,10 +121,18 @@ def merit0_derivative_tiled(A, B, K, d, lx, lu):
     dx = A.new_zeros(A.shape[1:2] + A.shape[3:])
     contribs = []
     for k in range(N):
-        du = d[k] - torch.einsum("jib,ib->jb", K[k], dx)
-        contribs.append(torch.sum(lx[k] * dx, dim=0) + torch.sum(lu[k] * du, dim=0))
-        dx = torch.einsum("ijb,jb->ib", A[k], dx) + torch.einsum("ijb,jb->ib", B[k], du)
+        dx, contrib = sensitivity_step(dx, (A[k], B[k], K[k], d[k], lx[k], lu[k]))
+        contribs.append(contrib)
     return torch.sum(torch.stack(contribs), dim=0) + torch.sum(lx[N] * dx, dim=0)
+
+
+def sensitivity_step(dx, knot):
+    """One knot of `merit0_derivative_tiled`: (dx', the knot's term of
+    dphi) from dx [n, B] and the knot's (A, B, K, d, lx, lu)."""
+    A, B, K, d, lx, lu = knot
+    du = d - torch.einsum("jib,ib->jb", K, dx)
+    contrib = torch.sum(lx * dx, dim=0) + torch.sum(lu * du, dim=0)
+    return torch.einsum("ijb,jb->ib", A, dx) + torch.einsum("ijb,jb->ib", B, du), contrib
 
 
 class Payload(NamedTuple):
@@ -147,17 +156,19 @@ class Payload(NamedTuple):
 
 
 def payload_tiled(problem, x, alpha, phi, ref_x, ref_u, K, d, P, p, z, rho,
-                  with_dphi=True) -> Payload:
+                  with_dphi=True, derivative=None) -> Payload:
     """The payload of a rolled-out trial x [N+1, n, B] at alpha [B] with
     merit phi [B]: u, y, the constraint values and projected duals
     knot-parallel (`light_from_xstack_tiled`), the expansions at (x, u)
     (`completion_tiled`) and dphi by the forward-sensitivity recurrence
-    (NaN when with_dphi=False), as complete_merit_payload does."""
+    (NaN when with_dphi=False), as complete_merit_payload does.
+    derivative: the recurrence, `merit0_derivative_tiled` by default (the
+    exported graph passes its scan)."""
     u, y, convals, zproj = light_from_xstack_tiled(problem, x, ref_x, ref_u, K, d, P, p, z,
                                                    rho, alpha)
     A, B, lx, lu = completion_tiled(problem, x, u, z, rho)
     if with_dphi:
-        dphi = merit0_derivative_tiled(A, B, K, d, lx, lu)
+        dphi = (derivative or merit0_derivative_tiled)(A, B, K, d, lx, lu)
     else:
         dphi = torch.full_like(phi, float("nan"))
     return Payload(phi, dphi, x, u, y, A, B, lx, lu, convals, zproj)
@@ -186,21 +197,10 @@ def merit_tiled(problem, ref_x, ref_u, K, d, P, p, z, rho, alpha, x0):
 def retry_tiled(opts, attempt, reg0, trace: Optional[Trace] = None):
     """Adaptive-regularization retry over the whole batch: lanes already
     ok keep their gains; failing lanes bump reg and take the recomputed
-    values. One host read per retry trip (the loop condition), counted
-    in the `Trace`."""
-    trace = trace or Trace()
-    g = attempt(reg0)
-    reg = reg0
-    tries = 0
-    while tries < opts.reg_max_retries and trace.read(torch.any(~g.ok)):
-        need = ~g.ok
-        bumped = torch.where(reg <= 0, torch.full_like(reg, opts.reg_min),
-                             reg * opts.reg_scaling)
-        reg = torch.where(need, bumped, reg)
-        g2 = attempt(reg)
-        g = type(g)(*(torch.where(need, new, old) for new, old in zip(g2, g)))
-        tries += 1
-    return g, reg
+    values (`library.retry_lanes`). One host read per retry trip (the loop
+    condition), counted in the `Trace`."""
+    return retry_lanes(attempt, reg0, opts.reg_min, opts.reg_scaling, opts.reg_max_retries,
+                       read=(trace or Trace()).read)
 
 
 def _blend(sel, alphas, phis, xstacks):

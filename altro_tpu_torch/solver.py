@@ -76,6 +76,7 @@ from altro_tpu_torch.linesearch import (
     wolfe_line_search,
 )
 from altro_tpu_torch.ops import tile_iter as ti
+from altro_tpu_torch.ops.library import retry
 from altro_tpu_torch.ops.packed_backward import tvlqr_backward_latency
 from altro_tpu_torch.ops import riccati_latency as rl
 from altro_tpu_torch.ops.riccati_latency import riccati_latency_ref
@@ -502,14 +503,7 @@ def _retry_loop(opts: SolverOptions, attempt, reg0):
     """Adaptive-regularization retry: while the factorization fails, bump
     reg geometrically (up to reg_max_retries) and re-run `attempt`. One
     host sync per attempt (on ok)."""
-    gains = attempt(reg0)
-    reg = reg0
-    tries = 0
-    while tries < opts.reg_max_retries and not bool(gains.ok):
-        reg = torch.where(reg <= 0, torch.full_like(reg, opts.reg_min), reg * opts.reg_scaling)
-        gains = attempt(reg)
-        tries += 1
-    return gains, reg
+    return retry(attempt, reg0, opts.reg_min, opts.reg_scaling, opts.reg_max_retries)
 
 
 def backward_adaptive(opts: SolverOptions, A, B, lxx, luu, lux, lx, lu, reg0):
@@ -672,6 +666,101 @@ def _report(opts: SolverOptions, it, phi0, dphi0, m, alpha, ls_iters, stat, feas
     vals = _read(float, phi0, m.phi, dphi0, m.dphi, alpha, ls_iters, stat, feas, rho, rho_new,
                  do_dual)
     emit(opts, it, *vals)
+
+
+class Update(NamedTuple):
+    """An iteration's criteria, dual/penalty update and status, per lane [B]
+    (`iteration_update`)."""
+
+    stat: torch.Tensor
+    feas: torch.Tensor
+    z: Tuple[torch.Tensor, ...]  # the updated duals, per group [N+1, p, B]
+    rho: torch.Tensor
+    status: torch.Tensor  # int32
+    ls_fails: torch.Tensor  # int32
+    reg: torch.Tensor  # reg used, escalated under ls_failure_recovery
+    stop: torch.Tensor  # bool
+    do_dual: torch.Tensor  # bool
+
+
+def iteration_update(problem: Problem, opts: SolverOptions, m, *, z, rho, status, ls_fails,
+                     reg_used, phi_prev, it, grad_small, bp_failed, ls_failed) -> Update:
+    """Steps 6-7 of an AL-iLQR iteration and its status chain, per lane on
+    lane-minor stacks (altro_tpu/solver.py:1020-1130): the optimality
+    criteria at the candidate `m` (a `tile_iter.Payload`: x, u, y, A, B,
+    lx, lu, convals, zproj [..., B], phi [B]), the adaptive dual and
+    penalty update, the status chain (lowest priority first;
+    MERIT_FUN_GRADIENT_TOO_SMALL sticky only while the gradient stays
+    small), ls_failure_recovery and the stop flag. z, rho, status,
+    ls_fails, phi_prev: the iteration's incoming values; it: its index (an
+    int, or an int tensor [B]); grad_small, bp_failed, ls_failed [B] bool.
+    The single-lane solve, the batched lane loop and the exported graph
+    (graph_solve.py) all run it; the single-lane solve with B = 1."""
+    Bsz = m.phi.shape[-1]
+    dev = m.phi.device
+    kw = dict(dtype=m.phi.dtype, device=dev)
+
+    def lanes_max(t):
+        return torch.abs(t).flatten(0, -2).amax(0)
+
+    stat = stationarity(m.A, m.B, m.lx, m.lu, m.y)
+    feas = feasibility(problem, m.convals)
+    stat_tol = torch.full((Bsz,), opts.tol_stationarity, **kw)
+    if opts.tol_stationarity_rel > 0:
+        scale = torch.maximum(torch.maximum(lanes_max(m.lx), lanes_max(m.lu)), lanes_max(m.y))
+        stat_tol = torch.maximum(stat_tol, opts.tol_stationarity_rel * scale)
+    no = torch.zeros(Bsz, dtype=torch.bool, device=dev)
+    x_oob, u_oob, obj_exceeded = no, no, no
+    if math.isfinite(opts.max_state_value):
+        x_oob = lanes_max(m.x) > opts.max_state_value
+    if math.isfinite(opts.max_input_value):
+        u_oob = lanes_max(m.u) > opts.max_input_value
+    if math.isfinite(opts.max_objective_value):
+        obj_exceeded = ~torch.isfinite(m.phi) | (m.phi > opts.max_objective_value)
+    diverged = obj_exceeded | x_oob | u_oob
+    converged = (torch.abs(stat) < stat_tol) & (feas < opts.tol_primal_feasibility)
+    if opts.enable_cost_tolerance:
+        converged = converged | ((it > 0) & (torch.abs(phi_prev - m.phi) < opts.tol_cost)
+                                 & (feas < opts.tol_primal_feasibility))
+
+    # 7. adaptive dual/penalty update
+    do_dual = stat < torch.sqrt(torch.tensor(opts.tol_stationarity, **kw))
+    z_new = tuple(torch.where(do_dual & spec.active[:, None, None], zp, zj)
+                  for spec, zp, zj in zip(problem.constraints, m.zproj, z))
+    do_penalty = do_dual & (feas > opts.tol_primal_feasibility)
+    rho_new = torch.where(
+        do_penalty, torch.clamp(rho * opts.penalty_scaling, max=opts.penalty_max), rho)
+
+    def code(s):
+        return torch.full((Bsz,), int(s), dtype=torch.int32, device=dev)
+
+    new_status = torch.where(status == int(SolveStatus.MERIT_FUN_GRADIENT_TOO_SMALL),
+                             code(SolveStatus.UNSOLVED), status)
+    grad_small_stat = no if opts.rti_mode else grad_small
+    for cond_, s in ((grad_small_stat, SolveStatus.MERIT_FUN_GRADIENT_TOO_SMALL),
+                     (u_oob, SolveStatus.INPUT_OUT_OF_BOUNDS),
+                     (x_oob, SolveStatus.STATE_OUT_OF_BOUNDS),
+                     (obj_exceeded, SolveStatus.MAX_OBJECTIVE_EXCEEDED),
+                     (bp_failed, SolveStatus.BACKWARD_PASS_FAILED),
+                     (ls_failed, SolveStatus.LINE_SEARCH_FAILED),
+                     (converged, SolveStatus.SUCCESS)):
+        new_status = torch.where(cond_, code(s), new_status)
+    ls_fails_new = ls_fails + ls_failed.to(torch.int32)
+    if opts.ls_failure_recovery:
+        reg_cap = opts.reg_min * opts.reg_scaling ** opts.reg_max_retries
+        escalated = torch.clamp(
+            torch.where(reg_used <= 0, torch.full_like(reg_used, opts.reg_min),
+                        reg_used * opts.reg_scaling), max=reg_cap)
+        reg_used = torch.where(ls_failed, escalated, reg_used)
+        cleared = ~ls_failed & ~converged & (status == int(SolveStatus.LINE_SEARCH_FAILED))
+        new_status = torch.where(cleared, code(SolveStatus.UNSOLVED), new_status)
+        cap = opts.ls_recovery_max_fails
+        exhausted = (ls_failed & (ls_fails_new > cap)) if cap > 0 else no
+        stop = converged | bp_failed | exhausted
+    else:
+        stop = converged | ls_failed | bp_failed
+    return Update(stat, feas, z_new, rho_new, new_status, ls_fails_new, reg_used,
+                  stop | diverged, do_dual)
 
 
 def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOptions(),
@@ -888,72 +977,25 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
                 use_ls_payload = ls_accepted & ~grad_small & (ls.aux_alpha == alpha)
                 m = tree_map(lambda a, b: torch.where(use_ls_payload, a, b), ls.aux, aux0)
 
-            # 6. optimality criteria at the candidate
-            stat = stationarity(_l(m.A), _l(m.B), _l(m.lx), _l(m.lu), _l(m.y))[0]
-            feas = feasibility(lp, _lz(m.convals))[0]
-            stat_tol = torch.tensor(opts.tol_stationarity, **kw)
-            if opts.tol_stationarity_rel > 0:
-                scale = torch.maximum(
-                    torch.maximum(torch.abs(m.lx).max(), torch.abs(m.lu).max()),
-                    torch.abs(m.y).max())
-                stat_tol = torch.maximum(stat_tol, opts.tol_stationarity_rel * scale)
-            x_oob, u_oob, obj_exceeded = no, no, no
-            if math.isfinite(opts.max_state_value):
-                x_oob = torch.abs(m.x).max() > opts.max_state_value
-            if math.isfinite(opts.max_input_value):
-                u_oob = torch.abs(m.u).max() > opts.max_input_value
-            if math.isfinite(opts.max_objective_value):
-                obj_exceeded = ~torch.isfinite(m.phi) | (m.phi > opts.max_objective_value)
-            diverged = obj_exceeded | x_oob | u_oob
-            converged = (torch.abs(stat) < stat_tol) & (feas < opts.tol_primal_feasibility)
-            if opts.enable_cost_tolerance:
-                converged = converged | ((it > 0) & (torch.abs(phi - m.phi) < opts.tol_cost)
-                                         & (feas < opts.tol_primal_feasibility))
-
-            # 7. adaptive dual/penalty update
-            do_dual = stat < torch.sqrt(torch.tensor(opts.tol_stationarity, **kw))
-            z_new = tuple(torch.where(do_dual & spec.active[:, None], zp, zj)
-                          for spec, zp, zj in zip(problem.constraints, m.zproj, z))
-            do_penalty = do_dual & (feas > opts.tol_primal_feasibility)
-            rho_new = torch.where(
-                do_penalty, torch.clamp(rho * opts.penalty_scaling, max=opts.penalty_max), rho)
-
-            # status chain, lowest priority first (MERIT_FUN_GRADIENT_TOO_SMALL
-            # sticky only while the gradient stays small)
-            new_status = torch.where(status == int(SolveStatus.MERIT_FUN_GRADIENT_TOO_SMALL),
-                                     code(SolveStatus.UNSOLVED), status)
-            grad_small_stat = no if opts.rti_mode else grad_small
-            for cond_, s in ((grad_small_stat, SolveStatus.MERIT_FUN_GRADIENT_TOO_SMALL),
-                             (u_oob, SolveStatus.INPUT_OUT_OF_BOUNDS),
-                             (x_oob, SolveStatus.STATE_OUT_OF_BOUNDS),
-                             (obj_exceeded, SolveStatus.MAX_OBJECTIVE_EXCEEDED),
-                             (bp_failed, SolveStatus.BACKWARD_PASS_FAILED),
-                             (ls_failed, SolveStatus.LINE_SEARCH_FAILED),
-                             (converged, SolveStatus.SUCCESS)):
-                new_status = torch.where(cond_, code(s), new_status)
-            ls_fails_new = ls_fails + ls_failed.to(torch.int32)
-            if opts.ls_failure_recovery:
-                reg_cap = opts.reg_min * opts.reg_scaling ** opts.reg_max_retries
-                escalated = torch.clamp(
-                    torch.where(reg_used <= 0, torch.full_like(reg_used, opts.reg_min),
-                                reg_used * opts.reg_scaling), max=reg_cap)
-                reg_used = torch.where(ls_failed, escalated, reg_used)
-                cleared = ~ls_failed & ~converged & (status == int(SolveStatus.LINE_SEARCH_FAILED))
-                new_status = torch.where(cleared, code(SolveStatus.UNSOLVED), new_status)
-                cap = opts.ls_recovery_max_fails
-                exhausted = (ls_failed & (ls_fails_new > cap)) if cap > 0 else no
-                stop_t = converged | bp_failed | exhausted
-            else:
-                stop_t = converged | ls_failed | bp_failed
-            stop_t = stop_t | diverged
+            # 6-7. criteria, dual/penalty update and status chain (one lane)
+            one = lambda t: t.reshape(1)  # noqa: E731  a 0-dim value as one lane
+            upd = iteration_update(
+                lp, opts, ti.Payload(one(m.phi), one(m.dphi), _l(m.x), _l(m.u), _l(m.y),
+                                     _l(m.A), _l(m.B), _l(m.lx), _l(m.lu), _lz(m.convals),
+                                     _lz(m.zproj)),
+                z=_lz(z), rho=one(rho), status=one(status), ls_fails=one(ls_fails),
+                reg_used=one(reg_used), phi_prev=one(phi), it=it, grad_small=one(grad_small),
+                bp_failed=one(bp_failed), ls_failed=one(ls_failed))
+            stat, feas, rho_new, do_dual = upd.stat[0], upd.feas[0], upd.rho[0], upd.do_dual[0]
+            stop_t = upd.stop[0]
             _report(opts, it, phi0, dphi0, m, alpha, n_iters, stat, feas, rho, rho_new,
                     do_dual)
 
-            x, u, y, z, rho = m.x, m.u, m.y, z_new, rho_new
-            K, d, P, p, reg = gains.K, gains.d, gains.P, gains.p, reg_used
+            x, u, y, z, rho = m.x, m.u, m.y, _uz(upd.z), rho_new
+            K, d, P, p, reg = gains.K, gains.d, gains.P, gains.p, upd.reg[0]
             convals, A, B = m.convals, m.A, m.B
-            status, phi, dphi = new_status, m.phi, m.dphi
-            ls_iters, ls_fails = n_iters, ls_fails_new
+            status, phi, dphi = upd.status[0], m.phi, m.dphi
+            ls_iters, ls_fails = n_iters, upd.ls_fails[0]
             bp_fail_index = gains.fail_index.to(torch.int32)
             it += 1
         with span("sync"):

@@ -66,9 +66,8 @@ from altro_tpu_torch.solver import (
     banner_start,
     complementarity,
     emit,
-    feasibility,
+    iteration_update,
     reports,
-    stationarity,
     total_cost,
 )
 from altro_tpu_torch.status import LineSearchCode, SolveStatus
@@ -558,95 +557,28 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
                            torch.where(use_ls, alpha_sel, torch.zeros_like(alpha_sel)),
                            torch.where(use_ls, phi_sel, phi0), with_dphi=False)
             m = m._replace(dphi=torch.where(use_ls, m.dphi, dphi0))
-        x_m, u_m, y_m, phi_m, dphi_m = m.x, m.u, m.y, m.phi, m.dphi
-        A_m, B_m, lx_m, lu_m, convals_m, zproj_m = m.A, m.B, m.lx, m.lu, m.convals, m.zproj
         lap("completion")
 
-        # 6. optimality criteria
-        stat = stationarity(A_m, B_m, lx_m, lu_m, y_m)
-        feas = feasibility(problem, convals_m)
-        stat_tol = full(opts.tol_stationarity)
-        if opts.tol_stationarity_rel > 0:
-            scale = torch.maximum(
-                torch.maximum(torch.abs(lx_m).flatten(0, -2).amax(0),
-                              torch.abs(lu_m).flatten(0, -2).amax(0)),
-                torch.abs(y_m).flatten(0, -2).amax(0))
-            stat_tol = torch.maximum(stat_tol, opts.tol_stationarity_rel * scale)
-        no = torch.zeros(Bsz, dtype=torch.bool, device=dev)
-        x_oob, u_oob, obj_exceeded = no, no, no
-        if math.isfinite(opts.max_state_value):
-            x_oob = torch.abs(x_m).flatten(0, -2).amax(0) > opts.max_state_value
-        if math.isfinite(opts.max_input_value):
-            u_oob = torch.abs(u_m).flatten(0, -2).amax(0) > opts.max_input_value
-        if math.isfinite(opts.max_objective_value):
-            obj_exceeded = torch.logical_or(~torch.isfinite(phi_m),
-                                            phi_m > opts.max_objective_value)
-        diverged = obj_exceeded | x_oob | u_oob
-
-        converged = torch.logical_and(torch.abs(stat) < stat_tol,
-                                      feas < opts.tol_primal_feasibility)
-        if opts.enable_cost_tolerance:
-            cost_converged = (c["iter"] > 0) & (torch.abs(c["phi"] - phi_m) < opts.tol_cost) \
-                & (feas < opts.tol_primal_feasibility)
-            converged = converged | cost_converged
-
-        # 7. adaptive dual/penalty update
-        do_dual = stat < torch.sqrt(torch.tensor(opts.tol_stationarity, **lane))
-        z_new = tuple(
-            torch.where(do_dual & spec.active[:, None, None], zp, zj)
-            for spec, zp, zj in zip(problem.constraints, zproj_m, c["z"]))
-        do_penalty = do_dual & (feas > opts.tol_primal_feasibility)
-        rho_new = torch.where(
-            do_penalty, torch.clamp(c["rho"] * opts.penalty_scaling, max=opts.penalty_max),
-            c["rho"])
-
-        # status chain (MERIT_FUN_GRADIENT_TOO_SMALL sticky only while small)
-        def code(s):
-            return torch.full((Bsz,), int(s), dtype=torch.int32, device=dev)
-
-        prev_status = torch.where(
-            c["status"] == int(SolveStatus.MERIT_FUN_GRADIENT_TOO_SMALL),
-            code(SolveStatus.UNSOLVED), c["status"])
-        status = prev_status
-        grad_small_stat = no if opts.rti_mode else grad_small
-        for cond_, s in ((grad_small_stat, SolveStatus.MERIT_FUN_GRADIENT_TOO_SMALL),
-                         (u_oob, SolveStatus.INPUT_OUT_OF_BOUNDS),
-                         (x_oob, SolveStatus.STATE_OUT_OF_BOUNDS),
-                         (obj_exceeded, SolveStatus.MAX_OBJECTIVE_EXCEEDED),
-                         (bp_failed, SolveStatus.BACKWARD_PASS_FAILED),
-                         (ls_failed, SolveStatus.LINE_SEARCH_FAILED),
-                         (converged, SolveStatus.SUCCESS)):
-            status = torch.where(cond_, code(s), status)
-        ls_fails_new = c["ls_fails"] + ls_failed.to(torch.int32)
-        if opts.ls_failure_recovery:
-            reg_cap = opts.reg_min * opts.reg_scaling ** opts.reg_max_retries
-            escalated = torch.clamp(
-                torch.where(reg_used <= 0, torch.full_like(reg_used, opts.reg_min),
-                            reg_used * opts.reg_scaling), max=reg_cap)
-            reg_used = torch.where(ls_failed, escalated, reg_used)
-            cleared = ~ls_failed & ~converged & (
-                c["status"] == int(SolveStatus.LINE_SEARCH_FAILED))
-            status = torch.where(cleared, code(SolveStatus.UNSOLVED), status)
-            cap = opts.ls_recovery_max_fails
-            exhausted = (ls_failed & (ls_fails_new > cap)) if cap > 0 else no
-            stop = converged | bp_failed | exhausted
-        else:
-            stop = converged | ls_failed | bp_failed
-        stop = stop | diverged
+        # 6-7. criteria, dual/penalty update and status chain
+        upd = iteration_update(
+            problem, opts, m, z=c["z"], rho=c["rho"], status=c["status"],
+            ls_fails=c["ls_fails"], reg_used=reg_used, phi_prev=c["phi"], it=c["iter"],
+            grad_small=grad_small, bp_failed=bp_failed, ls_failed=ls_failed)
+        stat, feas, rho_new, do_dual = upd.stat, upd.feas, upd.rho, upd.do_dual
 
         if report:  # every lane, the frozen ones included, from one host read
             rows = torch.stack([t.to(dtype) for t in (
-                c["iter"], phi0, phi_m, dphi0, dphi_m, alpha_st, ls_iters, stat, feas,
+                c["iter"], phi0, m.phi, dphi0, m.dphi, alpha_st, ls_iters, stat, feas,
                 c["rho"], rho_new, do_dual)]).T.tolist()
             for it, *vals in rows:
                 emit(opts, int(it), *vals)
 
         new = dict(
-            x=x_m, u=u_m, y=y_m, z=z_new, rho=rho_new, K=g.K, d=g.d, P=g.P,
-            p=g.p, reg=reg_used, convals=convals_m, A=A_m, B=B_m,
-            iter=c["iter"] + 1, status=status, stop=stop, phi=phi_m, dphi=dphi_m,
+            x=m.x, u=m.u, y=m.y, z=upd.z, rho=rho_new, K=g.K, d=g.d, P=g.P,
+            p=g.p, reg=upd.reg, convals=m.convals, A=m.A, B=m.B,
+            iter=c["iter"] + 1, status=upd.status, stop=upd.stop, phi=m.phi, dphi=m.dphi,
             alpha=alpha_st, stat=stat, feas=feas, ls_iters=ls_iters,
-            ls_fails=ls_fails_new, bp_fail_index=g.fail_index.to(torch.int32),
+            ls_fails=upd.ls_fails, bp_fail_index=g.fail_index.to(torch.int32),
         )
         if vmapped:
             trace.add("trials", torch.where(active, ls_iters, torch.zeros_like(ls_iters)))

@@ -1,7 +1,7 @@
 """The port's top-level names against altro_tpu's (altro_tpu/__init__.py):
-every public name but `ensure_backend` (the TPU platform probe) and the
-four export functions, the same submodules but `export` (and `platform`),
-and the README's functional core (README.md:53) importing from the port."""
+every public name but `ensure_backend` (the TPU platform probe), the same
+submodules (but `platform`), and the README's functional core
+(README.md:53) importing from the port."""
 
 import types
 
@@ -13,11 +13,10 @@ torch = pytest.importorskip("torch")
 import altro_tpu  # noqa: E402
 import altro_tpu_torch  # noqa: E402
 
-NOT_PORTED = {"ensure_backend", "call_exported", "export_mpc_server", "load_exported",
-              "save_exported"}
+NOT_PORTED = {"ensure_backend"}
 # the submodules altro_tpu/__init__.py imports by name
-SUBMODULES = ("al", "checkpoint", "io", "linesearch", "models", "mpc", "ops", "parallel",
-              "profiling")
+SUBMODULES = ("al", "checkpoint", "export", "io", "linesearch", "models", "mpc", "ops",
+              "parallel", "profiling")
 
 
 def _names(mod):

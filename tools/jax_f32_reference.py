@@ -17,6 +17,8 @@
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --learned-mpc [--draws K]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --implicit-grad [--lanes B] [--iterations I]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --vmap-rescue [--lanes B]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --aot [--ticks T]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --cartpole-depths 40,50,60,100
 
 Runs altro_tpu (the reference package, not the port) in float32 on the
 CPU: the three double integrator oracles of
@@ -762,6 +764,23 @@ def single_lane_rows(cartpole_ref_iterations=30):
         print(json.dumps(row), flush=True)
 
 
+def cartpole_depths(depths):
+    """The cart-pole swing-up of `_single_lane_problems` in float32 and
+    float64 at each iterations_max of `depths`: |theta_N - pi| and |x_N|,
+    what chip_smoke.py's `cartpole_swingup` gate holds at its CP_ITERS."""
+    jax.config.update("jax_enable_x64", True)
+    for dt, tag in ((F32, "f32"), (jnp.float64, "f64")):
+        problem, state, opts = _single_lane_problems(dt)["cartpole_swingup"]
+        for iters in depths:
+            cut = dataclasses.replace(opts, iterations_max=iters)
+            st, stats = jax.jit(lambda s: solve(problem, s, cut))(state)
+            x = np.asarray(st.x, np.float64)
+            print(json.dumps({"row": "cartpole_swingup", "dtype": tag, "iterations_max": iters,
+                              "status": int(stats.status),
+                              "theta_N_err": float(abs(x[-1, 1] - np.pi)),
+                              "x_N_abs": float(abs(x[-1, 0]))}), flush=True)
+
+
 def _facade_pendulum(dt, with_tile):
     """tests/test_api.py:250-293's build(with_tile), solved in dtype dt."""
     from altro_tpu.api import ALTROSolver
@@ -1474,6 +1493,58 @@ def vmap_rescue_row(lanes=1024):
           flush=True)
 
 
+def aot_rows(calls=3):
+    """The `mpc_latency_aot` row's tick (scripts/bench_all.py:229-279: its
+    problem, options and warm-started inputs) through altro_tpu's jitted
+    `mpc_step`, `calls` ticks chained state to state from the row's
+    inputs, in float64 and float32 at B = 1: per tick u0, iterations and
+    status, then the last state's x, u and rho. What chip_smoke.py's
+    `export_aot` phase holds the port's f64 artifact to."""
+    jax.config.update("jax_enable_x64", True)
+    from altro_tpu.mpc import mpc_step
+
+    ref = load_scotty()
+    N = 30
+    h = float(np.float32(ref.tf / ref.N))
+    delta_max = float(np.deg2rad(60.0))  # a weak Python float: the f32 run stays f32
+    out = {"row": "mpc_latency_aot", "N": N, "calls": calls}
+    for dt, tag in ((jnp.float64, "f64"), (F32, "f32")):
+        steering = ConstraintSpec(
+            fn=lambda x, u, k: jnp.stack([x[3] - delta_max, -delta_max - x[3]]),
+            cone=Cone.NEGATIVE_ORTHANT, dim=2, active=jnp.ones(N + 1, bool),
+            label="steering", diag_hessian=True)
+        problem = Problem(
+            N=N, n=4, m=2, dynamics=midpoint(bicycle_continuous()), dynamics_jac=None,
+            constraints=(steering,),
+            cost=lqr_cost_from_reference(
+                jnp.full((N + 1, 4), 1e-2, dt), jnp.full((N + 1, 2), 1e-3, dt),
+                jnp.asarray(ref.x[: N + 1], dt), jnp.asarray(ref.u[: N + 1], dt)),
+            h=jnp.full(N, h, dt), x0=jnp.asarray(ref.x[0], dt))
+        opts = SolverOptions(
+            iterations_max=10, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+            throw_errors=False, use_backtracking_linesearch=True, penalty_warm_start=True,
+            parallel_linesearch=True, ls_phase_split=True, ls_armijo_only=True,
+            ls_grid_x_only=True, ls_max_iters=8)
+        st = dataclasses.replace(
+            init_state(problem), u=jnp.tile(jnp.asarray([ref.u[0][0], 0.0], dt), (N, 1)),
+            x=jnp.asarray(ref.x[: N + 1], dt))
+        xm = jnp.asarray(ref.x[1], dt)
+        xr = jnp.asarray(ref.x[1: N + 2], dt)
+        ur = jnp.asarray(ref.u[1: N + 2], dt)
+        step = jax.jit(lambda s: mpc_step(problem, s, xm, xr, ur, opts))
+        ticks = []
+        for _ in range(calls):
+            u0, st, stats = step(st)
+            ticks.append({"u0": np.asarray(u0, np.float64).tolist(),
+                          "iterations": int(stats.iterations), "status": int(stats.status)})
+        out[tag] = {"ticks": ticks, "x": np.asarray(st.x, np.float64).tolist(),
+                    "u": np.asarray(st.u, np.float64).tolist(), "rho": float(st.rho)}
+    out["f32_vs_f64_max_abs"] = {k: float(np.abs(np.asarray(out["f32"][k])
+                                               - np.asarray(out["f64"][k])).max())
+                                 for k in ("x", "u")}
+    print(json.dumps(out), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tol-stationarity", type=float, default=1e-4)
@@ -1524,6 +1595,12 @@ def main():
     ap.add_argument("--vmap-rescue", action="store_true",
                     help="run tests/test_rescue.py's batch at --lanes through "
                          "vmap_solve_with_rescue")
+    ap.add_argument("--cartpole-depths", type=str, default="",
+                    help="the cart-pole swing-up at these iterations_max (comma-separated), "
+                         "float32 and float64")
+    ap.add_argument("--aot", action="store_true",
+                    help="run the mpc_latency_aot row's tick (--ticks calls, default 3) in "
+                         "float64 and float32")
     ap.add_argument("--lanes", type=int, default=1024,
                     help="lanes of the batched rows (the tiled quadrotor row: a multiple "
                          "of 1024)")
@@ -1561,7 +1638,11 @@ def main():
         implicit_grads(args.lanes, args.iterations)
     if args.vmap_rescue:
         vmap_rescue_row(args.lanes)
-    if (args.learned_mpc or args.implicit_grad or args.vmap_rescue or args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
+    if args.aot:
+        aot_rows(args.ticks or 3)
+    if args.cartpole_depths:
+        cartpole_depths([int(v) for v in args.cartpole_depths.split(",")])
+    if (args.aot or args.cartpole_depths or args.learned_mpc or args.implicit_grad or args.vmap_rescue or args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
             or args.single_lane_rows or args.facade or args.quadrotor_vmapped or args.obstacle
             or args.obstacle_loop or args.obstacle_loop_draws or args.tracking_tiled
             or args.single_lane_options or args.quadrotor_latency):
