@@ -26,9 +26,14 @@ def save_state(path: str, state: SolverState) -> None:
     np.savez(path, **arrays)
 
 
-def load_state(path: str, dtype=None, device="cpu") -> SolverState:
+def load_state(path: str, dtype=None, device="cuda") -> SolverState:
     """The archived state as tensors on `device` (in `dtype` when given,
-    else the archive's)."""
+    else the archive's): the card by default, like the port's other entry
+    points (JAX's puts the arrays on its default device). Without a card,
+    pass device="cpu"; a CUDA device is not quietly replaced by the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"load_state: device {device!r} asked for and no CUDA device is "
+                           "available; pass device='cpu'")
     data = np.load(path)
 
     def conv(a):

@@ -228,7 +228,7 @@ def export_mpc_server(problem: Problem, opts: SolverOptions = SolverOptions(),
     if unknown:
         raise ValueError(f"export_mpc_server: unknown platforms {unknown} (it takes "
                          f"{_PLATFORMS})")
-    check_options("export_mpc_server", opts)
+    check_options(opts)
     why = graph_refusal(problem, opts, single=batch is None, cuda="cuda" in plats)
     if why is not None:
         raise NotImplementedError(f"export_mpc_server: {why}")

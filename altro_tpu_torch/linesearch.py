@@ -532,7 +532,11 @@ def wolfe_line_search_lanes(
     (a pytree of [..., B] tensors) the payload of each lane's last
     evaluation is carried (`aux`, valid at `aux_alpha`). active [B] bool:
     lanes to search (default all); the others start finished (code
-    NO_ERROR, alpha 0) and are never read.
+    NO_ERROR, alpha 0) and are never read. With `opts.verbose` it prints
+    what `jax.vmap(wolfe_line_search)` prints: each lane's start banner,
+    then every pass one trial line per lane in lane order (a finished
+    lane's at its held n_iters and alpha_next, as JAX's batched while
+    loop runs its body for every lane); one host read a pass.
 
     One loop pass evaluates the merit once for every lane, computes the
     transitions of the modes any running lane is in, and selects each
@@ -696,6 +700,9 @@ def wolfe_line_search_lanes(
     def mode_counts(s):
         return trace.read(torch.bincount(s["mode"].long(), minlength=5))
 
+    if opts.verbose:  # each lane's start banner (altro_tpu/linesearch.py:521-525)
+        for p0, d0 in torch.stack([phi0, dphi0]).T.tolist():
+            print(f"  Starting Cubic Line Search with phi0 = {p0:.8}, dphi0 = {d0:.6}")
     counts = mode_counts(s)
     while any(counts[:_DONE]):
         out = merit_full(s["alpha_next"])
@@ -704,6 +711,10 @@ def wolfe_line_search_lanes(
         else:
             (phi_t, dphi_t), aux_t = out[:2], ()
         phi_t, dphi_t = phi_t.to(dt), dphi_t.to(dt)
+        if opts.verbose:  # every lane's trial line, a finished lane's at its held trial
+            rows = torch.stack([s["n_iters"].to(dt), s["alpha_next"], phi_t, dphi_t]).T.tolist()
+            for i, a, p, d in rows:
+                print(f"    ls trial {int(i)}: alpha = {a:.6}, phi = {p:.8}, dphi = {d:.6}")
         s_t = {**s, "aux": aux_t, "aux_alpha": s["alpha_next"]}
         new = None
         for mode in (k for k in range(_DONE) if counts[k]):

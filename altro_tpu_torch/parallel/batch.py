@@ -6,8 +6,9 @@ Counterpart: altro_tpu/parallel/batch.py (`batch_init_state`,
 lane-minor iteration that tile_solver.solve_tiled also runs
 (`tile_solver.lane_loop`), with the per-lane semantics of
 `jax.vmap(solve)`, every line search included (the light-payload grid
-too), and reports per lane at a non-silent verbosity and through
-`iteration_callback`, as JAX's vmapped solve does. `batched_tracking_solver`
+too), every backward pass (`parallel_riccati` too), and reports per lane
+at every verbosity tier (Verbosity.LINE_SEARCH's per-trial lines too) and
+through `iteration_callback`, as JAX's vmapped solve does. `batched_tracking_solver`
 gives each lane its own linear cost terms q and c (Q, R and r shared),
 as lane-minor rows of the `DiagonalCost`.
 """
@@ -24,7 +25,6 @@ from altro_tpu_torch.problem import DiagonalCost, Problem
 from altro_tpu_torch.solver import (
     SolverState,
     check_pallas_backward,
-    grid_search_refusal,
     init_state,
 )
 
@@ -38,9 +38,8 @@ def batch_init_state(problem: Problem, batch: int) -> SolverState:
     return s.map(lambda a: a.expand((batch,) + a.shape).contiguous())
 
 
-def check_options(who: str, opts: SolverOptions) -> None:
-    """JAX's option errors (ValueError), then what the port does not run
-    (NotImplementedError naming the option)."""
+def check_options(opts: SolverOptions) -> None:
+    """JAX's option errors (ValueError)."""
     check_pallas_backward(opts)
     if opts.ls_armijo_only and not (opts.rti_mode or opts.ls_phase_split):
         raise ValueError(
@@ -49,9 +48,6 @@ def check_options(who: str, opts: SolverOptions) -> None:
             "and cannot be skipped")
     if not opts.rti_mode and opts.parallel_linesearch and not opts.use_backtracking_linesearch:
         raise ValueError("parallel_linesearch requires use_backtracking_linesearch")
-    why = grid_search_refusal(opts)
-    if why is not None:
-        raise NotImplementedError(f"{who}: {why}")
 
 
 def solve_lanes(problem: Problem, state: SolverState, opts: SolverOptions = SolverOptions(),
@@ -60,7 +56,7 @@ def solve_lanes(problem: Problem, state: SolverState, opts: SolverOptions = Solv
     lane-minor; returns (state lane-minor, stats [B]). Closed loops call
     this to keep their lanes lane-minor across ticks. layer_seconds: a
     dict that gains host seconds by layer (`tile_solver.lane_loop`)."""
-    check_options("solve_lanes", opts)
+    check_options(opts)
     tsv.refuse_on_card("solve_lanes", problem, opts, vmapped=True)
     return tsv.lane_loop(problem, state, opts, vmapped=True, trace=Trace(layer_seconds))
 
@@ -76,17 +72,18 @@ def vmap_solve(problem: Problem, opts: SolverOptions = SolverOptions()):
     `parallel_linesearch` the non-split or the phase-split grid. With
     `pallas_backward` the backward pass is the dense kernel
     (ops/riccati_dense.py) on CUDA float32 and its plain version on the
-    CPU; without it, the plain recursion. The trial rollouts are always
+    CPU; with `parallel_riccati` the associative pass
+    (`tvlqr.tvlqr_backward_associative`, plain PyTorch on any device);
+    else the plain recursion. The trial rollouts are always
     the plain ones through the problem's own dynamics: `pallas_rollout`
     is not read, since it selects the single-lane trial-rollout kernel,
     which JAX's vmapped solve never runs either
     (altro_tpu/ops/pallas_rollout.py falls back to the scan under vmap).
-    Options JAX rejects raise its ValueError; options the port does not
-    implement raise NotImplementedError naming the option; on CUDA a
-    problem the dense kernel cannot take raises with its reason
+    Options JAX rejects raise its ValueError; on CUDA a problem the dense
+    kernel cannot take raises NotImplementedError with its reason
     (`tile_solver.kernel_refusal`) when called, before anything runs.
     """
-    check_options("vmap_solve", opts)
+    check_options(opts)
 
     def run(x0, state: SolverState):
         tsv.refuse_on_card("vmap_solve", dataclasses.replace(problem, x0=x0), opts, vmapped=True)
@@ -115,7 +112,7 @@ def batched_tracking_solver(problem: Problem, opts: SolverOptions = SolverOption
     """
     if not isinstance(problem.cost, DiagonalCost):
         raise TypeError("batched_tracking_solver requires a DiagonalCost")
-    check_options("batched_tracking_solver", opts)
+    check_options(opts)
 
     def run(x0, q, c, state: SolverState):
         tsv.refuse_on_card("batched_tracking_solver", dataclasses.replace(problem, x0=x0), opts,

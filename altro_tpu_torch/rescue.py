@@ -83,7 +83,7 @@ def vmap_solve_with_rescue(
     kernels are checked for both tiers before either runs
     (`parallel.batch.check_options`, `tile_solver.refuse_on_card`)."""
     for o in (opts, opts_rescue):
-        check_options("vmap_solve_with_rescue", o)
+        check_options(o)
         tsv.refuse_on_card("vmap_solve_with_rescue", dataclasses.replace(problem, x0=x0_batch),
                            o, vmapped=True)
     prob = dataclasses.replace(problem, x0=tsv.batch_to_lanes(x0_batch))

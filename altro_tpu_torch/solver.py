@@ -24,7 +24,9 @@ Gauss-Newton or, under exact_al_hessian, the exact AL Hessian; the
 single-lane backward pass (ops/packed_backward.py, the kernel on the card) with the
 adaptive-regularization retry, or under `pallas_backward` the plain
 serial recursion (JAX's fused dispatcher runs its scan on one lane,
-altro_tpu/solver.py:629-641: no kernel there either); then one of
+altro_tpu/solver.py:629-641: no kernel there either), or under
+`parallel_riccati` the associative pass (tvlqr.py, plain PyTorch); then
+one of
   * the strong-Wolfe cubic search or, with use_backtracking_linesearch,
     the sequential backtracking (linesearch.wolfe_line_search, the
     default options) over `merit_function`;
@@ -51,9 +53,8 @@ and per strong-Wolfe trial). The verbosity tiers and `iteration_callback`
 (the JAX solve's `jax.debug.print` / `debug_callback` sites) are host
 prints and calls in that loop, with JAX's format strings; at
 Verbosity.SILENT without a callback they read nothing from the device.
-Options it does not implement raise NotImplementedError naming the
-option (`single_lane_refusal`), as does a CUDA problem the kernels cannot
-take.
+A CUDA problem the kernels cannot take raises NotImplementedError with
+the reason (`single_lane_refusal`).
 """
 
 from __future__ import annotations
@@ -89,6 +90,7 @@ from altro_tpu_torch.ops.trial_rollout import (
 from altro_tpu_torch.options import SolverOptions, Verbosity
 from altro_tpu_torch.problem import Problem
 from altro_tpu_torch.status import LineSearchCode, SolveStatus
+from altro_tpu_torch.tvlqr import tvlqr_backward_associative
 
 __all__ = [
     "SolverState",
@@ -96,7 +98,6 @@ __all__ = [
     "init_state",
     "solve",
     "single_lane_refusal",
-    "grid_search_refusal",
     "check_pallas_backward",
     "open_loop_rollout",
     "MeritOut",
@@ -507,17 +508,23 @@ def _retry_loop(opts: SolverOptions, attempt, reg0):
 
 
 def backward_adaptive(opts: SolverOptions, A, B, lxx, luu, lux, lx, lu, reg0):
-    """Single-lane backward pass with the retry: under `pallas_backward`
-    the plain serial recursion (JAX's fused dispatcher on one lane runs
-    its scan, altro_tpu/solver.py:635-641; it takes precedence over
-    pallas_latency_backward and runs on any device); else the latency
+    """Single-lane backward pass with the retry, in JAX's precedence
+    (altro_tpu/solver.py:635-666): under `pallas_backward` the plain
+    serial recursion (JAX's fused dispatcher on one lane runs its scan,
+    on any device); else under `parallel_riccati` the associative pass
+    (`tvlqr.tvlqr_backward_associative`, plain PyTorch on any device, its
+    two-level form with `parallel_riccati_chunk`); else the latency
     dispatcher (the kernel on CUDA tensors) when pallas_latency_backward,
     else the plain recursion on whatever device the operands are. The
-    caller has refused parallel_riccati (`single_lane_refusal`) and
-    pallas_backward's exclusions (`check_pallas_backward`)."""
+    caller has checked pallas_backward's exclusions
+    (`check_pallas_backward`)."""
     A, B, lxx, luu, lx, lu = (t.contiguous() for t in (A, B, lxx, luu, lx, lu))
     lux = None if lux is None else lux.contiguous()
-    if opts.pallas_latency_backward and not opts.pallas_backward:
+    if opts.parallel_riccati and not opts.pallas_backward:
+        def attempt(reg):
+            return tvlqr_backward_associative(A, B, None, lxx, luu, lux, lx, lu, reg,
+                                              chunk=opts.parallel_riccati_chunk or None)
+    elif opts.pallas_latency_backward and not opts.pallas_backward:
         def attempt(reg):
             return tvlqr_backward_latency(A, B, None, lxx, luu, lux, lx, lu, reg,
                                           symmetrize=opts.symmetrize_ctg)
@@ -545,21 +552,6 @@ def check_pallas_backward(opts: SolverOptions) -> None:
             "serial recursion); disable one of them")
 
 
-def grid_search_refusal(opts: SolverOptions) -> Optional[str]:
-    """Why the batched solves (the vmapped solve of parallel/batch.py) cannot
-    run these options, or None: every line search of `jax.vmap(solve)`
-    runs, the light-payload grid included, with the solve's verbosity
-    tiers and `iteration_callback` per lane; the line searches' own
-    per-trial trace (Verbosity.LINE_SEARCH) is not printed by the batch."""
-    checks = (
-        (opts.parallel_riccati, "parallel_riccati is not ported"),
-        (opts.verbose >= Verbosity.LINE_SEARCH,
-         "Verbosity.LINE_SEARCH (the line searches' per-trial trace) is not ported for the "
-         "batched solves"),
-    )
-    return next((why for bad, why in checks if bad), None)
-
-
 def _phase_split(opts: SolverOptions) -> bool:
     """True when the solve searches the phase-split grid."""
     return opts.parallel_linesearch and opts.ls_phase_split
@@ -584,14 +576,14 @@ def _trial_grid(problem: Problem, opts: SolverOptions) -> bool:
 
 
 def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
-    """Why `solve` does not run this configuration, or None: an option it
-    does not implement, or, on a CUDA problem, a kernel that cannot take
-    it (checked before anything launches; the plain paths are selected by
+    """Why `solve` does not run this configuration, or None: on a CUDA
+    problem, a kernel that cannot take it (checked before anything
+    launches; the plain paths are selected by
     pallas_latency_backward=False and pallas_rollout=False). A CPU problem
     that the trial rollout cannot take runs the problem's own grid, as
-    JAX's solve does."""
-    if opts.parallel_riccati:
-        return "parallel_riccati is not ported"
+    JAX's solve does. `parallel_riccati` (without `pallas_backward`)
+    takes the backward's place and is plain PyTorch, so the latency
+    kernel is not asked for under it."""
     if problem.device.type != "cuda":
         return None
     kernel_grid = _kernel_grid(opts)
@@ -601,7 +593,7 @@ def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
             return (f"pallas_rollout (the trial-rollout grid) cannot take this problem: "
                     f"{grid_why}; pallas_rollout=False selects the problem's own grid")
     f32 = problem.dtype == torch.float32
-    if opts.pallas_latency_backward and not opts.pallas_backward:
+    if opts.pallas_latency_backward and not opts.pallas_backward and not opts.parallel_riccati:
         bad = []
         if (problem.n, problem.m) not in rl.KERNEL_SHAPES:
             bad.append(f"no instantiation for n={problem.n}, m={problem.m} (it has "
@@ -829,10 +821,11 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
         A, B = dynamics_expansions(problem, x, u)
 
     # dense expansions unless the AL Hessian is diagonal (altro_tpu/
-    # solver.py:745-752, 832-837; parallel_riccati is refused); the exact
-    # AL Hessian and pallas_backward's operands are dense
+    # solver.py:745-752, 832-837); the exact AL Hessian, pallas_backward's
+    # and the associative pass's operands are dense
     diag_mode = (opts.diag_expansion and al.diag_expansion_eligible(problem)
-                 and not opts.exact_al_hessian and not opts.pallas_backward)
+                 and not opts.exact_al_hessian and not opts.pallas_backward
+                 and not opts.parallel_riccati)
     if diag_mode:
         expand = _cost_expansions_and_cost_diag
     elif opts.exact_al_hessian:

@@ -44,6 +44,7 @@ from altro_tpu_torch.linesearch import LineSearchOptions, Trace, _where, wolfe_l
 from altro_tpu_torch.ops import tile_iter as ti
 from altro_tpu_torch.ops.riccati_backward import (
     KERNEL_SHAPES,
+    Gains,
     riccati_backward,
     riccati_backward_ref,
 )
@@ -71,6 +72,7 @@ from altro_tpu_torch.solver import (
     total_cost,
 )
 from altro_tpu_torch.status import LineSearchCode, SolveStatus
+from altro_tpu_torch.tvlqr import tvlqr_backward_associative
 
 __all__ = [
     "solve_tiled",
@@ -211,6 +213,30 @@ def _freeze(active, new: dict, old: dict) -> dict:
     return out
 
 
+def associative_lanes(A, B, lxx, luu, lx, lu, reg, lux=None, chunk=None) -> Gains:
+    """`tvlqr.tvlqr_backward_associative` on lane-minor operands (A [N, n,
+    n, B], ..., reg [B]): the vmapped solve's backward under
+    `parallel_riccati`, as `jax.vmap(solve)` runs it. Lane-minor Gains."""
+    def b(t):
+        return None if t is None else t.movedim(-1, 0)
+
+    g = tvlqr_backward_associative(b(A), b(B), None, b(lxx), b(luu), b(lux), b(lx), b(lu), reg,
+                                   chunk=chunk)
+    return Gains(*(t.movedim(0, -1).contiguous() for t in g[:5]), g.ok, g.fail_index)
+
+
+def print_grid_blocks(blocks, alphas, phis, phi0, with_phi0):
+    """Each lane's `ls grid block` line (altro_tpu/linesearch.py:614, 756,
+    811), in lane order: lane i shows block blocks[i] (the block JAX's
+    vmapped while loop holds for it: a lane that found its trial keeps
+    the block after it), with that block's alphas [W] and its own phis
+    from phis[block] ([W, B], host)."""
+    for lane, blk in enumerate(blocks):
+        line = (f"    ls grid block {blk}: alphas = {alphas[blk]}, "
+                f"phis = {phis[blk][:, lane]}")
+        print(line + (f" (phi0 = {phi0[lane]:.8})" if with_phi0 else ""))
+
+
 def search_kind(opts: SolverOptions, vmapped: bool) -> str:
     """The line search `lane_loop` runs: "rti" (the full step), and for the
     vmapped solve "sequential" (parallel_linesearch=False: the strong-Wolfe
@@ -299,9 +325,15 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
     for every lane in lane order, the frozen ones included (a batched
     while loop runs its body for every lane), `iteration_callback(iter,
     phi, stat, feas, alpha, rho)` and the INNER line, or at OUTER the
-    outer line; and each lane's last line. One host read a trip; nothing
-    at SILENT without a callback. JAX prints the lanes' lines unordered
-    within a trip; the port prints them in lane order.
+    outer line; and each lane's last line. At LINE_SEARCH each trip's
+    search prints first, for every lane, as JAX's vmapped search does (its
+    batched loops run their bodies for every lane): the lane machine's
+    start banners and a trial line per lane a pass, or the grid's block
+    lines, a lane that found its trial holding the block after it. One
+    host read a trip (one more a machine pass or grid block at
+    LINE_SEARCH); nothing at SILENT without a callback. JAX prints the
+    lanes' lines unordered within a trip; the port prints them in lane
+    order.
     """
     trace = trace or Trace()
     trace.start()
@@ -315,7 +347,7 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
     # accepts the option and does not read it
     exact = vmapped and opts.exact_al_hessian
     diag = (opts.diag_expansion and al.diag_expansion_eligible(problem) and not fused
-            and not exact)
+            and not exact and not opts.parallel_riccati)
     search = search_kind(opts, vmapped)
     # trial 0 of a grid passes on Armijo and strong Wolfe: the non-split grid
     # always, the phase-split one in the vmapped solve unless ls_armijo_only
@@ -332,7 +364,8 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
         alpha_max=opts.ls_alpha_max, beta_increase=opts.ls_beta_increase,
         beta_decrease=opts.ls_beta_decrease, min_interval_size=opts.ls_min_interval_size,
         try_cubic_first=opts.ls_try_cubic_first,
-        use_backtracking=opts.use_backtracking_linesearch, armijo_slack=opts.ls_armijo_slack)
+        use_backtracking=opts.use_backtracking_linesearch, armijo_slack=opts.ls_armijo_slack,
+        verbose=vmapped and opts.verbose >= Verbosity.LINE_SEARCH)
 
     def full(v, dt=None):
         return torch.full((Bsz,), v, dtype=dt or dtype, device=dev)
@@ -413,6 +446,10 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
                 A, B, lxx_, luu_, lx_, lu_ = ops
                 return riccati_backward_dense(A, B, None, lxx_, luu_, lux, lx_, lu_,
                                               reg.contiguous())
+        elif opts.parallel_riccati:  # the vmapped solve (solve_tiled refuses it)
+            def attempt(reg):
+                return associative_lanes(*ops, reg, lux=lux,
+                                         chunk=opts.parallel_riccati_chunk or None)
         elif vmapped:
             def attempt(reg):
                 return riccati_backward_ref(*ops, reg, lux=lux)
@@ -465,11 +502,19 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
             payload_ls = ls.aux
             ls_alpha, code, n_iters, aux_alpha = ls.alpha, ls.code, ls.n_iters, ls.aux_alpha
         else:
+            # a reporting solve searches every lane, as above; at LINE_SEARCH
+            # each block's alphas and phis are kept on the host for the lines
+            searching = torch.ones_like(active) if report else active
+            block_alphas, block_phis = {}, {}
+
             def eval_block(block):
                 ks = block * W + torch.arange(W, device=dev)
                 alphas = torch.full((W,), beta, **lane) ** ks.to(dtype)
                 phis, xstacks = grid(alphas, c, g)
                 lap("grid")
+                if ls_opts.verbose:
+                    block_alphas[block] = alphas.cpu().numpy()
+                    block_phis[block] = phis.cpu().numpy()
                 armijo = phis <= (phi0[None] + c1 * alphas[:, None] * dphi0[None]
                                   + slack * torch.abs(phi0)[None])
                 if block == 0 and wolfe_first:
@@ -482,11 +527,19 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
                 return sel, best
 
             (found, k_acc, alpha_sel, phi_sel, x_sel), best = eval_block(0)
+            if ls_opts.verbose:
+                phi0_host = phi0.tolist()
+                print_grid_blocks([0] * Bsz, block_alphas, block_phis, phi0_host, True)
+                found_at = torch.where(found, 0, -1)
             if fallback:
                 balpha, bphi, bx = best
             blk = 1
-            while blk < n_blocks and trace.read(torch.any(~found & active)):
+            while blk < n_blocks and trace.read(torch.any(~found & searching)):
                 (f2, idx2, a2, p2, x2), best2 = eval_block(blk)
+                if ls_opts.verbose:
+                    print_grid_blocks(torch.where(found_at >= 0, found_at + 1, blk).tolist(),
+                                      block_alphas, block_phis, phi0_host, search == "grid")
+                    found_at = torch.where(~found & f2, blk, found_at)
                 # a lane still searching takes this block's first passing trial,
                 # or its first trial (the JAX loop's body runs for it)
                 upd = ~found

@@ -88,7 +88,7 @@ def test_checkpoint_roundtrip_and_resume(tmp_path):
     problem, state, opts = _small_solved_state()
     path = str(tmp_path / "state.npz")
     save_state(path, state)
-    restored = load_state(path)
+    restored = load_state(path, device="cpu")
     for f_ in ("x", "u", "y", "K", "d", "P", "p", "rho", "reg"):
         assert torch.equal(getattr(restored, f_), getattr(state, f_)), f_
     for a, b in zip(restored.z, state.z):
@@ -97,7 +97,7 @@ def test_checkpoint_roundtrip_and_resume(tmp_path):
     s2, st2 = solve(problem, state, opts)
     assert int(st1.iterations) == int(st2.iterations)
     assert torch.equal(s1.x, s2.x)
-    assert load_state(path, dtype=torch.float32).x.dtype == torch.float32
+    assert load_state(path, dtype=torch.float32, device="cpu").x.dtype == torch.float32
 
 
 def test_checkpoint_archives_cross_packages(tmp_path):
@@ -109,7 +109,7 @@ def test_checkpoint_archives_cross_packages(tmp_path):
     np.testing.assert_array_equal(np.asarray(js.K), state.K.numpy())
     jpath = str(tmp_path / "jax.npz")
     jsave_state(jpath, js)
-    back = load_state(jpath)
+    back = load_state(jpath, device="cpu")
     assert torch.equal(back.x, state.x) and torch.equal(back.z[0], state.z[0])
 
 
@@ -121,3 +121,18 @@ def test_profiling_harness(tmp_path):
     with profiling.trace(str(tmp_path / "trace")):
         solve(problem, state, opts)
     assert (tmp_path / "trace" / "trace.json").exists()
+
+
+def test_load_state_defaults_to_the_card(tmp_path):
+    """`load_state` puts the state on the card unless asked otherwise, like
+    the port's other entry points; without a card a call that names no
+    device raises instead of loading onto the CPU."""
+    _, state, _ = _small_solved_state()
+    path = str(tmp_path / "state.npz")
+    save_state(path, state)
+    if torch.cuda.is_available():
+        assert load_state(path).x.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load_state(path)
+    assert load_state(path, device="cpu").x.device.type == "cpu"

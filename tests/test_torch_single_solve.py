@@ -139,13 +139,15 @@ def test_solve_matches_jax_solve_f64(variant, offset, override):
     (dict(iteration_callback=lambda *a: None), None),
     (dict(verbose=2), None),
     (dict(exact_al_hessian=True), None),
-    (dict(parallel_riccati=True), "parallel_riccati"),
+    (dict(parallel_riccati=True), None),
     (dict(ls_grid_x_only=False), None),
 ], ids=["rti_mode", "pallas_backward", "iteration_callback", "verbose", "exact_al_hessian",
         "parallel_riccati", "ls_grid_x_only"])
 def test_solve_refuses_unported_options(kw, word, capsys):
-    """Options the single-lane solve does not implement are refused by
-    name (parallel_riccati). The others run: iteration_callback and
+    """Options the single-lane solve did not implement were refused by
+    name; none is left since parallel_riccati was ported (the associative
+    backward on dense expansions takes the dense serial solve's iterates,
+    to roundoff). The others run: iteration_callback and
     verbose (ported with the facade) leave the solve unchanged; so does
     exact_al_hessian (ported with the obstacle row): on this problem's
     affine bound it equals the Gauss-Newton Hessian of dense expansions
@@ -166,14 +168,14 @@ def test_solve_refuses_unported_options(kw, word, capsys):
         assert float(stats1.alpha) == 1.0 and int(stats1.ls_iterations) == 1
         return
     base = T_OPTS
-    if "exact_al_hessian" in kw:
+    if "exact_al_hessian" in kw or "parallel_riccati" in kw:
         base = T_OPTS.replace(diag_expansion=False)
     if "pallas_backward" in kw:
         base = T_OPTS.replace(diag_expansion=False, symmetrize_ctg=False)
     st0, stats0 = solver.solve(prob, st, base)
     assert int(stats1.status) == int(stats0.status)
     assert int(stats1.iterations) == int(stats0.iterations)
-    if "pallas_backward" in kw or "ls_grid_x_only" in kw:
+    if "pallas_backward" in kw or "ls_grid_x_only" in kw or "parallel_riccati" in kw:
         np.testing.assert_allclose(st1.x.numpy(), st0.x.numpy(), rtol=0, atol=1e-12)
         np.testing.assert_allclose(st1.u.numpy(), st0.u.numpy(), rtol=0, atol=1e-12)
         return

@@ -19,6 +19,7 @@
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --vmap-rescue [--lanes B]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --aot [--ticks T]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --cartpole-depths 40,50,60,100
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --long-horizon-parallel-riccati [--draws K]
 
 Runs altro_tpu (the reference package, not the port) in float32 on the
 CPU: the three double integrator oracles of
@@ -178,6 +179,17 @@ test's options and the rescue to 40 iterations, in float32 and float64:
 statuses and iterations counted by half, the primary-only run's failed
 lanes, and the largest float32-vs-float64 difference of x and u. What
 chip_smoke.py's `vmap_rescue` gates rest on.
+
+With --long-horizon-parallel-riccati it runs the bounded N=500 Scotty
+solve of chip_smoke.py's `long_horizon` phase (the port's problem, warm
+start and options) through jax.vmap(solve): the float64 serial solve over
+the 32 rounding draws of `long_horizon_draws` (x0 and starts 1e-6 N(0, 1)
+away, numpy seed 7), whose median +- 3 MAD is the band, then the float32
+solve with `parallel_riccati`, the pure scan and chunk 16, over the first
+K draws (--draws, default 8): objectives, statuses, iterations and each
+form's `band_verdict` against that band and against the card's f64 plain
+band (PERF.md section 2). What chip_smoke.py's parallel_riccati draws'
+gate rests on.
 """
 
 from __future__ import annotations
@@ -1099,20 +1111,21 @@ def _obstacle_loop(dt, with_obstacle, exact, tol, ticks=40, N=30, dx0=None):
             "mean_iterations": float(np.mean(iters)), "max_iterations": max(iters)}
 
 
-def obstacle_loops():
-    """tests/test_obstacle_mpc.py's loop: f32 at 1e-3 and f64 at 1e-4, with
-    and without the disc, under each Hessian."""
+def obstacle_loops(ticks=40):
+    """tests/test_obstacle_mpc.py's loop (`ticks` of it, the test's 40 by
+    default): f32 at 1e-3 and f64 at 1e-4, with and without the disc,
+    under each Hessian."""
     jax.config.update("jax_enable_x64", True)
     for dt, tol in ((F32, 1e-3), (jnp.float64, 1e-4)):
         for exact in (False, True):
             for with_obstacle in (True, False):
-                out = _obstacle_loop(dt, with_obstacle, exact, tol)
+                out = _obstacle_loop(dt, with_obstacle, exact, tol, ticks=ticks)
                 print(json.dumps({"row": "obstacle_loop", "dtype": jnp.dtype(dt).name,
                                   "tol": tol, "exact": exact, "with_obstacle": with_obstacle,
-                                  **out}), flush=True)
+                                  "ticks": ticks, **out}), flush=True)
 
 
-def obstacle_loop_draws(draws, scale=1e-6):
+def obstacle_loop_draws(draws, scale=1e-6, ticks=40):
     """The spread of tests/test_obstacle_mpc.py's float32 loop (the disc,
     the Gauss-Newton Hessian, tolerance 1e-3) over starts moved off
     ref.x[0] by scale N(0, 1) (numpy seed 0; draw 0 unmoved): JAX's loop
@@ -1130,13 +1143,13 @@ def obstacle_loop_draws(draws, scale=1e-6):
     except ImportError:
         torch = None
     for i, dx0 in enumerate(moves):
-        out = _obstacle_loop(F32, True, False, 1e-3, dx0=dx0)
-        row = {"row": "obstacle_loop_draw", "draw": i, "scale": scale,
+        out = _obstacle_loop(F32, True, False, 1e-3, ticks=ticks, dx0=dx0)
+        row = {"row": "obstacle_loop_draw", "draw": i, "scale": scale, "ticks": ticks,
                "jax_f32": {k: out[k] for k in ("success_rate", "statuses", "min_dist",
                                                "mean_tracking_error", "last_tracking_error")}}
         if torch is not None:
             torch.set_num_threads(1)
-            res = port_mpc.run_obstacle_loop(port_scotty(), True, False, dx0=dx0,
+            res = port_mpc.run_obstacle_loop(port_scotty(), True, False, dx0=dx0, ticks=ticks,
                                              opts=port_mpc.obstacle_loop_options(1e-3),
                                              dtype=torch.float32, device="cpu")
             m = res.metrics()
@@ -1545,6 +1558,101 @@ def aot_rows(calls=3):
     print(json.dumps(out), flush=True)
 
 
+LH_DRAWS, LH_DRAW_SCALE, LH_DRAW_SEED, LH_BAND_MADS, LH_ALPHA = 32, 1e-6, 7, 3.0, 0.01
+
+
+def _long_horizon(dt, N=500):
+    """The bounded N=500 Scotty solve of chip_smoke.py's `long_horizon`
+    phase in dtype dt: the port's `mpc.scotty_problem(ref, N=500)` (its
+    steering bound affine with a diagonal AL Hessian), the warm start
+    `mpc.long_horizon_state` and `mpc.long_horizon_options()`."""
+    ref = load_scotty()
+    dm = float(np.deg2rad(60.0))
+    steering = ConstraintSpec(fn=lambda x, u, k: jnp.stack([x[3] - dm, -dm - x[3]]),
+                              cone=Cone.NEGATIVE_ORTHANT, dim=2, active=jnp.ones(N + 1, bool),
+                              label="steering bound", diag_hessian=True, affine=True)
+    problem = Problem(
+        N=N, n=4, m=2, dynamics=midpoint(bicycle_continuous()), dynamics_jac=None,
+        constraints=(steering,), cost=lqr_cost_from_reference(
+            jnp.full((N + 1, 4), 1e-2, dt), jnp.full((N + 1, 2), 1e-3, dt),
+            jnp.asarray(ref.x[: N + 1], dt), jnp.asarray(ref.u[: N + 1], dt)),
+        h=jnp.full(N, float(np.float32(ref.tf / ref.N)), dt), x0=jnp.asarray(ref.x[0], dt))
+    state = dataclasses.replace(init_state(problem),
+                                u=jnp.tile(jnp.asarray([ref.u[0][0], 0.0], dt), (N, 1)),
+                                x=jnp.asarray(ref.x[: N + 1], dt))
+    opts = SolverOptions(
+        iterations_max=20, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+        throw_errors=False, use_backtracking_linesearch=True, symmetrize_ctg=True,
+        parallel_linesearch=True, ls_phase_split=True, ls_grid_x_only=True,
+        ls_try_cubic_first=False, ls_armijo_only=True, ls_max_iters=24,
+        pallas_latency_backward=True, pallas_rollout=True, diag_expansion=True)
+    return problem, state, opts
+
+
+def _draws(problem, state, opts, count):
+    """The solve from x0 and from starts 1e-6 N(0, 1) away (numpy seed 7;
+    chip_smoke.py's `long_horizon_draws`), as the lanes of jax.vmap(solve):
+    objective, status and iterations per draw."""
+    rng = np.random.default_rng(LH_DRAW_SEED)
+    shifts = [np.zeros(4)] + [LH_DRAW_SCALE * rng.standard_normal(4)
+                              for _ in range(LH_DRAWS - 1)]
+    dt = problem.x0.dtype
+    x0 = problem.x0[None] + jnp.asarray(np.stack(shifts[:count]), dt)
+    batch = jax.tree.map(lambda a: jnp.broadcast_to(a, (count,) + a.shape), state)
+    run = jax.jit(jax.vmap(lambda x, s: solve(dataclasses.replace(problem, x0=x), s, opts)))
+    _, stats = jax.block_until_ready(run(x0, batch))
+    return [{"objective": float(o), "status": int(s), "iterations": int(i)}
+            for o, s, i in zip(np.asarray(stats.objective_value, np.float64),
+                               np.asarray(stats.status), np.asarray(stats.iterations))]
+
+
+def _band_verdict(objs, band, q):
+    """chip_smoke.py's `band_verdict`: median in the band, every objective
+    finite and a count in the band as likely as LH_ALPHA at share q."""
+    import math
+    import statistics
+
+    lo, hi = band
+    n, count = len(objs), sum(lo <= v <= hi for v in objs)
+    chance = sum(math.comb(n, k) * q ** k * (1 - q) ** (n - k) for k in range(count + 1))
+    med = statistics.median(objs)
+    held = all(math.isfinite(v) for v in objs) and lo <= med <= hi and chance >= LH_ALPHA
+    return {"median": med, "in_band": count, "draws": n, "chance": chance, "held": held}
+
+
+def long_horizon_parallel_riccati(draws=8, band=None):
+    """The bounded N=500 solve with `parallel_riccati` in float32, the pure
+    scan and chunk 16, over `draws` rounding draws, held to the band of
+    the float64 serial solve's 32 draws (median +- 3 MAD) as chip_smoke.py
+    holds the port's; with `band`, also to that band (the card's f64
+    plain band). What chip_smoke.py's `long_horizon` parallel_riccati gate
+    rests on."""
+    import statistics
+
+    jax.config.update("jax_enable_x64", True)
+    t0 = time.time()
+    problem, state, opts = _long_horizon(jnp.float64)
+    pool = _draws(problem, state, opts, LH_DRAWS)
+    objs = [d["objective"] for d in pool]
+    center = statistics.median(objs)
+    mad = statistics.median(abs(v - center) for v in objs)
+    jband = (center - LH_BAND_MADS * mad, center + LH_BAND_MADS * mad)
+    q = sum(jband[0] <= v <= jband[1] for v in objs) / len(objs)
+    print(json.dumps({"run": "long_horizon_f64_serial", "draws": pool, "band": jband,
+                      "band_share": q, "seconds": time.time() - t0}), flush=True)
+    for chunk in (0, 16):
+        t0 = time.time()
+        problem, state, opts = _long_horizon(F32)
+        opts = dataclasses.replace(opts, parallel_riccati=True, parallel_riccati_chunk=chunk)
+        out = _draws(problem, state, opts, draws)
+        objs = [d["objective"] for d in out]
+        row = {"run": "long_horizon_f32_parallel_riccati", "chunk": chunk, "draws": out,
+               "verdict": _band_verdict(objs, jband, q), "seconds": time.time() - t0}
+        if band is not None:
+            row["verdict_card_band"] = _band_verdict(objs, band, q)
+        print(json.dumps(row), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tol-stationarity", type=float, default=1e-4)
@@ -1562,8 +1670,9 @@ def main():
     ap.add_argument("--quadrotor-vmapped", action="store_true",
                     help="run the vmapped quadrotor waypoint row through jax.vmap(solve)")
     ap.add_argument("--ticks", type=int, default=None,
-                    help="ticks of the vmapped quadrotor row (default 100) and of the batched "
-                         "tracking's sequential backtracking (default 20)")
+                    help="ticks of the vmapped quadrotor row (default 100), of the batched "
+                         "tracking's sequential backtracking (default 20) and of the obstacle "
+                         "loop and its draws (default 40)")
     ap.add_argument("--facade", action="store_true",
                     help="run the facade's pendulum example, block-step configuration and "
                          "double-integrator cases")
@@ -1601,6 +1710,10 @@ def main():
     ap.add_argument("--aot", action="store_true",
                     help="run the mpc_latency_aot row's tick (--ticks calls, default 3) in "
                          "float64 and float32")
+    ap.add_argument("--long-horizon-parallel-riccati", action="store_true",
+                    help="run the bounded N=500 solve with parallel_riccati in float32 (pure "
+                         "and chunk 16) over --draws rounding draws (default 8) against the "
+                         "float64 serial solve's band")
     ap.add_argument("--lanes", type=int, default=1024,
                     help="lanes of the batched rows (the tiled quadrotor row: a multiple "
                          "of 1024)")
@@ -1625,9 +1738,9 @@ def main():
         obstacle_rows(args.lanes, ticks=args.ticks or 60, start=args.start,
                       hessian=args.hessian)
     if args.obstacle_loop:
-        obstacle_loops()
+        obstacle_loops(args.ticks or 40)
     if args.obstacle_loop_draws:
-        obstacle_loop_draws(args.obstacle_loop_draws)
+        obstacle_loop_draws(args.obstacle_loop_draws, ticks=args.ticks or 40)
     if args.tracking_tiled:
         tracking_tiled_row(args.lanes, ticks=args.ticks or 20)
     if args.single_lane_options:
@@ -1642,7 +1755,9 @@ def main():
         aot_rows(args.ticks or 3)
     if args.cartpole_depths:
         cartpole_depths([int(v) for v in args.cartpole_depths.split(",")])
-    if (args.aot or args.cartpole_depths or args.learned_mpc or args.implicit_grad or args.vmap_rescue or args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
+    if args.long_horizon_parallel_riccati:
+        long_horizon_parallel_riccati(args.draws or 8, band=(18.65, 22.49))
+    if (args.long_horizon_parallel_riccati or args.aot or args.cartpole_depths or args.learned_mpc or args.implicit_grad or args.vmap_rescue or args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
             or args.single_lane_rows or args.facade or args.quadrotor_vmapped or args.obstacle
             or args.obstacle_loop or args.obstacle_loop_draws or args.tracking_tiled
             or args.single_lane_options or args.quadrotor_latency):
