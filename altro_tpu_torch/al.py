@@ -150,20 +150,31 @@ def al_hess_exact(problem: Problem, ks, x, u, z, rho, terminal: bool):
 
 def _curvature(spec, ks, x, u, w):
     """sum_e w_e nabla^2 c_e(x, u) per knot and lane, [K, n+m, n+m, B]:
-    the Hessian of w . c in (x, u) with w [K, p, B] held fixed."""
-    from torch.func import jacfwd, vmap
+    the Hessian of w . c in (x, u) with w [K, p, B] held fixed. Forward
+    over reverse, all n + m directions in one evaluation (the replica axis
+    of `problem.lane_jacobian`): one backward pass of w . c at a dual
+    input gives the gradient, whose tangent along e_j is the Hessian's
+    column j; jax.hessian's value to roundoff. It traces under `make_fx`
+    on fake tensors (graph_solve.py), which torch.func's nested jacfwd
+    does not."""
+    import torch.autograd.forward_ad as fwad
 
     K, n, B = x.shape
-    m = u.shape[1]
-    zz = torch.cat([x, u], dim=1).permute(0, 2, 1).reshape(K * B, n + m)
-    kk = ks[:, None].expand(K, B).reshape(K * B)
-    ww = w.permute(0, 2, 1).reshape(K * B, -1)
-
-    def g(zl, kl, wl):
-        return torch.sum(wl * spec.fn(zl[:n], zl[n:], kl))
-
-    H = vmap(jacfwd(jacfwd(g)))(zz, kk, ww).to(x.dtype)
-    return H.reshape(K, B, n + m, n + m).permute(0, 2, 3, 1)
+    R = n + u.shape[1]
+    eye = torch.eye(R, dtype=x.dtype, device=x.device)
+    # [K, R (component), B, R (direction)], copy j carrying the tangent e_j
+    z = torch.cat([x, u], dim=1).detach()[..., None].expand(K, R, B, R).contiguous()
+    tangent = eye[None, :, None, :].expand(K, R, B, R).contiguous()
+    with torch.enable_grad(), fwad.dual_level():
+        leaf = z.requires_grad_(True)
+        zd = fwad.make_dual(leaf, tangent)
+        c = spec.fn(zd[:, :n].movedim(1, 0), zd[:, n:].movedim(1, 0), ks[:, None, None])
+        total = torch.sum(w.movedim(1, 0)[..., None] * c)
+        (grad,) = torch.autograd.grad(total, leaf, allow_unused=True)
+        H = None if grad is None else fwad.unpack_dual(grad).tangent
+    if H is None:  # c is affine in (x, u) (or does not depend on them)
+        return x.new_zeros((K, R, R, B))
+    return H.to(x.dtype).permute(0, 1, 3, 2)
 
 
 def _al_hess(problem: Problem, ks, x, u, z, rho, terminal: bool, exact: bool):

@@ -18,10 +18,22 @@ with no B axis for batch=None (one lane). The graph is graph_solve.py's
 form of the solve: the setup and one trip traced once, the trips in
 torch's while_loop operator with per-lane masks, the rollouts' knot
 loops as scans, the backward pass with its retry as one operator a trip
-(ops/library.py). A configuration that
-form does not carry, or a kernel on the card that cannot take the
-problem, raises NotImplementedError naming it before tracing
-(`graph_solve.graph_refusal`).
+(ops/library.py). It carries every option JAX's export carries: the
+default strong-Wolfe search (the live machine's pass in a loop operator
+inside the trip) and the sequential backtracking, the grids (phase-split
+x-only or light payload, non-split, the best-decrease fallback),
+`rti_mode`, `exact_al_hessian`, `parallel_riccati` (pure or chunked)
+and, on one lane, the trial-rollout kernel under `pallas_rollout`
+(`altro_tpu_torch::trial_rollout`) where the live solve runs it. What
+JAX's export refuses too (a verbosity above SILENT, an
+`iteration_callback`: host callbacks), or a kernel on the card that
+cannot take the problem, raises NotImplementedError naming it before
+tracing (`graph_solve.graph_refusal`).
+
+Under the reference's default options (the strong-Wolfe search), one
+lane, for the card and the host:
+
+    save_exported(export_mpc_server(problem), "controller.pt2")
 
 Devices. `platforms` ("cuda", "cpu" or both; default both) says where
 the artifact may run; it is traced on the problem's device and moved to
@@ -34,7 +46,7 @@ export.py:129-148) has no case here, and its two-platform artifact is a
 CPU-traced artifact run on both devices.
 
 Loading. JAX's artifact needs nothing of altro_tpu at load time. This
-one needs the port's two operators registered before `torch.export.load`
+one needs the port's three operators registered before `torch.export.load`
 (importing this module does it; `load_exported` runs from it), and the
 CUDA kernels build on the first call on the card, as every entry point
 of the port builds them.

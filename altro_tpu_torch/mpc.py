@@ -2107,6 +2107,42 @@ def aot_latency_options(pallas_backward: bool = False) -> SolverOptions:
         pallas_backward=pallas_backward)
 
 
+def aot_default_options(pallas_backward: bool = False) -> SolverOptions:
+    """The row's problem under the reference's default search: default
+    `SolverOptions()` (the strong-Wolfe cubic search, SURVEY layer 1's
+    `CubicLineSearch`) with the row's 10 iterations, penalty warm start
+    and f32 tolerances 1e-3 (`mpc_latency_aot_B1_wolfe`; with
+    pallas_backward=True, `mpc_latency_aot_B8_wolfe_dense`'s batch on the
+    dense backward kernel)."""
+    return SolverOptions(iterations_max=10, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
+                         throw_errors=False, penalty_warm_start=True,
+                         pallas_backward=pallas_backward)
+
+
+def aot_trial_problem(ref, N: int = 30, *, dtype=torch.float32, device="cuda") -> Problem:
+    """`mpc_latency_aot_B1_trial`'s problem: the row's problem
+    (`aot_latency_problem`) with its steering bound |delta| <= 60 deg
+    written as an affine NEGATIVE_ORTHANT group (its rows +-e_3 given) and
+    with the bicycle's block step, so the single-lane solve's phase-split
+    grid runs through the trial rollout (`pallas_rollout`), as the bench's
+    N=500 path runs this form of the bound."""
+    problem = aot_latency_problem(ref, N, dtype=dtype, device=device)
+    J = torch.zeros((2, problem.n + problem.m), dtype=dtype, device=device)
+    J[0, 3], J[1, 3] = 1.0, -1.0
+    steering = dataclasses.replace(problem.constraints[0], jac=_constant_jacobian(J),
+                                   affine=True)
+    return dataclasses.replace(problem, constraints=(steering,),
+                               dynamics_cols=midpoint_cols(bicycle_cols()),
+                               dynamics_tile=midpoint_tile(bicycle_tile()))
+
+
+def aot_trial_options() -> SolverOptions:
+    """`mpc_latency_aot_B1_trial`'s options: the row's phase-split x-only
+    grid with `pallas_rollout=True`, so its trials run through
+    `trial_rollout.cu` on the card."""
+    return aot_latency_options().replace(pallas_rollout=True)
+
+
 def aot_latency_inputs(problem: Problem, ref, batch: Optional[int]):
     """The row's serving inputs (bench_all.py:265-279): the state at the
     reference window with u = (u_ref[0][0], 0) at every knot, the measured
@@ -2161,16 +2197,18 @@ def export_mpc_latency_aot(problem: Problem, opts: SolverOptions, batch: Optiona
 
 def run_mpc_latency_aot(problem: Problem, ref, opts: SolverOptions, batch: Optional[int],
                         path: str, *, calls: int = 60, chained: int = 100, warm: int = 2,
-                        export_s: Optional[float] = None) -> dict:
+                        export_s: Optional[float] = None, floor: bool = True) -> dict:
     """The `mpc_latency_aot` row (bench_all.py:259-318) on the port: export
     the tick to `path` (`export_mpc_latency_aot`; with `export_s` given, the
     artifact at `path` was exported elsewhere, in that many seconds), load
     it, converge the warm start with `warm` calls, then time `calls`
     blocking calls (p50, p90), a chain of `chained` calls fed state to state
-    with one wait at the end, and the transport floor: a trivial exported
-    add over the same state dict, blocking. The calls run on the problem's
-    device. Returns the row's numbers (milliseconds and seconds
-    unrounded), its `iterations` (the largest of the last call's lanes),
+    with one wait at the end (none at chained=0) and, with `floor`, the
+    transport floor: a trivial exported add over the same state dict,
+    blocking. The calls run on the problem's device. Returns the row's
+    numbers (milliseconds and seconds unrounded; None for what was not
+    run), its `iterations` and `ls_iterations` (the largest of the last
+    call's lanes),
     `inputs`: the blocking calls' (x_measured, x_ref, u_ref, state dict),
     `result`: the last blocking call's (u0, state dict, stats dict) and
     `server`: the loaded artifact."""
@@ -2194,28 +2232,32 @@ def run_mpc_latency_aot(problem: Problem, ref, opts: SolverOptions, batch: Optio
         out[:] = [call_exported(srv, xm, xr, ur, st)]
 
     times = _blocking_ms(one, calls, dev)
-    t0 = time.perf_counter()
-    st_c = st
-    for _ in range(chained):
-        u0, st_c, _ = call_exported(srv, xm, xr, ur, st_c)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    chained_ms = (time.perf_counter() - t0) / chained * 1e3
+    chained_ms = floor_ms = None
+    if chained:
+        t0 = time.perf_counter()
+        st_c = st
+        for _ in range(chained):
+            u0, st_c, _ = call_exported(srv, xm, xr, ur, st_c)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        chained_ms = (time.perf_counter() - t0) / chained * 1e3
+    if floor:
+        class _Floor(torch.nn.Module):
+            def forward(self, a, s):
+                return a + 1.0, {k: v + 1.0 for k, v in s.items()}
 
-    class _Floor(torch.nn.Module):
-        def forward(self, a, s):
-            return a + 1.0, {k: v + 1.0 for k, v in s.items()}
-
-    floor = torch.export.export(_Floor(), (xm, st), strict=False).module()
-    floor(xm, st)
-    ftimes = _blocking_ms(lambda: floor(xm, st), calls, dev)
+        floor_module = torch.export.export(_Floor(), (xm, st), strict=False).module()
+        floor_module(xm, st)
+        ftimes = _blocking_ms(lambda: floor_module(xm, st), calls, dev)
+        floor_ms = float(ftimes[len(ftimes) // 2])
     u0, st_last, stats = out[0]
     return {
         "p50_call_ms": float(times[len(times) // 2]),
         "p90_call_ms": float(times[int(len(times) * 0.9)]),
         "chained_call_ms": chained_ms,
-        "dispatch_floor_p50_ms": float(ftimes[len(ftimes) // 2]),
+        "dispatch_floor_p50_ms": floor_ms,
         "iterations": int(stats["iterations"].max()),
+        "ls_iterations": int(stats["ls_iterations"].max()),
         "export_s": export_s,
         "load_s": load_s,
         "inputs": (xm, xr, ur, st),

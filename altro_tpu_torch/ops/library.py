@@ -1,9 +1,11 @@
-"""The two Riccati backward kernels as torch operators, with the retry inside.
+"""The port's kernels as torch operators: both Riccati backward passes, with
+the retry inside, and the single-lane trial rollout.
 
 No JAX counterpart of its own: JAX's `jax.export` lowered its Pallas
 kernels into the artifact's StableHLO. `torch.export` records calls of
 registered operators only, and the port's kernels are plain C entry
-points (ops/_build.py), so export.py's graph holds these two operators:
+points (ops/_build.py), so export.py's graph holds these three
+operators:
 
 * `altro_tpu_torch::riccati_latency`: one lane's backward pass (the
   single-lane solve's `backward_adaptive`) with the adaptive-
@@ -16,6 +18,18 @@ points (ops/_build.py), so export.py's graph holds these two operators:
   retry_tiled`. Its CUDA implementation runs csrc/riccati_dense.cu
   through ops/riccati_dense.py (with `kernel`) or the plain batched
   recursion (without); its CPU implementation the plain recursion.
+* Both take `associative` (with `chunk`): the associative pass of
+  `SolverOptions.parallel_riccati` (`tvlqr.tvlqr_backward_associative`,
+  plain PyTorch on any device, as JAX's is XLA) in the recursion's
+  place, with the same retry.
+* `altro_tpu_torch::trial_rollout`: the single-lane W-trial rollout of
+  the phase-split x-only grid (the single-lane solve's `merit_grid` under
+  `pallas_rollout`). An operator takes no callable, so it takes the
+  block step's device step (model and integrator codes and parameters,
+  `models.tile_steps.DeviceStep`) and rebuilds the step from the port's
+  registry (`trial_rollout.block_step`). On CUDA tensors it runs
+  csrc/trial_rollout.cu through ops/trial_rollout.py, or raises naming
+  what the kernel cannot take; on the CPU `trial_rollout_ref`.
 
 The retry's schedule (reg_min, reg_scaling, reg_max_retries) comes in as
 arguments, so a graph holds one operator an iteration and launches the
@@ -30,15 +44,18 @@ graph (graph_solve.py).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
-from altro_tpu_torch.ops.riccati_backward import riccati_backward_ref
+from altro_tpu_torch.ops import trial_rollout as tr
+from altro_tpu_torch.ops.riccati_backward import Gains, riccati_backward_ref
 from altro_tpu_torch.ops.riccati_dense import riccati_backward_dense
 from altro_tpu_torch.ops.riccati_latency import riccati_latency, riccati_latency_ref
+from altro_tpu_torch.tvlqr import tvlqr_backward_associative
 
-__all__ = ["bump", "retry", "retry_lanes", "riccati_latency_op", "riccati_dense_op"]
+__all__ = ["bump", "retry", "retry_lanes", "associative_lanes", "riccati_latency_op",
+           "riccati_dense_op", "trial_rollout_op"]
 
 _Gains = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                torch.Tensor, torch.Tensor, torch.Tensor]
@@ -70,31 +87,15 @@ def _owned(gains, reg) -> _Gains:
                                      gains.ok, gains.fail_index.to(torch.int32), reg))
 
 
-@torch.library.custom_op("altro_tpu_torch::riccati_latency", mutates_args=())
-def riccati_latency_op(A: torch.Tensor, B: torch.Tensor, lxx: torch.Tensor,
-                       luu: torch.Tensor, lux: Optional[torch.Tensor],
-                       f: Optional[torch.Tensor], lx: torch.Tensor, lu: torch.Tensor,
-                       reg: torch.Tensor, reg_min: float, reg_scaling: float,
-                       max_retries: int, kernel: bool) -> _Gains:
-    """One lane's backward pass with the retry: A [N, n, n], B [N, n, m],
-    lxx [N+1, n, n] or diagonals [N+1, n], luu [N, m, m] or [N, m],
-    lux [N, m, n] or None, f [N, n] or None, lx [N+1, n], lu [N, m], reg
-    0-dim. Returns (K, d, P, p, delta_V [2], ok, fail_index, reg used).
-    The CPU implementation: the plain recursion."""
-    del kernel  # the CPU has no kernel
-
-    def attempt(r):
-        return riccati_latency_ref(A, B, lxx, luu, lx, lu, r, lux=lux, f=f)
-
-    return _owned(*retry(attempt, reg, reg_min, reg_scaling, max_retries))
-
-
-@riccati_latency_op.register_kernel("cuda")
-def _riccati_latency_cuda(A, B, lxx, luu, lux, f, lx, lu, reg, reg_min, reg_scaling,
-                          max_retries, kernel):
-    """With `kernel`, csrc/riccati_latency.cu (float32, or a raise naming
-    what the kernel does not take); without, the plain recursion."""
-    if kernel:
+def _latency_attempt(A, B, lxx, luu, lux, f, lx, lu, kernel, associative, chunk):
+    """One attempt of the single-lane backward at reg: the associative
+    pass, the latency kernel (contiguous operands) or the plain
+    recursion."""
+    if associative:
+        def attempt(r):
+            return tvlqr_backward_associative(A, B, f, lxx, luu, lux, lx, lu, r,
+                                              chunk=chunk or None)
+    elif kernel:
         ops = [t.contiguous() for t in (A, B, lxx, luu, lx, lu)]
         lux_, f_ = (None if t is None else t.contiguous() for t in (lux, f))
 
@@ -103,13 +104,40 @@ def _riccati_latency_cuda(A, B, lxx, luu, lux, f, lx, lu, reg, reg_min, reg_scal
     else:
         def attempt(r):
             return riccati_latency_ref(A, B, lxx, luu, lx, lu, r, lux=lux, f=f)
+    return attempt
 
+
+@torch.library.custom_op("altro_tpu_torch::riccati_latency", mutates_args=())
+def riccati_latency_op(A: torch.Tensor, B: torch.Tensor, lxx: torch.Tensor,
+                       luu: torch.Tensor, lux: Optional[torch.Tensor],
+                       f: Optional[torch.Tensor], lx: torch.Tensor, lu: torch.Tensor,
+                       reg: torch.Tensor, reg_min: float, reg_scaling: float,
+                       max_retries: int, kernel: bool, associative: bool = False,
+                       chunk: int = 0) -> _Gains:
+    """One lane's backward pass with the retry: A [N, n, n], B [N, n, m],
+    lxx [N+1, n, n] or diagonals [N+1, n], luu [N, m, m] or [N, m],
+    lux [N, m, n] or None, f [N, n] or None, lx [N+1, n], lu [N, m], reg
+    0-dim. Returns (K, d, P, p, delta_V [2], ok, fail_index, reg used).
+    associative (dense operands): the associative pass, `chunk` its
+    parallel_riccati_chunk. The CPU implementation: the plain recursion,
+    or the associative pass."""
+    attempt = _latency_attempt(A, B, lxx, luu, lux, f, lx, lu, False, associative, chunk)
+    return _owned(*retry(attempt, reg, reg_min, reg_scaling, max_retries))
+
+
+@riccati_latency_op.register_kernel("cuda")
+def _riccati_latency_cuda(A, B, lxx, luu, lux, f, lx, lu, reg, reg_min, reg_scaling,
+                          max_retries, kernel, associative=False, chunk=0):
+    """associative: the associative pass; else with `kernel`,
+    csrc/riccati_latency.cu (float32, or a raise naming what the kernel
+    does not take); else the plain recursion."""
+    attempt = _latency_attempt(A, B, lxx, luu, lux, f, lx, lu, kernel, associative, chunk)
     return _owned(*retry(attempt, reg, reg_min, reg_scaling, max_retries))
 
 
 @riccati_latency_op.register_fake
 def _riccati_latency_fake(A, B, lxx, luu, lux, f, lx, lu, reg, reg_min, reg_scaling,
-                          max_retries, kernel):
+                          max_retries, kernel, associative=False, chunk=0):
     N, n, m = A.shape[0], A.shape[1], B.shape[2]
     return (A.new_empty((N, m, n)), A.new_empty((N, m)), A.new_empty((N + 1, n, n)),
             A.new_empty((N + 1, n)), A.new_empty((2,)), A.new_empty((), dtype=torch.bool),
@@ -133,8 +161,23 @@ def retry_lanes(attempt, reg0, reg_min: float, reg_scaling: float, max_retries: 
     return g, reg
 
 
-def _dense_attempt(A, B, lxx, luu, lux, lx, lu, kernel):
-    if kernel:
+def associative_lanes(A, B, lxx, luu, lx, lu, reg, lux=None, chunk=None) -> Gains:
+    """`tvlqr.tvlqr_backward_associative` on lane-minor operands (A [N, n,
+    n, B], ..., reg [B]): the vmapped solve's backward under
+    `parallel_riccati`, as `jax.vmap(solve)` runs it. Lane-minor Gains."""
+    def b(t):
+        return None if t is None else t.movedim(-1, 0)
+
+    g = tvlqr_backward_associative(b(A), b(B), None, b(lxx), b(luu), b(lux), b(lx), b(lu), reg,
+                                   chunk=chunk)
+    return Gains(*(t.movedim(0, -1).contiguous() for t in g[:5]), g.ok, g.fail_index)
+
+
+def _dense_attempt(A, B, lxx, luu, lux, lx, lu, kernel, associative=False, chunk=0):
+    if associative:
+        def attempt(r):
+            return associative_lanes(A, B, lxx, luu, lx, lu, r, lux=lux, chunk=chunk or None)
+    elif kernel:
         ops = [t.contiguous() for t in (A, B, lxx, luu, lx, lu)]
         lux_ = None if lux is None else lux.contiguous()
 
@@ -152,31 +195,77 @@ def _dense_attempt(A, B, lxx, luu, lux, lx, lu, kernel):
 def riccati_dense_op(A: torch.Tensor, B: torch.Tensor, lxx: torch.Tensor, luu: torch.Tensor,
                      lux: Optional[torch.Tensor], lx: torch.Tensor, lu: torch.Tensor,
                      reg: torch.Tensor, reg_min: float, reg_scaling: float,
-                     max_retries: int, kernel: bool) -> _Gains:
+                     max_retries: int, kernel: bool, associative: bool = False,
+                     chunk: int = 0) -> _Gains:
     """The lane-minor batch's backward pass with the per-lane retry:
     A [N, n, n, B], B [N, n, m, B], lxx [N+1, n, n, B] (or diagonals
     [N+1, n, B] without `kernel`), luu [N, m, m, B] (or [N, m, B]),
     lux [N, m, n, B] or None, lx [N+1, n, B], lu [N, m, B], reg [B].
     Returns (K, d, P, p, delta_V [2, B], ok [B], fail_index [B], reg [B]).
-    The CPU implementation: the plain recursion."""
-    attempt = _dense_attempt(A, B, lxx, luu, lux, lx, lu, False)
+    associative (dense operands): the associative pass, `chunk` its
+    parallel_riccati_chunk. The CPU implementation: the plain recursion,
+    or the associative pass."""
+    attempt = _dense_attempt(A, B, lxx, luu, lux, lx, lu, False, associative, chunk)
     return _owned(*retry_lanes(attempt, reg, reg_min, reg_scaling, max_retries))
 
 
 @riccati_dense_op.register_kernel("cuda")
 def _riccati_dense_cuda(A, B, lxx, luu, lux, lx, lu, reg, reg_min, reg_scaling, max_retries,
-                        kernel):
-    """With `kernel`, csrc/riccati_dense.cu (float32, dense operands, or a
-    raise); without, the plain recursion."""
-    attempt = _dense_attempt(A, B, lxx, luu, lux, lx, lu, kernel)
+                        kernel, associative=False, chunk=0):
+    """associative: the associative pass; else with `kernel`,
+    csrc/riccati_dense.cu (float32, dense operands, or a raise); else the
+    plain recursion."""
+    attempt = _dense_attempt(A, B, lxx, luu, lux, lx, lu, kernel, associative, chunk)
     return _owned(*retry_lanes(attempt, reg, reg_min, reg_scaling, max_retries))
 
 
 @riccati_dense_op.register_fake
 def _riccati_dense_fake(A, B, lxx, luu, lux, lx, lu, reg, reg_min, reg_scaling, max_retries,
-                        kernel):
+                        kernel, associative=False, chunk=0):
     N, n, m, Bsz = A.shape[0], A.shape[1], B.shape[2], A.shape[-1]
     return (A.new_empty((N, m, n, Bsz)), A.new_empty((N, m, Bsz)),
             A.new_empty((N + 1, n, n, Bsz)), A.new_empty((N + 1, n, Bsz)),
             A.new_empty((2, Bsz)), A.new_empty((Bsz,), dtype=torch.bool),
             A.new_empty((Bsz,), dtype=torch.int32), reg.new_empty((Bsz,)))
+
+
+def _trial_con(wa, wu, wg, rhoi):
+    return None if wa is None else (wa, wu, wg, rhoi)
+
+
+@torch.library.custom_op("altro_tpu_torch::trial_rollout", mutates_args=())
+def trial_rollout_op(alphas: torch.Tensor, x0: torch.Tensor, xref: torch.Tensor,
+                     uref: torch.Tensor, K: torch.Tensor, d: torch.Tensor, Q: torch.Tensor,
+                     q: torch.Tensor, R: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
+                     h: torch.Tensor, wa: Optional[torch.Tensor], wu: Optional[torch.Tensor],
+                     wg: Optional[torch.Tensor], rhoi: Optional[torch.Tensor], model: int,
+                     integrator: int, params: List[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One lane's W-trial rollout (`trial_rollout.trial_rollout`'s operands:
+    alphas [W], x0 [n], xref [N+1, n], uref [N, m], K [N, m, n], d [N, m],
+    the cost rows Q, q [N+1, n], R, r [N+1, m], c [N+1], h [N]; the affine
+    rows wa [N+1, P, n], wu [N+1, P, m], wg [N+1, P] and rhoi [1], or all
+    four None) through the block step of the device step (model,
+    integrator, params). Returns (phis [W], xstack [W, N+1, n]). The CPU
+    implementation: `trial_rollout_ref`."""
+    step = tr.block_step(model, integrator, params)
+    phi, xs = tr.trial_rollout_ref(step, alphas, x0, xref, uref, K, d, Q, q, R, r, c, h,
+                                   con=_trial_con(wa, wu, wg, rhoi))
+    return phi.clone(), xs.clone()
+
+
+@trial_rollout_op.register_kernel("cuda")
+def _trial_rollout_cuda(alphas, x0, xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg, rhoi,
+                        model, integrator, params):
+    """csrc/trial_rollout.cu, or a raise naming what the kernel does not
+    take (`trial_rollout.ineligibility`)."""
+    step = tr.block_step(model, integrator, params)
+    phi, xs = tr.trial_rollout(step, alphas, x0, xref, uref, K, d, Q, q, R, r, c, h,
+                  con=_trial_con(wa, wu, wg, rhoi))
+    return phi.clone(), xs.clone()  # the kernel's outputs are views of one buffer
+
+
+@trial_rollout_op.register_fake
+def _trial_rollout_fake(alphas, x0, xref, uref, K, d, Q, q, R, r, c, h, wa, wu, wg, rhoi,
+                        model, integrator, params):
+    W, (N, _, n) = alphas.shape[0], K.shape
+    return x0.new_empty((W,)), x0.new_empty((W, N + 1, n))

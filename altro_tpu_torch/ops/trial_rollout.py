@@ -205,3 +205,30 @@ def trial_rollout(step_tile, alphas, x0, xref, uref, K, d, Qd, ql, Rd, rl, ccons
     _build.check(err, "trial_rollout_f32")
     LAUNCHES += 1
     return phi, xstack
+
+
+_FRAMES = {0: "cog", 1: "rear", 2: "front"}  # BICYCLE_FRAMES' codes
+
+
+def block_step(model: int, integrator: int, params):
+    """The block step of a device step, rebuilt from its codes and
+    parameters (`models.tile_steps.DeviceStep`): the port's registry of
+    the steps the kernel has a `__device__` twin of (DEVICE_STEPS), each
+    the same function of (x, u, h) as the step that named it. What the
+    `altro_tpu_torch::trial_rollout` operator runs, since an operator
+    takes no callable."""
+    from altro_tpu_torch.models import tile_steps as ts
+
+    key = (model, integrator)
+    if key == (MODEL_BICYCLE, INTEGRATOR_MIDPOINT):
+        frame, length, rear = params[:3]
+        return ts.midpoint_tile(ts.bicycle_tile(_FRAMES[int(frame)], length, rear))
+    if key == (MODEL_QUADROTOR, INTEGRATOR_RK4):
+        mass, gravity, arm, kf, km, jx, jy, jz = params[:8]
+        return ts.rk4_tile(ts.quadrotor_tile(mass, gravity, arm, kf, km, (jx, jy, jz)))
+    if key == (MODEL_PENDULUM, INTEGRATOR_MIDPOINT):
+        return ts.midpoint_tile(ts.pendulum_tile(*params[:4]))
+    if key == (MODEL_DOUBLE_INTEGRATOR, INTEGRATOR_DISCRETE):
+        return ts.double_integrator_tile(2)
+    raise NotImplementedError(f"trial_rollout: no block step for model {model}, "
+                              f"integrator {integrator} (it has {sorted(DEVICE_STEPS)})")

@@ -69,10 +69,10 @@ import torch
 
 from altro_tpu_torch import al, cones
 from altro_tpu_torch.linesearch import (
-    LineSearchOptions,
     _read,
     parallel_backtracking_search,
     parallel_backtracking_search_split,
+    search_options,
     tree_map,
     wolfe_line_search,
 )
@@ -575,7 +575,8 @@ def _trial_grid(problem: Problem, opts: SolverOptions) -> bool:
     return _kernel_grid(opts) and problem_ineligibility(problem, rows=False) is None
 
 
-def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
+def single_lane_refusal(problem: Problem, opts: SolverOptions,
+                        cuda: Optional[bool] = None) -> Optional[str]:
     """Why `solve` does not run this configuration, or None: on a CUDA
     problem, a kernel that cannot take it (checked before anything
     launches; the plain paths are selected by
@@ -583,8 +584,10 @@ def single_lane_refusal(problem: Problem, opts: SolverOptions) -> Optional[str]:
     that the trial rollout cannot take runs the problem's own grid, as
     JAX's solve does. `parallel_riccati` (without `pallas_backward`)
     takes the backward's place and is plain PyTorch, so the latency
-    kernel is not asked for under it."""
-    if problem.device.type != "cuda":
+    kernel is not asked for under it. cuda: whether the solve runs on the
+    card (default: where the problem lies; an artifact traced on the CPU
+    for the card passes True)."""
+    if not (problem.device.type == "cuda" if cuda is None else cuda):
         return None
     kernel_grid = _kernel_grid(opts)
     if kernel_grid:
@@ -800,13 +803,7 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
     def span(name):
         return _Span(layer_seconds, name)
 
-    ls_opts = LineSearchOptions(
-        c1=opts.ls_c1, c2=opts.ls_c2, max_iters=opts.ls_max_iters,
-        alpha_max=opts.ls_alpha_max, beta_increase=opts.ls_beta_increase,
-        beta_decrease=opts.ls_beta_decrease, min_interval_size=opts.ls_min_interval_size,
-        try_cubic_first=opts.ls_try_cubic_first,
-        use_backtracking=opts.use_backtracking_linesearch,
-        armijo_slack=opts.ls_armijo_slack, verbose=opts.verbose >= Verbosity.LINE_SEARCH)
+    ls_opts = search_options(opts, verbose=opts.verbose >= Verbosity.LINE_SEARCH)
 
     rho = torch.tensor(opts.penalty_initial, **kw)
     if opts.penalty_warm_start:

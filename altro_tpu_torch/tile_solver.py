@@ -40,11 +40,11 @@ from typing import Optional
 import torch
 
 from altro_tpu_torch import al
-from altro_tpu_torch.linesearch import LineSearchOptions, Trace, _where, wolfe_line_search_lanes
+from altro_tpu_torch.linesearch import Trace, _where, search_options, wolfe_line_search_lanes
 from altro_tpu_torch.ops import tile_iter as ti
+from altro_tpu_torch.ops.library import associative_lanes
 from altro_tpu_torch.ops.riccati_backward import (
     KERNEL_SHAPES,
-    Gains,
     riccati_backward,
     riccati_backward_ref,
 )
@@ -72,7 +72,6 @@ from altro_tpu_torch.solver import (
     total_cost,
 )
 from altro_tpu_torch.status import LineSearchCode, SolveStatus
-from altro_tpu_torch.tvlqr import tvlqr_backward_associative
 
 __all__ = [
     "solve_tiled",
@@ -213,16 +212,74 @@ def _freeze(active, new: dict, old: dict) -> dict:
     return out
 
 
-def associative_lanes(A, B, lxx, luu, lx, lu, reg, lux=None, chunk=None) -> Gains:
-    """`tvlqr.tvlqr_backward_associative` on lane-minor operands (A [N, n,
-    n, B], ..., reg [B]): the vmapped solve's backward under
-    `parallel_riccati`, as `jax.vmap(solve)` runs it. Lane-minor Gains."""
-    def b(t):
-        return None if t is None else t.movedim(-1, 0)
+def merge_block(acc, sel, block: int, W: int, best=None, best2=None):
+    """Fold a later grid block into the running pick: acc and sel are
+    `tile_iter.select_trial_tiled`'s (found, idx, alpha, phi, xstack)
+    (acc's idx the trial's count k); a lane still searching takes this
+    block's first passing trial, or its first trial (the JAX loop's body
+    runs for it). best, best2: `select_best_tiled`'s (alpha, phi,
+    xstack) so far and of this block (the best-decrease fallback), or
+    None. Returns (acc, best)."""
+    found, k_acc, alpha_sel, phi_sel, x_sel = acc
+    f2, idx2, a2, p2, x2 = sel
+    upd = ~found
+    acc = (found | f2, torch.where(upd, block * W + idx2, k_acc), torch.where(upd, a2, alpha_sel),
+           torch.where(upd, p2, phi_sel), torch.where(upd, x2, x_sel))
+    if best is not None:
+        tb = best2[1] < best[1]
+        best = tuple(torch.where(tb, b2, b) for b2, b in zip(best2, best))
+    return acc, best
 
-    g = tvlqr_backward_associative(b(A), b(B), None, b(lxx), b(luu), b(lux), b(lx), b(lu), reg,
-                                   chunk=chunk)
-    return Gains(*(t.movedim(0, -1).contiguous() for t in g[:5]), g.ok, g.fail_index)
+
+def grid_outcome(kind: str, max_iters: int, acc, best, phi0, dphi0):
+    """A grid search's answer per lane from its pick (`merge_block`):
+    MINIMUM_FOUND where a trial passed; with `best`, the lowest-merit
+    trial when it decreases the merit (BEST_DECREASE); else
+    NOT_DESCENT_DIRECTION or NO_ERROR. Returns (alpha, code, n_iters,
+    aux_alpha, (alpha, phi, xstack) of the trial taken); the non-split
+    grid ("grid") returns the first trial of the last block as its alpha
+    when none passes, as JAX's does."""
+    found, k_acc, alpha_sel, phi_sel, x_sel = acc
+    not_descent = dphi0 >= 0
+    ok = found & ~not_descent
+    fb = torch.zeros_like(ok)
+    if best is not None:  # the lowest-merit trial when it decreases the merit
+        balpha, bphi, bx = best
+        fb = ~ok & (bphi < phi0)
+        alpha_sel = torch.where(fb, balpha, alpha_sel)
+        phi_sel = torch.where(fb, bphi, phi_sel)
+        x_sel = torch.where(fb, bx, x_sel)
+
+    def code_of(c):
+        return torch.full_like(k_acc, int(c), dtype=torch.int32)
+
+    code = torch.where(ok, code_of(LineSearchCode.MINIMUM_FOUND),
+                       torch.where(fb, code_of(LineSearchCode.BEST_DECREASE),
+                                   torch.where(not_descent,
+                                               code_of(LineSearchCode.NOT_DESCENT_DIRECTION),
+                                               code_of(LineSearchCode.NO_ERROR))))
+    take = ok | fb
+    zero = torch.zeros_like(alpha_sel)
+    if kind == "grid":  # no trial passes: the first of the last block
+        ls_alpha = torch.where(not_descent, zero, alpha_sel)
+    else:
+        ls_alpha = torch.where(take, alpha_sel, zero)
+    aux_alpha = torch.where(take, alpha_sel, torch.full_like(alpha_sel, math.nan))
+    n_iters = torch.where(ok, k_acc + 1, torch.full_like(k_acc, max_iters)).to(torch.int32)
+    return ls_alpha, code, n_iters, aux_alpha, (alpha_sel, phi_sel, x_sel)
+
+
+def acceptance(code, ls_alpha, aux_alpha, grad_small):
+    """The iteration's acceptance (altro_tpu/solver.py:986-1019):
+    MINIMUM_FOUND or HIT_MAX_STEPSIZE pass; BEST_DECREASE is taken but
+    fails the status; a lane takes its search's payload only at the alpha
+    it returns. Returns (alpha, ls_failed, use the search's payload)."""
+    alpha_st = torch.where(grad_small, torch.zeros_like(ls_alpha), ls_alpha)
+    ls_ok = (code == int(LineSearchCode.MINIMUM_FOUND)) | (
+        code == int(LineSearchCode.HIT_MAX_STEPSIZE))
+    ls_failed = ~grad_small & (torch.isnan(alpha_st) | ~ls_ok)
+    accepted = ls_ok | (code == int(LineSearchCode.BEST_DECREASE))
+    return alpha_st, ls_failed, accepted & ~grad_small & (aux_alpha == alpha_st)
 
 
 def print_grid_blocks(blocks, alphas, phis, phi0, with_phi0):
@@ -359,13 +416,7 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
         search == "split" or (search == "rti" and opts.ls_phase_split))
     with_dphi = vmapped and not skip_dphi
     fallback = search == "split" and opts.ls_best_decrease_fallback
-    ls_opts = LineSearchOptions(
-        c1=opts.ls_c1, c2=opts.ls_c2, max_iters=opts.ls_max_iters,
-        alpha_max=opts.ls_alpha_max, beta_increase=opts.ls_beta_increase,
-        beta_decrease=opts.ls_beta_decrease, min_interval_size=opts.ls_min_interval_size,
-        try_cubic_first=opts.ls_try_cubic_first,
-        use_backtracking=opts.use_backtracking_linesearch, armijo_slack=opts.ls_armijo_slack,
-        verbose=vmapped and opts.verbose >= Verbosity.LINE_SEARCH)
+    ls_opts = search_options(opts, verbose=vmapped and opts.verbose >= Verbosity.LINE_SEARCH)
 
     def full(v, dt=None):
         return torch.full((Bsz,), v, dtype=dt or dtype, device=dev)
@@ -523,78 +574,34 @@ def lane_loop(problem: Problem, state: SolverState, opts: SolverOptions, *,
                     armijo[0] &= torch.abs(dphi_first) <= -c2 * dphi0
                     lap("wolfe_completion")
                 sel = ti.select_trial_tiled(armijo, alphas, phis, xstacks)
-                best = ti.select_best_tiled(alphas, phis, xstacks) if fallback else ()
+                best = ti.select_best_tiled(alphas, phis, xstacks) if fallback else None
                 return sel, best
 
-            (found, k_acc, alpha_sel, phi_sel, x_sel), best = eval_block(0)
+            acc, best = eval_block(0)
             if ls_opts.verbose:
                 phi0_host = phi0.tolist()
                 print_grid_blocks([0] * Bsz, block_alphas, block_phis, phi0_host, True)
-                found_at = torch.where(found, 0, -1)
-            if fallback:
-                balpha, bphi, bx = best
+                found_at = torch.where(acc[0], 0, -1)
             blk = 1
-            while blk < n_blocks and trace.read(torch.any(~found & searching)):
-                (f2, idx2, a2, p2, x2), best2 = eval_block(blk)
+            while blk < n_blocks and trace.read(torch.any(~acc[0] & searching)):
+                sel, best2 = eval_block(blk)
                 if ls_opts.verbose:
                     print_grid_blocks(torch.where(found_at >= 0, found_at + 1, blk).tolist(),
                                       block_alphas, block_phis, phi0_host, search == "grid")
-                    found_at = torch.where(~found & f2, blk, found_at)
-                # a lane still searching takes this block's first passing trial,
-                # or its first trial (the JAX loop's body runs for it)
-                upd = ~found
-                k_acc = torch.where(upd, blk * W + idx2, k_acc)
-                alpha_sel = torch.where(upd, a2, alpha_sel)
-                phi_sel = torch.where(upd, p2, phi_sel)
-                x_sel = torch.where(upd, x2, x_sel)
-                found = torch.logical_or(found, f2)
-                if fallback:
-                    ba2, bp2, bx2 = best2
-                    tb = bp2 < bphi
-                    balpha = torch.where(tb, ba2, balpha)
-                    bphi = torch.where(tb, bp2, bphi)
-                    bx = torch.where(tb, bx2, bx)
+                    found_at = torch.where(~acc[0] & sel[0], blk, found_at)
+                acc, best = merge_block(acc, sel, blk, W, best, best2)
                 blk += 1
+            ls_alpha, code, n_iters, aux_alpha, (alpha_sel, phi_sel, x_sel) = grid_outcome(
+                search, opts.ls_max_iters, acc, best, phi0, dphi0)
 
-            not_descent = dphi0 >= 0
-            ok = torch.logical_and(found, ~not_descent)
-            fb = torch.zeros_like(ok)
-            if fallback:  # the lowest-merit trial when it decreases the merit
-                fb = torch.logical_and(~ok, bphi < phi0)
-                alpha_sel = torch.where(fb, balpha, alpha_sel)
-                phi_sel = torch.where(fb, bphi, phi_sel)
-                x_sel = torch.where(fb, bx, x_sel)
-            def code_of(c):
-                return full(int(c), torch.int32)
-
-            code = torch.where(ok, code_of(LineSearchCode.MINIMUM_FOUND),
-                               torch.where(fb, code_of(LineSearchCode.BEST_DECREASE),
-                                           torch.where(not_descent,
-                                                       code_of(LineSearchCode.NOT_DESCENT_DIRECTION),
-                                                       code_of(LineSearchCode.NO_ERROR))))
-            take = ok | fb
-            if search == "grid":  # no trial passes: the first of the last block
-                ls_alpha = torch.where(not_descent, torch.zeros_like(alpha_sel), alpha_sel)
-            else:
-                ls_alpha = torch.where(take, alpha_sel, torch.zeros_like(alpha_sel))
-            aux_alpha = torch.where(take, alpha_sel, full(math.nan))
-            n_iters = torch.where(ok, k_acc + 1,
-                                  torch.full_like(k_acc, opts.ls_max_iters)).to(torch.int32)
-
-        # acceptance (altro_tpu/solver.py:986-1019): MINIMUM_FOUND or
-        # HIT_MAX_STEPSIZE pass; BEST_DECREASE is taken but fails the status;
-        # a lane takes its search's payload only at the alpha it returns
+        # acceptance: a lane takes its search's payload only at the alpha it
+        # returns (`acceptance`)
         if search == "rti":
             alpha_st = ls_alpha
             use_ls = torch.ones(Bsz, dtype=torch.bool, device=dev)
             ls_failed = ~use_ls
         else:
-            alpha_st = torch.where(grad_small, torch.zeros_like(ls_alpha), ls_alpha)
-            ls_ok = (code == int(LineSearchCode.MINIMUM_FOUND)) | (
-                code == int(LineSearchCode.HIT_MAX_STEPSIZE))
-            ls_failed = ~grad_small & (torch.isnan(alpha_st) | ~ls_ok)
-            accepted = ls_ok | (code == int(LineSearchCode.BEST_DECREASE))
-            use_ls = accepted & ~grad_small & (aux_alpha == alpha_st)
+            alpha_st, ls_failed, use_ls = acceptance(code, ls_alpha, aux_alpha, grad_small)
         ls_iters = n_iters
         lap("select")
 

@@ -1,7 +1,9 @@
-"""The export slice on the card: the two backward operators
+"""The export slice on the card: the three operators
 (altro_tpu_torch/ops/library.py) against their kernel wrappers bit for
-bit, and a CPU-traced f32 artifact moved to the card, which launches the
-latency kernel and matches the live f32 tick there.
+bit, and CPU-traced f32 artifacts moved to the card (the row's options,
+the default options with the strong-Wolfe search in the graph, and the
+`_trial` form), which launch their kernels and match the live f32 tick
+there.
 
 Marked `cuda`: each test skips unless torch.cuda.is_available() (decided
 inside the fixture, never at import). On a machine with an H100 and nvcc:
@@ -138,3 +140,63 @@ def test_cpu_traced_artifact_on_card_launches_kernel(dev, tmp_path):
     u_cpu, _, _ = call_exported(srv, *(t.cpu() for t in (xm, xr, ur)),
                                 {k: v.cpu() for k, v in st.items()})
     assert float((u_cpu - u0.cpu()).abs().max()) <= 1e-5
+
+
+def test_trial_operator_equals_wrapper(dev):
+    """`altro_tpu_torch::trial_rollout` on CUDA tensors launches
+    trial_rollout.cu and gives its wrapper's answer bit for bit (the
+    bicycle at N=30, W=8, the steering bound's two rows)."""
+    from altro_tpu_torch.mpc import trial_operands
+    from altro_tpu_torch.ops import library  # noqa: F401
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    step, args, con = trial_operands("bicycle", 30, 8, 2, device=dev)
+    ds = step.device_step
+    want = tr.trial_rollout(step, *args, con=con)
+    before = tr.LAUNCHES
+    got = torch.ops.altro_tpu_torch.trial_rollout(
+        *args, *con, ds.model, ds.integrator, [float(v) for v in ds.params])
+    assert tr.LAUNCHES == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("form", ["default", "trial"])
+def test_cpu_traced_forms_on_card_launch_their_kernels(dev, tmp_path, form):
+    """The default-options artifact (the strong-Wolfe search in the graph,
+    riccati_latency.cu) and the `_trial` one (trial_rollout.cu and
+    riccati_latency.cu), traced on the CPU at N=12, saved, loaded and
+    called with CUDA inputs: each launches its kernels and matches the
+    live f32 tick on the card (the chip's export_aot gates)."""
+    from altro_tpu_torch import mpc
+    from altro_tpu_torch.export import (
+        arrays_to_state,
+        call_exported,
+        export_mpc_server,
+        load_exported,
+        save_exported,
+    )
+    from altro_tpu_torch.io.scotty import load_scotty
+    from altro_tpu_torch.ops import riccati_latency as rl
+    from altro_tpu_torch.ops import trial_rollout as tr
+
+    ref = load_scotty()
+    if form == "default":
+        build, opts = mpc.aot_latency_problem, mpc.aot_default_options()
+    else:
+        build, opts = mpc.aot_trial_problem, mpc.aot_trial_options()
+    opts = opts.replace(iterations_max=3)
+    art = export_mpc_server(build(ref, N=12, device="cpu"), opts, platforms=("cuda",))
+    save_exported(art, str(tmp_path / "a.pt2"))
+    srv = load_exported(str(tmp_path / "a.pt2"))
+    problem = build(ref, N=12, device=dev)
+    xm, xr, ur, st = mpc.aot_latency_inputs(problem, ref, None)
+    before = rl.LAUNCHES, tr.LAUNCHES
+    u0, st_a, stats = call_exported(srv, xm, xr, ur, st)
+    assert rl.LAUNCHES > before[0]
+    assert (tr.LAUNCHES > before[1]) == (form == "trial")
+    assert u0.is_cuda and torch.isfinite(u0).all()
+    ul, sl, statl = mpc.mpc_step(problem, arrays_to_state(st), xm, xr, ur, opts)
+    assert int(stats["iterations"]) == int(statl.iterations)
+    assert float((u0 - ul).abs().max()) <= 1e-5
+    assert float((st_a["x"] - sl.x).abs().max()) <= 1e-4
+    assert float((st_a["u"] - sl.u).abs().max()) <= 1e-4

@@ -9,9 +9,10 @@ export refuses (altro_tpu_torch/export.py, ops/library.py), on the CPU.
   holds `altro_tpu_torch::riccati_dense`.
 * `torch.library.opcheck` on both operators, and each against the live
   retry it replaces (`solver._retry_loop`, `tile_iter.retry_tiled`).
-* Every option export does not carry raises NotImplementedError naming
-  it before tracing; so does a CUDA platform whose kernel cannot take the
-  problem.
+* What JAX's export refuses too (a verbosity above SILENT, an
+  iteration_callback) raises NotImplementedError naming it before
+  tracing; every other option exports and runs (the former refusals'
+  cases); so does a CUDA platform whose kernel cannot take the problem.
 """
 
 import dataclasses
@@ -154,14 +155,40 @@ REFUSED = [
     ({"parallel_riccati": True}, "parallel_riccati"),
     ({"pallas_rollout": True}, "pallas_rollout"),
 ]
+# what JAX's export refuses too (host callbacks); every other option is carried
+STILL_REFUSED = {"verbosity": "verbosity", "iteration_callback": "iteration_callback"}
 
 
 @pytest.mark.parametrize("over, name", REFUSED, ids=[name for _, name in REFUSED])
 def test_refused_options_raise_by_name(over, name):
-    problem, _, opts = _row()
+    """A verbosity above SILENT and an iteration_callback raise
+    NotImplementedError naming them (and JAX's reason) before tracing; the
+    options the graph carries since it runs every search (the strong-Wolfe
+    machine, the grids, the fallback, RTI), the exact AL Hessian, the
+    associative backward and, on the CPU, `pallas_rollout` with the
+    problem's own grid, export, and the artifact's first tick equals the
+    live f32 tick on the CPU (B=8 through the vmapped solve, one lane for
+    pallas_rollout)."""
+    problem, ref, opts = _row()
+    opts = opts.replace(**over)
     batch = None if name == "pallas_rollout" else 8
-    with pytest.raises(NotImplementedError, match=name):
-        export_mpc_server(problem, opts.replace(**over), batch=batch, platforms=("cpu",))
+    if name in STILL_REFUSED:
+        with pytest.raises(NotImplementedError, match=STILL_REFUSED[name]) as err:
+            export_mpc_server(problem, opts, batch=batch, platforms=("cpu",))
+        assert "host_callbacks" in str(err.value)
+        return
+    art = export_mpc_server(problem, opts, batch=batch, platforms=("cpu",))
+    xm, xr, ur, st = mpc.aot_latency_inputs(problem, ref, batch)
+    from altro_tpu_torch.export import arrays_to_state
+
+    u0, st_a, stats = call_exported(art, xm, xr, ur, st)
+    step = mpc.mpc_step if batch is None else mpc.mpc_step_lanes
+    u_live, s_live, stats_live = step(problem, arrays_to_state(st), xm, xr, ur, opts)
+    np.testing.assert_array_equal(stats["iterations"].numpy(), stats_live.iterations.numpy())
+    np.testing.assert_array_equal(stats["status"].numpy(), stats_live.status.numpy())
+    np.testing.assert_allclose(u0.numpy(), u_live.numpy(), rtol=0, atol=1e-5)
+    for a, b in ((st_a["x"], s_live.x), (st_a["u"], s_live.u)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("batch, over, kernel", [

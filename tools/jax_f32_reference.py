@@ -18,6 +18,7 @@
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --implicit-grad [--lanes B] [--iterations I]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --vmap-rescue [--lanes B]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --aot [--ticks T]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --aot-default [--ticks T]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --cartpole-depths 40,50,60,100
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --long-horizon-parallel-riccati [--draws K]
 
@@ -1506,13 +1507,17 @@ def vmap_rescue_row(lanes=1024):
           flush=True)
 
 
-def aot_rows(calls=3):
+def aot_rows(calls=3, default=False):
     """The `mpc_latency_aot` row's tick (scripts/bench_all.py:229-279: its
     problem, options and warm-started inputs) through altro_tpu's jitted
     `mpc_step`, `calls` ticks chained state to state from the row's
-    inputs, in float64 and float32 at B = 1: per tick u0, iterations and
-    status, then the last state's x, u and rho. What chip_smoke.py's
-    `export_aot` phase holds the port's f64 artifact to."""
+    inputs, in float64 and float32 at B = 1: per tick u0, iterations,
+    ls_iterations and status, then the last state's x, u and rho. What
+    chip_smoke.py's `export_aot` phase holds the port's f64 artifact to.
+    default=True (`--aot-default`): the row's problem under the default
+    SolverOptions() (the strong-Wolfe cubic search) with the row's 10
+    iterations, penalty warm start and tolerances 1e-3 (the port's
+    `mpc_latency_aot_B1_wolfe`)."""
     jax.config.update("jax_enable_x64", True)
     from altro_tpu.mpc import mpc_step
 
@@ -1520,7 +1525,7 @@ def aot_rows(calls=3):
     N = 30
     h = float(np.float32(ref.tf / ref.N))
     delta_max = float(np.deg2rad(60.0))  # a weak Python float: the f32 run stays f32
-    out = {"row": "mpc_latency_aot", "N": N, "calls": calls}
+    out = {"row": "mpc_latency_aot" + ("_wolfe" if default else ""), "N": N, "calls": calls}
     for dt, tag in ((jnp.float64, "f64"), (F32, "f32")):
         steering = ConstraintSpec(
             fn=lambda x, u, k: jnp.stack([x[3] - delta_max, -delta_max - x[3]]),
@@ -1538,6 +1543,10 @@ def aot_rows(calls=3):
             throw_errors=False, use_backtracking_linesearch=True, penalty_warm_start=True,
             parallel_linesearch=True, ls_phase_split=True, ls_armijo_only=True,
             ls_grid_x_only=True, ls_max_iters=8)
+        if default:
+            opts = SolverOptions(iterations_max=10, tol_stationarity=1e-3,
+                                 tol_primal_feasibility=1e-3, throw_errors=False,
+                                 penalty_warm_start=True)
         st = dataclasses.replace(
             init_state(problem), u=jnp.tile(jnp.asarray([ref.u[0][0], 0.0], dt), (N, 1)),
             x=jnp.asarray(ref.x[: N + 1], dt))
@@ -1549,7 +1558,9 @@ def aot_rows(calls=3):
         for _ in range(calls):
             u0, st, stats = step(st)
             ticks.append({"u0": np.asarray(u0, np.float64).tolist(),
-                          "iterations": int(stats.iterations), "status": int(stats.status)})
+                          "iterations": int(stats.iterations),
+                          "ls_iterations": int(stats.ls_iterations),
+                          "status": int(stats.status)})
         out[tag] = {"ticks": ticks, "x": np.asarray(st.x, np.float64).tolist(),
                     "u": np.asarray(st.u, np.float64).tolist(), "rho": float(st.rho)}
     out["f32_vs_f64_max_abs"] = {k: float(np.abs(np.asarray(out["f32"][k])
@@ -1710,6 +1721,9 @@ def main():
     ap.add_argument("--aot", action="store_true",
                     help="run the mpc_latency_aot row's tick (--ticks calls, default 3) in "
                          "float64 and float32")
+    ap.add_argument("--aot-default", action="store_true",
+                    help="run the mpc_latency_aot row's tick under the default SolverOptions() "
+                         "(--ticks calls, default 3) in float64 and float32")
     ap.add_argument("--long-horizon-parallel-riccati", action="store_true",
                     help="run the bounded N=500 solve with parallel_riccati in float32 (pure "
                          "and chunk 16) over --draws rounding draws (default 8) against the "
@@ -1753,11 +1767,13 @@ def main():
         vmap_rescue_row(args.lanes)
     if args.aot:
         aot_rows(args.ticks or 3)
+    if args.aot_default:
+        aot_rows(args.ticks or 3, default=True)
     if args.cartpole_depths:
         cartpole_depths([int(v) for v in args.cartpole_depths.split(",")])
     if args.long_horizon_parallel_riccati:
         long_horizon_parallel_riccati(args.draws or 8, band=(18.65, 22.49))
-    if (args.long_horizon_parallel_riccati or args.aot or args.cartpole_depths or args.learned_mpc or args.implicit_grad or args.vmap_rescue or args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
+    if (args.long_horizon_parallel_riccati or args.aot or args.aot_default or args.cartpole_depths or args.learned_mpc or args.implicit_grad or args.vmap_rescue or args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
             or args.single_lane_rows or args.facade or args.quadrotor_vmapped or args.obstacle
             or args.obstacle_loop or args.obstacle_loop_draws or args.tracking_tiled
             or args.single_lane_options or args.quadrotor_latency):
