@@ -19,8 +19,8 @@ def cold_lanes(problems):
     """Single-lane problems of one structure (their data leaves differ) as
     the lanes of one batched solve: (the problem lane-minor, every data
     leaf of `problem.problem_leaves` one row per lane; the state
-    lane-minor, each lane's cold start). The batched solve takes per-lane
-    x0, h and DiagonalCost leaves."""
+    lane-minor, each lane's cold start). The batched solve takes any leaf
+    per lane."""
     leaves = [torch.stack(lv, dim=-1)
               for lv in zip(*([t for _, t in problem_leaves(p)] for p in problems))]
     states = [init_state(p) for p in problems]

@@ -6,7 +6,8 @@ Counterpart: altro_tpu/al.py (`constraint_values`, `projected_duals`,
 lane and are lifted by vmap; here each function takes a stack of knots
 in the solver's lane-minor layout and computes them all at once:
 x [K, n, B], u [K, m, B] (None at the terminal knot), duals z per group
-[K, p, B], penalty rho [B], ks the [K] knot indices.
+[K, p, B], penalty rho [B], ks the [K] knot indices. A group's mask is
+shared ([N+1]) or per lane ([N+1, B], `ConstraintSpec.mask`).
 
     z_est  = z - rho * c(x, u)
     z_proj = P_{K*}(z_est)
@@ -52,7 +53,7 @@ def _terminal_u(problem: Problem, x):
 
 
 def _active(spec, ks):
-    return spec.active[ks][:, None]  # [K, 1]
+    return spec.mask(ks)  # [K, 1] shared or [K, B] per lane
 
 
 def _jac(spec, ks, x, u):
@@ -115,7 +116,7 @@ def al_grad(problem: Problem, ks, x, u, z, rho, terminal: bool):
         Jc = _jac(spec, ks, x, u)
         Pj = _proj_jac(cones.dual_cone(spec.cone), ze)
         jvp = torch.einsum("kijb,kib->kjb", Pj, zp)
-        act = _active(spec, ks)[:, :, None]
+        act = _active(spec, ks)[:, None]
         gx = torch.einsum("kijb,kib->kjb", Jc[:, :, :n], jvp)
         lx = lx - torch.where(act, gx, torch.zeros_like(gx))
         if not terminal:
@@ -206,7 +207,7 @@ def _al_hess(problem: Problem, ks, x, u, z, rho, terminal: bool, exact: bool):
         if exact and not spec.affine:
             w = torch.einsum("kijb,kib->kjb", Pj, zp)  # dP^T z_proj
             Hc = Hc - _curvature(spec, ks, x, u, w)
-        act = _active(spec, ks)[:, :, None, None]
+        act = _active(spec, ks)[:, None, None]
         zero = torch.zeros_like(Hc)
         Hc = torch.where(act, Hc, zero)
         lxx = lxx + Hc[:, :n, :n]
@@ -218,7 +219,9 @@ def _al_hess(problem: Problem, ks, x, u, z, rho, terminal: bool, exact: bool):
 
 def diag_expansion_eligible(problem: Problem) -> bool:
     """True when the AL cost Hessian is diagonal at every knot: diagonal
-    cost and every constraint group declared `diag_hessian`."""
+    cost and every constraint group declared `diag_hessian`. Static
+    declarations only, so the same for every lane whatever its leaves (a
+    per-lane mask only zeroes a diagonal group's terms)."""
     return isinstance(problem.cost, DiagonalCost) and all(
         spec.diag_hessian for spec in problem.constraints
     )
@@ -242,7 +245,7 @@ def al_hess_diag(problem: Problem, ks, x, u, z, rho, terminal: bool):
         Pj = _proj_jac(cones.dual_cone(spec.cone), ze)
         Jt = torch.einsum("kijb,kjlb->kilb", Pj, Jc)
         hd = rho * torch.sum(Jt * Jt, dim=1)  # [K, n+m, B]
-        hd = torch.where(_active(spec, ks)[:, :, None], hd, torch.zeros_like(hd))
+        hd = torch.where(_active(spec, ks)[:, None], hd, torch.zeros_like(hd))
         lxxd = lxxd + hd[:, :n]
         if not terminal:
             luud = luud + hd[:, n:]

@@ -332,6 +332,15 @@ __global__ void __launch_bounds__(LANES * MAX_TRIALS) rollout_grid_kernel(const 
 // down the chunk (an address's 64-bit products once a position and chunk,
 // not once a float); each thread reads the next knot's policy operands
 // into registers a knot ahead. 49,664 bytes of dynamic shared memory (opted in above 48 KB).
+//
+// Per-lane cost rows (the template flag LANE_COST, as in the kernel
+// above): the knot's row of Q, q, R, r, c and h becomes one row a lane b,
+// GROUPS rows of the same layout and padding after u_ref and d, each staged
+// from the lane's column of the [.., B] arrays (neighbouring threads take
+// neighbouring lanes, as for K and x_ref); a group reads its own row. That
+// is 34 more floats a lane and knot (about 4.3 MB more at B=1024, N=30 over
+// the shared kernel's 21 MB) and 70,400 bytes of shared memory. The shared
+// instantiation (false) is the code it was.
 
 namespace quad {
 
@@ -350,28 +359,36 @@ constexpr int AXS = 220;    // an axis's [GROUPS][AXW] block, 200 floats padded:
 constexpr int UD = 3 * AXS;
 constexpr int ROW = UD + GROUPS * 8;
 constexpr int RR = 24, RRL = RR + I, RC = RRL + I, RH = RC + 1, ROW_FLOATS = RH + 1;
-constexpr int KNOT = ROW + 36;
-constexpr int BUF = QCHUNK * KNOT;
-static_assert(AXS % 4 == 0 && UD % 4 == 0 && ROW % 4 == 0 && KNOT % 4 == 0 &&
-              ROW_FLOATS <= 36, "16-byte aligned arrays");
+constexpr int RSTRIDE = 36;  // a row's floats, padded
+static_assert(AXS % 4 == 0 && UD % 4 == 0 && ROW % 4 == 0 && RSTRIDE % 4 == 0 &&
+              ROW_FLOATS <= RSTRIDE, "16-byte aligned arrays");
 
 // Positions of one knot's staged floats: the axis blocks (ax, f, g), u_ref
-// and d (f, g), then the lane-shared row.
+// and d (f, g), then the lane-shared row, or under LC one row a lane (f, g).
 constexpr int LANE_POS = 3 * AXW * GROUPS;
 constexpr int UD_POS = 8 * GROUPS;
-constexpr int POS = LANE_POS + UD_POS + ROW_FLOATS;
+
+template <bool LC>
+struct Knot {
+  static constexpr int ROWS = LC ? GROUPS : 1;  // cost rows a knot
+  static constexpr int FLOATS = ROW + ROWS * RSTRIDE;
+  static constexpr int BUF = QCHUNK * FLOATS;
+  static constexpr int POS = LANE_POS + UD_POS + ROWS * ROW_FLOATS;
+};
 
 // Copy chunk ch (knots ch * QCHUNK ...) of the block's lanes b0 ..
 // b0 + GROUPS - 1 into buf with cp.async, one float a copy: thread t takes
 // positions t, t + nt, ... of a knot, finds each one's source once and
 // walks it down the chunk's knots; neighbouring threads take neighbouring
 // lanes (lanes past B copy lane B - 1).
+template <bool LC>
 __device__ __forceinline__ void stage(float* buf, const Ops& o, int ch, int b0, int t, int nt) {
+  using Kn = Knot<LC>;
   const long B = o.Bsz;
   const int N = o.N, k0 = ch * QCHUNK;
   const int kn = min(QCHUNK, N - k0);      // knots with a policy
   const int kr = min(QCHUNK, N + 1 - k0);  // knots with rows (the terminal one too)
-  for (int p = t; p < POS; p += nt) {
+  for (int p = t; p < Kn::POS; p += nt) {
     const float* src;  // the float at knot k0
     long step;         // floats a knot in the source
     int dst, count;
@@ -394,7 +411,7 @@ __device__ __forceinline__ void stage(float* buf, const Ops& o, int ch, int b0, 
       step = I * B;
       dst = UD + g * 8 + f;
       count = kn;
-    } else {
+    } else if (!LC) {
       const int f = p - LANE_POS - UD_POS;
       if (f < RR) {
         src = (f % 8 < 4 ? o.Q : o.q) + (long)k0 * S + f / 8 + 3 * (f % 4);
@@ -408,14 +425,31 @@ __device__ __forceinline__ void stage(float* buf, const Ops& o, int ch, int b0, 
       }
       dst = ROW + f;
       count = f == RH ? kn : kr;  // h has no terminal entry
+    } else {  // LC: lane g's row, entry f, from the [.., B] arrays
+      const int g = (p - LANE_POS - UD_POS) % GROUPS, f = (p - LANE_POS - UD_POS) / GROUPS;
+      const long bl = min(b0 + g, o.Bsz - 1);
+      if (f < RR) {
+        src = (f % 8 < 4 ? o.Q : o.q) + ((long)k0 * S + f / 8 + 3 * (f % 4)) * B + bl;
+        step = S * B;
+      } else if (f < RC) {
+        src = (f < RRL ? o.R + ((long)k0 * I + f - RR) * B : o.r + ((long)k0 * I + f - RRL) * B) +
+              bl;
+        step = I * B;
+      } else {
+        src = (f == RC ? o.c : o.h) + (long)k0 * B + bl;
+        step = B;
+      }
+      dst = ROW + g * RSTRIDE + f;
+      count = f == RH ? kn : kr;
     }
     for (int kk = 0; kk < count; ++kk, src += step)
-      __pipeline_memcpy_async(buf + kk * KNOT + dst, src, sizeof(float));
+      __pipeline_memcpy_async(buf + kk * Kn::FLOATS + dst, src, sizeof(float));
   }
 }
 
+template <bool LC>
 __device__ __forceinline__ AxisPolicy load_policy(const float* buf, int kk, int g, int ax) {
-  const float* knot = buf + kk * KNOT;
+  const float* knot = buf + kk * Knot<LC>::FLOATS;
   const float4* kx = reinterpret_cast<const float4*>(knot + ax * AXS + g * AXW);
   const float4* ud = reinterpret_cast<const float4*>(knot + UD + g * 8);
   AxisPolicy o;
@@ -424,13 +458,15 @@ __device__ __forceinline__ AxisPolicy load_policy(const float* buf, int kk, int 
   o.xr = kx[4];
   o.ur = ud[0];
   o.d = ud[1];
-  o.h = knot[ROW + RH];
+  o.h = knot[ROW + (LC ? g * RSTRIDE : 0) + RH];
   o.h6 = o.h / 6.0f;
   return o;
 }
 
+template <bool LC>
 __global__ void __launch_bounds__(32 * TRIALS)
     rollout_grid_quadrotor_kernel(const Ops o, const QuadrotorAxisRK4 model) {
+  using Kn = Knot<LC>;
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, lane = tid % 32, nt = blockDim.x;
@@ -452,23 +488,23 @@ __global__ void __launch_bounds__(32 * TRIALS)
   float phi = 0.0f;
 
   const int nchunks = (N + QCHUNK) / QCHUNK;  // knots 0..N
-  stage(smem, o, 0, b0, tid, nt);
+  stage<LC>(smem, o, 0, b0, tid, nt);
   __pipeline_commit();
   for (int ch = 0; ch < nchunks; ++ch) {
     // the buffers by offset, not from an array of pointers, so that the
     // loads stay shared-memory loads
-    if (ch + 1 < nchunks) stage(smem + ((ch + 1) & 1) * BUF, o, ch + 1, b0, tid, nt);
+    if (ch + 1 < nchunks) stage<LC>(smem + ((ch + 1) & 1) * Kn::BUF, o, ch + 1, b0, tid, nt);
     __pipeline_commit();
     __pipeline_wait_prior(1);
     __syncthreads();  // chunk ch is in place
 
-    const float* buf = smem + (ch & 1) * BUF;
+    const float* buf = smem + (ch & 1) * Kn::BUF;
     const int k0 = ch * QCHUNK, kend = min(QCHUNK, N + 1 - k0);
     AxisPolicy cur;
-    if (k0 < N) cur = load_policy(buf, 0, g, ax);
+    if (k0 < N) cur = load_policy<LC>(buf, 0, g, ax);
     for (int kk = 0; kk < kend; ++kk) {
       const int k = k0 + kk;
-      const float* row = buf + kk * KNOT + ROW;
+      const float* row = buf + kk * Kn::FLOATS + ROW + (LC ? g * RSTRIDE : 0);
       const float4 Qv = reinterpret_cast<const float4*>(row)[2 * ax];
       const float4 qv = reinterpret_cast<const float4*>(row)[2 * ax + 1];
       const float Qa[4] = {Qv.x, Qv.y, Qv.z, Qv.w}, qa[4] = {qv.x, qv.y, qv.z, qv.w};
@@ -500,7 +536,7 @@ __global__ void __launch_bounds__(32 * TRIALS)
         }
         phi = phi + 0.5f * sq + sl + 0.5f * su + sr + row[RC];
         const float h = cur.h, h6 = cur.h6;
-        if (kk + 1 < kend && k + 1 < N) cur = load_policy(buf, kk + 1, g, ax);
+        if (kk + 1 < kend && k + 1 < N) cur = load_policy<LC>(buf, kk + 1, g, ax);
         model.step(s, tr, u, h, h6, axis);
       } else {  // terminal knot: the state-only cost
         phi = phi + 0.5f * sq + sl + row[RC];
@@ -511,15 +547,16 @@ __global__ void __launch_bounds__(32 * TRIALS)
   if (valid && ax == 0) o.phi[(long)w * B + b] = phi;
 }
 
+template <bool LC>
 int launch(const Ops& o, const QuadrotorAxisRK4& model, cudaStream_t s) {
   const int trials = o.W < TRIALS ? o.W : TRIALS;
   const dim3 grid((o.Bsz + GROUPS - 1) / GROUPS, (o.W + trials - 1) / trials);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  const size_t bytes = 2 * (size_t)BUF * sizeof(float);
+  const size_t bytes = 2 * (size_t)Knot<LC>::BUF * sizeof(float);
   const cudaError_t e = cudaFuncSetAttribute(
-      rollout_grid_quadrotor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      rollout_grid_quadrotor_kernel<LC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  rollout_grid_quadrotor_kernel<<<grid, 32 * trials, bytes, s>>>(o, model);
+  rollout_grid_quadrotor_kernel<LC><<<grid, 32 * trials, bytes, s>>>(o, model);
   return (int)cudaGetLastError();
 }
 
@@ -557,8 +594,7 @@ int launch_p(const Ops& o, const Model& m, int P, bool lane_cost, cudaStream_t s
 // gravity, arm, kf, km, Jx, Jy, Jz); (2, 0): the pendulum midpoint step,
 // P 0 or 2, params (mass, length, b, g); (3, 2): the double integrator's
 // exact step, P 0 or 2, no params. params lies in host memory. lane_cost
-// nonzero: Q, q, R, r, c and h hold one row per lane (a trailing [B]; not
-// for the quadrotor).
+// nonzero: Q, q, R, r, c and h hold one row per lane (a trailing [B]).
 extern "C" int rollout_grid_f32(
     const float* xref, const float* uref, const float* K, const float* d,
     const float* Q, const float* q, const float* R, const float* r,
@@ -575,10 +611,10 @@ extern "C" int rollout_grid_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool lc = lane_cost != 0;
   if (model == 1 && integrator == 1) {
-    if (P != 0 || lc) return (int)cudaErrorInvalidValue;
+    if (P != 0) return (int)cudaErrorInvalidValue;
     const altro_dev::QuadrotorAxisRK4 m{params[0], params[1], params[2], params[3],
                                         params[4], params[5], params[6], params[7]};
-    return quad::launch(o, m, s);
+    return lc ? quad::launch<true>(o, m, s) : quad::launch<false>(o, m, s);
   }
   if (model == 2 && integrator == 0)
     return launch_p(o, PendulumMidpoint{params[0], params[1], params[2], params[3]}, P, lc, s);

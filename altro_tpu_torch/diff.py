@@ -35,15 +35,21 @@ CUDA a problem that kernel cannot take is refused before anything runs
 Under `torch.func.vmap` (JAX's `jax.vmap` over `implicit_solve`):
 `_ImplicitSolve.vmap` runs the forward as the lane-batched solve
 (`parallel.batch.solve_lanes`, the per-lane semantics of
-`jax.vmap(solve)`) with per-lane x0, DiagonalCost leaves and h; a
-batched leaf the batched solve keeps shared (A, B, f_aff, a
-QuadraticCost's arrays) raises NotImplementedError naming it. The
+`jax.vmap(solve)`) with every batched leaf one row per lane (x0, the
+cost's arrays, h, A, B, f_aff) and every batched mask one column per lane:
+the constraints' `active` masks enter the Function as tensor inputs with
+no derivative, as JAX's float0 leaves are batched and carry none. The
 backward then runs under the vmap level on one lane's logical shapes,
 with no host read: the Gauss-Newton backward's vmap rule runs the
 batched csrc/riccati_dense.cu (or the batched plain recursion), and the
 conjugate gradients run their `maxiter` iterations with converged lanes
 frozen (the semantics of JAX's batched while loop; outside vmap they
 stop on a host read).
+
+Once differentiable, as JAX's `custom_vjp` is: forward mode over the
+solve (`jacfwd`, `hessian`), a backward under a second reverse level
+(`jacrev` or `grad` over `grad`) and a second `torch.autograd.grad`
+through a first one taken with `create_graph=True` raise `ONCE`.
 """
 
 from __future__ import annotations
@@ -57,12 +63,7 @@ from altro_tpu_torch.ops import riccati_backward as rb
 from altro_tpu_torch.ops import riccati_latency as rl
 from altro_tpu_torch.ops.gn_backward import gn_backward, lane_minor
 from altro_tpu_torch.options import SolverOptions
-from altro_tpu_torch.problem import (
-    DiagonalCost,
-    Problem,
-    problem_leaves,
-    problem_with_leaves,
-)
+from altro_tpu_torch.problem import Problem, problem_leaves, problem_with_leaves
 from altro_tpu_torch.solver import (
     SolverState,
     al_expansions,
@@ -73,10 +74,10 @@ from altro_tpu_torch.solver import (
 )
 from altro_tpu_torch.tvlqr import tvlqr_forward
 
-__all__ = ["implicit_solve", "gn_refusal"]
+__all__ = ["implicit_solve", "gn_refusal", "ONCE"]
 
-# the leaves the batched solve takes one row per lane of (a DiagonalCost's arrays)
-_LANE_LEAVES = ("cost.Q", "cost.R", "cost.q", "cost.r", "cost.c", "h", "x0")
+ONCE = ("implicit_solve is once-differentiable (as JAX's custom_vjp is): no forward-mode "
+        "derivative and no derivative of its gradient")
 
 
 def _merit(problem: Problem, u, z, rho):
@@ -124,11 +125,59 @@ def _gn_solve(problem: Problem, u, z, rho, w, reg, kernel: bool):
     return lam
 
 
+def _levels(kinds) -> int:
+    """How many `torch.func` transforms of these kinds are active."""
+    from torch._C._functorch import get_interpreter_stack
+
+    return sum(i.key() in kinds for i in get_interpreter_stack() or ())
+
+
 def _under_vmap() -> bool:
     """True inside a `torch.func.vmap` level (where a host read fails)."""
+    from torch._C._functorch import TransformType
+
+    return _levels((TransformType.Vmap,)) > 0
+
+
+def _second_order() -> Optional[str]:
+    """Whether a second derivative differentiates this backward: "func"
+    under two reverse or forward `torch.func` levels, "autograd" when plain
+    autograd builds a graph of it (`create_graph=True`), else None."""
     from torch._C._functorch import TransformType, get_interpreter_stack
 
-    return any(i.key() == TransformType.Vmap for i in get_interpreter_stack() or ())
+    if get_interpreter_stack():
+        return "func" if _levels((TransformType.Grad, TransformType.Jvp)) > 1 else None
+    return "autograd" if torch.is_grad_enabled() else None
+
+
+def _forward_mode(problem: Problem) -> bool:
+    """True when a forward-mode derivative would run through the solve: a
+    `torch.func` forward level (`jacfwd`, `hessian`, `jvp`) or a leaf that
+    is a dual tensor of `torch.autograd.forward_ad`."""
+    import torch.autograd.forward_ad as fwad
+    from torch._C._functorch import TransformType
+
+    if _levels((TransformType.Jvp,)):
+        return True
+    return any(fwad.unpack_dual(t).tangent is not None for _, t in problem_leaves(problem))
+
+
+class _NotTwice(torch.autograd.Function):
+    """The identity on a gradient built with `create_graph=True`, tied to
+    the leaves so that a second `torch.autograd.grad` reaches it: its own
+    backward raises `ONCE`."""
+
+    @staticmethod
+    def forward(n, *tensors):
+        return tuple(t.detach().clone() for t in tensors[:n])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(ONCE)
 
 
 def _cg_solve(problem: Problem, u, z, rho, w, tol, maxiter):
@@ -178,8 +227,8 @@ def _state_from(tensors, n_groups: int) -> SolverState:
 @dataclasses.dataclass(frozen=True)
 class _Spec:
     """What `_ImplicitSolve` takes besides tensors: the problem (its
-    leaves are replaced by the Function's inputs), the names of its
-    leaves, the options and the linear solve's settings."""
+    leaves and masks are replaced by the Function's inputs), the names of
+    its leaves, the options and the linear solve's settings."""
 
     problem: Problem
     names: tuple
@@ -188,13 +237,20 @@ class _Spec:
     cg_tol: float
     cg_maxiter: int
 
-    def problem_of(self, leaves) -> Problem:
-        return problem_with_leaves(self.problem, leaves)
+    @property
+    def n_groups(self) -> int:
+        return len(self.problem.constraints)
+
+    def problem_of(self, leaves, masks) -> Problem:
+        prob = problem_with_leaves(self.problem, leaves)
+        return dataclasses.replace(prob, constraints=tuple(
+            dataclasses.replace(spec, active=a) for spec, a in zip(prob.constraints, masks)))
 
     def split(self, tensors):
-        """(leaves, warm-start state) of the Function's tensor inputs."""
-        nl = len(self.names)
-        return tensors[:nl], _state_from(tensors[nl:], len(self.problem.constraints))
+        """(leaves, masks, warm-start state) of the Function's tensor inputs."""
+        nl, ng = len(self.names), self.n_groups
+        return (tensors[:nl], tensors[nl:nl + ng],
+                _state_from(tensors[nl + ng:], ng))
 
 
 def _jacobians_on():
@@ -208,41 +264,44 @@ def _jacobians_on():
 
 
 class _ImplicitSolve(torch.autograd.Function):
-    """(spec, *leaves, *state) -> (x*, u*, rho*, *z*); x* and u* are
-    differentiable in the leaves (the implicit function theorem), rho*
-    and z* are not."""
+    """(spec, *leaves, *masks, *state) -> (x*, u*, rho*, *z*); x* and u*
+    are differentiable in the leaves (the implicit function theorem), rho*
+    and z* are not, nor is anything in the masks."""
 
     @staticmethod
     def forward(spec: _Spec, *tensors):
-        leaves, state = spec.split(tuple(t.detach() for t in tensors))
+        leaves, masks, state = spec.split(tuple(t.detach() for t in tensors))
         with _jacobians_on():
-            st, _ = solve(spec.problem_of(leaves), state, spec.opts)
+            st, _ = solve(spec.problem_of(leaves, masks), state, spec.opts)
         return (st.x, st.u, st.rho, *st.z)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         spec, *tensors = inputs
-        leaves, _ = spec.split(tensors)
+        leaves, masks, _ = spec.split(tensors)
         _, u, rho, *z = output
         ctx.spec = spec
-        ctx.n_state = len(tensors) - len(leaves)
-        ctx.save_for_backward(*leaves, u, rho, *z)
+        ctx.n_state = len(tensors) - len(leaves) - len(masks)
+        ctx.save_for_backward(*leaves, *masks, u, rho, *z)
         ctx.mark_non_differentiable(rho, *z)
 
     @staticmethod
     def backward(ctx, xbar, ubar, *_):
+        second = _second_order()
+        if second == "func":
+            raise RuntimeError(ONCE)
         spec = ctx.spec
         saved = ctx.saved_tensors
-        nl = len(spec.names)
-        leaves = saved[:nl]
-        u, rho, *z = (t.detach() for t in saved[nl:])
+        nl, ng = len(spec.names), spec.n_groups
+        leaves, masks = saved[:nl], saved[nl:nl + ng]
+        u, rho, *z = (t.detach() for t in saved[nl + ng:])
         z = tuple(z)
-        problem = spec.problem_of(leaves)
+        problem = spec.problem_of(leaves, masks)
 
         # pull xbar back through the rollout x* = R(u*, theta): into the
         # u-cotangent (chained into the implicit term) and into theta_bar
         _, vjp_roll = torch.func.vjp(
-            lambda u_, *lv: open_loop_rollout(spec.problem_of(lv), u_), u, *leaves)
+            lambda u_, *lv: open_loop_rollout(spec.problem_of(lv, masks), u_), u, *leaves)
         w_from_x, *pbar_direct = vjp_roll(xbar)
         w = ubar + w_from_x
 
@@ -254,37 +313,34 @@ class _ImplicitSolve(torch.autograd.Function):
 
         # theta_bar_implicit = -(dg/dtheta)^T lambda, g = d phi / du at the solution
         def g_of_theta(*lv):
-            return torch.func.grad(lambda u_: _merit(spec.problem_of(lv), u_, z, rho))(u)
+            return torch.func.grad(
+                lambda u_: _merit(spec.problem_of(lv, masks), u_, z, rho))(u)
 
         _, vjp_g = torch.func.vjp(g_of_theta, *leaves)
         pbar_implicit = vjp_g(lam)
         pbar = tuple(a - b for a, b in zip(pbar_direct, pbar_implicit))
-        return (None, *pbar, *([None] * ctx.n_state))
+        if second == "autograd":
+            pbar = _NotTwice.apply(len(pbar), *pbar, *leaves)
+        return (None, *pbar, *([None] * ng), *([None] * ctx.n_state))
 
     @staticmethod
     def vmap(info, in_dims, spec: _Spec, *tensors):
         """The batched forward: the lane-minor batched solve over every
-        lane at once, each lane JAX's `solve` on its own data."""
+        lane at once, each lane JAX's `solve` on its own data: a batched
+        leaf or mask one row per lane, an unbatched one shared."""
         from altro_tpu_torch.parallel.batch import solve_lanes
 
         Bsz = info.batch_size
-        nl = len(spec.names)
+        nl, ng = len(spec.names), spec.n_groups
         dims = in_dims[1:]
-        per_lane = _LANE_LEAVES if isinstance(spec.problem.cost, DiagonalCost) else ("h", "x0")
-        for name, dim in zip(spec.names, dims[:nl]):
-            if dim is not None and name not in per_lane:
-                raise NotImplementedError(
-                    f"implicit_solve under torch.func.vmap: the leaf {name} is batched, but the "
-                    f"batched solve keeps it shared by all lanes (it takes one row per lane of "
-                    f"{', '.join(per_lane)})")
-
-        # x0 and the state one row per lane; the other leaves as batched
+        # x0 and the state one row per lane; the other leaves and the masks as batched
         tensors = tuple(t.detach() for t in tensors)
         leaves = [lane_minor(t, d, Bsz if name == "x0" else None)
                   for name, t, d in zip(spec.names, tensors[:nl], dims[:nl])]
-        state = _state_from([lane_minor(t, d, Bsz) for t, d in zip(tensors[nl:], dims[nl:])],
-                            len(spec.problem.constraints))
-        problem = spec.problem_of(leaves)
+        masks = [lane_minor(t, d) for t, d in zip(tensors[nl:nl + ng], dims[nl:nl + ng])]
+        state = _state_from([lane_minor(t, d, Bsz)
+                             for t, d in zip(tensors[nl + ng:], dims[nl + ng:])], ng)
+        problem = spec.problem_of(leaves, masks)
         why = gn_refusal(problem, spec.opts, vmapped=True) if spec.method == "tvlqr" else None
         if why is not None:
             raise NotImplementedError(f"implicit_solve: {why}")
@@ -304,7 +360,8 @@ def implicit_solve(
 ):
     """Solve and return (x*, u*), differentiable with respect to `problem`'s
     data leaves (`problem.problem_leaves`: the cost arrays, h, x0, A / B /
-    f_aff) by autograd and `torch.func` (`grad`, `vjp`, `vmap` over them).
+    f_aff) by autograd and `torch.func` (`grad`, `vjp`, `vmap` over them
+    and over the constraints' masks). Once differentiable (`ONCE`).
 
     method: "tvlqr" (Gauss-Newton implicit differentiation, one extra
     TVLQR pass) or "cg" (exact-Hessian matrix-free conjugate gradients,
@@ -315,6 +372,8 @@ def implicit_solve(
     """
     if method not in ("tvlqr", "cg"):
         raise ValueError(f"unknown method {method!r}")
+    if _forward_mode(problem):
+        raise RuntimeError(ONCE)
     if method == "tvlqr" and not _under_vmap():
         why = gn_refusal(problem, opts, vmapped=False)
         if why is not None:
@@ -325,5 +384,6 @@ def implicit_solve(
         cg_maxiter = problem.N * problem.m
     names, leaves = zip(*problem_leaves(problem))
     spec = _Spec(problem, names, opts, method, cg_tol, int(cg_maxiter))
-    x, u, *_ = _ImplicitSolve.apply(spec, *leaves, *_state_tensors(state))
+    masks = tuple(c.active for c in problem.constraints)
+    x, u, *_ = _ImplicitSolve.apply(spec, *leaves, *masks, *_state_tensors(state))
     return x, u

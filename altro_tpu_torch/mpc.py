@@ -857,15 +857,15 @@ class WaypointResult:
     iterations: torch.Tensor  # [T, B] int32
     status: torch.Tensor  # [T, B] int32
     x_true: torch.Tensor  # [B, 12] final plant states
-    final_waypoint: tuple  # the waypoint of the last tick
+    final_waypoint: tuple  # the waypoint of the last tick (or [B, 3], each lane's)
     state: SolverState  # final solver state, batch-major
     seconds: float  # wall time of the run (synchronized on CUDA)
 
     def metrics(self) -> dict:
         """The row's numbers (scripts/bench_all.py:501-510, unrounded)."""
         T, B = self.iterations.shape
-        wp = torch.as_tensor(self.final_waypoint, dtype=torch.float64)
-        dist = torch.linalg.norm(self.x_true[:, :3].double().cpu() - wp[None], dim=1)
+        wp = torch.as_tensor(np.asarray(self.final_waypoint), dtype=torch.float64)
+        dist = torch.linalg.norm(self.x_true[:, :3].double().cpu() - wp.reshape(-1, 3), dim=1)
         return {
             "solves_per_s": B * T / self.seconds,
             "ms_per_tick": 1e3 * self.seconds / T,
@@ -928,24 +928,39 @@ def _lanes_closed_loop(problem: Problem, x_true0: torch.Tensor, ticks: int, stat
 
 
 def _waypoint_loop(problem: Problem, x_true0: torch.Tensor, ticks: int, switch_every: int,
-                   state0: Optional[SolverState], solve_lanes_fn) -> WaypointResult:
+                   state0: Optional[SolverState], solve_lanes_fn,
+                   per_lane: bool = False) -> WaypointResult:
     """The batched waypoint loop: `_lanes_closed_loop` with the waypoint's
-    cost rows each tick, through the rk4 plant."""
+    cost rows each tick, through the rk4 plant. per_lane: lane b flies
+    the sequence from waypoint b mod 4 on (its own q [N+1, n, B] and
+    c [N+1, B] rows, lane-minor)."""
     N, m, B = problem.N, problem.m, x_true0.shape[0]
     q_wp, c_wp, wp_idx = _waypoint_costs(problem, ticks, switch_every)
     if state0 is None:
         state0 = dataclasses.replace(batch_init_state(problem, B), u=torch.full(
             (B, N, m), QUAD_HOVER, dtype=problem.dtype, device=problem.device))
-    out = _lanes_closed_loop(problem, x_true0, ticks, state0, solve_lanes_fn, lambda t: (
-        dataclasses.replace(problem.cost, q=q_wp[wp_idx[t]], c=c_wp[wp_idx[t]])))
+    lanes = torch.arange(B, device=problem.device)
+
+    def cost_at(t):
+        if not per_lane:
+            return dataclasses.replace(problem.cost, q=q_wp[wp_idx[t]], c=c_wp[wp_idx[t]])
+        idx = (wp_idx[t] + lanes) % len(QUAD_WAYPOINTS)
+        return dataclasses.replace(problem.cost, q=tsv.batch_to_lanes(q_wp[idx]),
+                                   c=tsv.batch_to_lanes(c_wp[idx]))
+
+    out = _lanes_closed_loop(problem, x_true0, ticks, state0, solve_lanes_fn, cost_at)
     iters, statuses, x_true, state, seconds = out
-    return WaypointResult(iters, statuses, x_true, QUAD_WAYPOINTS[wp_idx[-1]], state, seconds)
+    final = QUAD_WAYPOINTS[wp_idx[-1]]
+    if per_lane:
+        final = np.asarray(QUAD_WAYPOINTS)[(wp_idx[-1] + np.arange(B)) % len(QUAD_WAYPOINTS)]
+    return WaypointResult(iters, statuses, x_true, final, state, seconds)
 
 
 def run_quadrotor_waypoints(problem: Problem, x_true0: torch.Tensor, *, ticks: int = 100,
                             opts: Optional[SolverOptions] = None, switch_every: int = 25,
                             state0: Optional[SolverState] = None,
-                            layer_seconds: Optional[dict] = None) -> WaypointResult:
+                            layer_seconds: Optional[dict] = None,
+                            per_lane_waypoints: bool = False) -> WaypointResult:
     """Closed-loop waypoint MPC: each tick every lane solves (the vmapped
     solve), applies u_0 through the rk4 plant and shifts its warm start;
     the waypoint's cost rows (shared by all lanes) switch every
@@ -954,10 +969,13 @@ def run_quadrotor_waypoints(problem: Problem, x_true0: torch.Tensor, *, ticks: i
     (batch-major) defaults to the cold start with the inputs at hover.
     The lanes stay lane-minor for the whole run. layer_seconds: a dict
     that accumulates the solves' host seconds by layer
-    (`tile_solver.lane_loop`)."""
+    (`tile_solver.lane_loop`). per_lane_waypoints: lane b starts at
+    waypoint b mod 4 (its own q and c rows, one row per lane), and the
+    result's final waypoint is each lane's [B, 3]."""
     opts = quadrotor_options() if opts is None else opts
     return _waypoint_loop(problem, x_true0, ticks, switch_every, state0,
-                          lambda prob, st: solve_lanes(prob, st, opts, layer_seconds))
+                          lambda prob, st: solve_lanes(prob, st, opts, layer_seconds),
+                          per_lane_waypoints)
 
 
 def quadrotor_tiled_options() -> SolverOptions:
@@ -972,18 +990,22 @@ def run_quadrotor_waypoints_tiled(problem: Problem, x_true0: torch.Tensor, *,
                                   ticks: int = 100, opts: Optional[SolverOptions] = None,
                                   switch_every: int = 25,
                                   state0: Optional[SolverState] = None,
-                                  layer_seconds: Optional[dict] = None) -> WaypointResult:
+                                  layer_seconds: Optional[dict] = None,
+                                  per_lane_waypoints: bool = False) -> WaypointResult:
     """The waypoint loop of `run_quadrotor_waypoints` through
     `tile_solver.solve_tiled` (bench_all.py:433-472): the waypoint's q and
-    c shared by every lane, u_0 through the rk4 plant,
-    `shift_trajectory_tiled`. On CUDA tensors the batched backward and the
-    trial-grid kernels run, or the solve is refused before it starts. On
-    every device and dtype, `run_quadrotor_waypoints` with these options
-    and `pallas_backward=False` takes the same steps on the plain paths.
-    opts default `quadrotor_tiled_options()`; layer_seconds as there."""
+    c shared by every lane (or with `per_lane_waypoints` each lane's own,
+    as there: the grid kernel's LANE_COST instantiation), u_0 through the
+    rk4 plant, `shift_trajectory_tiled`. On CUDA tensors the batched
+    backward and the trial-grid kernels run, or the solve is refused
+    before it starts. On every device and dtype, `run_quadrotor_waypoints`
+    with these options and `pallas_backward=False` takes the same steps
+    on the plain paths. opts default `quadrotor_tiled_options()`;
+    layer_seconds as there."""
     opts = quadrotor_tiled_options() if opts is None else opts
     return _waypoint_loop(problem, x_true0, ticks, switch_every, state0,
-                          lambda prob, st: tsv.solve_tiled(prob, st, opts, layer_seconds))
+                          lambda prob, st: tsv.solve_tiled(prob, st, opts, layer_seconds),
+                          per_lane_waypoints)
 
 
 def quadrotor_latency_options() -> SolverOptions:

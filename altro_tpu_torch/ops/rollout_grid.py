@@ -82,7 +82,13 @@ def device_params(ds) -> ctypes.Array:
 
 
 def ineligibility(problem: Problem) -> Optional[str]:
-    """Why the kernel cannot run this problem, or None when it can."""
+    """Why the kernel cannot run this problem, or None when it can: as
+    JAX's `rollout_tiled_eligible` (altro_tpu/ops/pallas_rollout_tiled.py:
+    78-92), a column-form step with a __device__ twin, a DiagonalCost and
+    affine NEGATIVE_ORTHANT groups with masks shared by all lanes; linear
+    dynamics arrays have no column-form step in either package."""
+    if problem.linear_dynamics:
+        return "linear dynamics arrays (Problem.A, B, f_aff) have no column-form step"
     cols = problem.dynamics_cols
     if cols is None:
         return "the problem has no column-form step (Problem.dynamics_cols)"
@@ -95,13 +101,14 @@ def ineligibility(problem: Problem) -> Optional[str]:
         return f"device step is for n={ds.n}, m={ds.m}, problem has n={problem.n}, m={problem.m}"
     if not isinstance(problem.cost, DiagonalCost):
         return "the cost is not a DiagonalCost"
-    if (ds.model, ds.integrator) == (MODEL_QUADROTOR, INTEGRATOR_RK4) and per_lane(problem):
-        return ("per-lane cost rows or h (the quadrotor's kernel, "
-                "rollout_grid_quadrotor_kernel, reads rows shared by all lanes)")
     for spec in problem.constraints:
         if not (spec.affine and spec.cone is Cone.NEGATIVE_ORTHANT):
             return (f"constraint group {spec.label!r} is not an affine "
                     "NEGATIVE_ORTHANT group")
+        if spec.per_lane:
+            return (f"constraint group {spec.label!r} has a per-lane active mask (the "
+                    "kernel's affine rows are shared by all lanes, as JAX's kernel takes "
+                    "an unbatched constraint spec)")
     rows = sum(spec.dim for spec in problem.constraints)
     name, step_rows = DEVICE_STEPS[(ds.model, ds.integrator)]
     if rows not in step_rows or len(problem.constraints) > 2:
@@ -141,7 +148,8 @@ def affine_constraint_stacks(problem: Problem):
     """Per-knot affine coefficients of the constraint groups, concatenated:
     cax [N+1, P, n], cau [N+1, P, m], cg [N+1, P], act [N+1, P], with
     c_e(x, u) = cax_e.x + cau_e.u + cg_e (the ConstraintSpec.affine
-    contract). Evaluated once per problem at (x, u) = (0, 0)."""
+    contract). Evaluated once per problem at (x, u) = (0, 0). The masks
+    are shared by all lanes (`ineligibility` refuses a per-lane one)."""
     n, m, N = problem.n, problem.m, problem.N
     dt, dev = problem.dtype, problem.device
     ks = torch.arange(N + 1, device=dev)
@@ -154,6 +162,9 @@ def affine_constraint_stacks(problem: Problem):
         AX.append(J[:, :, :n])
         AU.append(J[:, :, n:])
         G.append(g)
+        if spec.per_lane:
+            raise ValueError(f"affine_constraint_stacks: group {spec.label!r} has a per-lane "
+                             "active mask")
         ACT.append(spec.active[:, None].expand(g.shape).to(dt))
     if not AX:
         return (torch.zeros((N + 1, 0, n), dtype=dt, device=dev),

@@ -52,8 +52,9 @@ def check_options(opts: SolverOptions) -> None:
 
 def solve_lanes(problem: Problem, state: SolverState, opts: SolverOptions = SolverOptions(),
                 layer_seconds: Optional[dict] = None):
-    """The vmapped solve on lane-minor data: problem.x0 [n, B], state
-    lane-minor; returns (state lane-minor, stats [B]). Closed loops call
+    """The vmapped solve on lane-minor data: problem.x0 [n, B], any other
+    leaf shared or one row per lane (`tile_solver.solve_tiled`'s
+    contract), state lane-minor; returns (state lane-minor, stats [B]). Closed loops call
     this to keep their lanes lane-minor across ticks. layer_seconds: a
     dict that gains host seconds by layer (`tile_solver.lane_loop`)."""
     check_options(opts)
@@ -62,7 +63,9 @@ def solve_lanes(problem: Problem, state: SolverState, opts: SolverOptions = Solv
 
 
 def vmap_solve(problem: Problem, opts: SolverOptions = SolverOptions()):
-    """The vmapped solve over (x0 batch, state batch); problem is shared.
+    """The vmapped solve over (x0 batch, state batch); the problem's other
+    leaves are shared or hold one row per lane, lane-minor
+    (`tile_solver.solve_tiled`'s contract).
 
     Returns a callable (x0 [B, n], state [B, ...]) -> (state', stats),
     batch-major at its edges and per-lane stats [B]. Under the default

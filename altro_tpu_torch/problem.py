@@ -15,10 +15,13 @@ Conventions of the port:
   against the batch dims. One lane is the case `batch = ()`.
 * Cost methods take knot stacks in the solver's lane-minor layout,
   `x [K, n, B]`, `u [K, m, B]`, with `ks` the `[K]` knot indices. Each
-  leaf of a DiagonalCost is shared by all lanes (`Q [N+1, n]`, `c [N+1]`)
-  or holds one row per lane on a trailing lane axis (`Q [N+1, n, B]`,
-  `c [N+1, B]`), leaf by leaf, as JAX's `prob_axes` batches any leaf;
-  `Problem.h` likewise (`[N]` or `[N, B]`).
+  leaf of a cost is shared by all lanes (`Q [N+1, n]`, `c [N+1]`) or
+  holds one row per lane on a trailing lane axis (`Q [N+1, n, B]`,
+  `c [N+1, B]`), leaf by leaf, as JAX's `prob_axes` and `jax.vmap` batch
+  any leaf; so do `Problem.h` (`[N]` or `[N, B]`), the linear dynamics
+  arrays (`A [N, n, n, B]`, `B [N, n, m, B]`, `f_aff [N, n, B]`) and each
+  `ConstraintSpec.active` (`[N+1]` or `[N+1, B]`): a leaf's one-lane
+  dims plus one (`LEAF_DIMS`).
 * Jacobians of user callables come from forward-mode automatic
   differentiation over the batch (`lane_jacobian`), the counterpart of
   `jax.jacfwd`; GenericCost's gradients and Hessians from `torch.func`'s
@@ -45,7 +48,15 @@ __all__ = [
     "lane_jacobian",
     "problem_leaves",
     "problem_with_leaves",
+    "LEAF_DIMS",
 ]
+
+# The dims of each leaf on one lane; a leaf with one more holds one row per
+# lane on its trailing axis.
+LEAF_DIMS = {"DiagonalCost": {"Q": 2, "q": 2, "R": 2, "r": 2, "c": 1},
+             "QuadraticCost": {"Q": 3, "R": 3, "H": 3, "q": 2, "r": 2, "c": 1},
+             "Problem": {"h": 1, "A": 3, "B": 3, "f_aff": 2},
+             "ConstraintSpec": {"active": 1}}
 
 
 def lane_jacobian(fn, x, u, *extra):
@@ -113,11 +124,28 @@ def _diag_rows(rows, B):
 # ---------------------------------------------------------------------------
 
 
+def _lane_leaves(obj) -> Tuple[str, ...]:
+    """The names of obj's leaves that hold one row per lane (`LEAF_DIMS`)."""
+    dims = LEAF_DIMS.get(type(obj).__name__, {})
+    return tuple(name for name, base in dims.items()
+                 if getattr(obj, name) is not None and getattr(obj, name).ndim == base + 1)
+
+
 class Cost:
     """Cost interface over knot stacks (lane-minor, see the module
     docstring): stage knots (k < N) have state and input terms, the
     terminal knot is state-only. A dataclass cost's floating-point tensor
     fields are its data leaves (`problem_leaves`)."""
+
+    @property
+    def lane_leaves(self) -> Tuple[str, ...]:
+        """The names of the leaves that hold one row per lane."""
+        return _lane_leaves(self)
+
+    @property
+    def per_lane(self) -> bool:
+        """True when any leaf holds one row per lane."""
+        return bool(self.lane_leaves)
 
     def stage_value(self, ks, x, u):
         raise NotImplementedError
@@ -166,17 +194,6 @@ class DiagonalCost(Cost):
             + _consts(self.c, ks)
         )
 
-    @property
-    def lane_leaves(self) -> Tuple[str, ...]:
-        """The names of the leaves that hold one row per lane."""
-        return tuple(name for name, base in (("Q", 2), ("q", 2), ("R", 2), ("r", 2), ("c", 1))
-                     if getattr(self, name).ndim == base + 1)
-
-    @property
-    def per_lane(self) -> bool:
-        """True when any leaf holds one row per lane."""
-        return bool(self.lane_leaves)
-
     def term_value(self, x):
         """[K, B] terminal cost of x [K, n, B]."""
         Q, q = _last(self.Q), _last(self.q)
@@ -210,13 +227,23 @@ class DiagonalCost(Cost):
 
 
 def _mv(M, v):
-    """Per-knot matrix times lane vectors: M [K, a, b], v [K, b, B] -> [K, a, B]."""
+    """Per-knot matrices times lane vectors: M [K, a, b] shared or
+    [K, a, b, B] per lane, v [K, b, B] -> [K, a, B]."""
+    if M.ndim == 4:
+        return torch.einsum("kijb,kjb->kib", M, v)
     return torch.einsum("kij,kjb->kib", M, v)
 
 
 def _lanes_of(M, B):
-    """Knot-stacked matrices [K, a, b] shared by B lanes, as [K, a, b, B]."""
-    return M[..., None].expand(*M.shape, B)
+    """Knot-stacked matrices [K, a, b] shared by B lanes, as [K, a, b, B]
+    (a per-lane stack [K, a, b, B] as it is)."""
+    return M if M.ndim == 4 else M[..., None].expand(*M.shape, B)
+
+
+def _last_mats(M, K):
+    """The terminal matrix of a stack, repeated for K knots: [K, a, b]
+    shared or [K, a, b, B] per lane."""
+    return M[-1][None].expand((K,) + M.shape[1:])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,9 +251,11 @@ class QuadraticCost(Cost):
     """0.5 x'Qx + q'x + 0.5 u'Ru + r'u + u'Hx + c, stacked over knots.
 
     Q: [N+1, n, n];  R: [N+1, m, m];  H: [N+1, m, n];  q, r, c as in
-    DiagonalCost (shared by all lanes). Its Hessians are dense, so the
-    solve takes the dense expansions with lux (al.diag_expansion_eligible
-    is False).
+    DiagonalCost. On lane-minor data any leaf may carry a trailing lane
+    axis, one row per lane (Q [N+1, n, n, B], R [N+1, m, m, B],
+    H [N+1, m, n, B], q [N+1, n, B], r [N+1, m, B], c [N+1, B]); a leaf
+    without it stays shared. Its Hessians are dense, so the solve takes
+    the dense expansions with lux (al.diag_expansion_eligible is False).
     """
 
     Q: torch.Tensor
@@ -245,11 +274,11 @@ class QuadraticCost(Cost):
             + 0.5 * torch.sum(u * _mv(R, u), dim=1)
             + torch.sum(_rows(self.r, ks) * u, dim=1)
             + torch.sum(u * _mv(H, x), dim=1)
-            + self.c[ks][:, None]
+            + _consts(self.c, ks)
         )
 
     def term_value(self, x):
-        Q = self.Q[-1].expand(x.shape[0], -1, -1)
+        Q = _last_mats(self.Q, x.shape[0])
         return (0.5 * torch.sum(x * _mv(Q, x), dim=1) + torch.sum(_last(self.q) * x, dim=1)
                 + self.c[-1])
 
@@ -260,7 +289,7 @@ class QuadraticCost(Cost):
         return lx, lu
 
     def term_grad(self, x):
-        return _mv(self.Q[-1].expand(x.shape[0], -1, -1), x) + _last(self.q)
+        return _mv(_last_mats(self.Q, x.shape[0]), x) + _last(self.q)
 
     def stage_hess(self, ks, x, u):
         B = x.shape[-1]
@@ -268,7 +297,7 @@ class QuadraticCost(Cost):
                 _lanes_of(self.H[ks], B))
 
     def term_hess(self, x):
-        return _lanes_of(self.Q[-1].expand(x.shape[0], -1, -1), x.shape[-1])
+        return _lanes_of(_last_mats(self.Q, x.shape[0]), x.shape[-1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -369,17 +398,29 @@ class ConstraintSpec:
     fn(x, u, k) -> [dim, *batch]; at the terminal knot fn receives
     u = zeros(m). `jac(x, u, k) -> [dim, n + m, *batch]` is optional and
     defaults to `lane_jacobian`. `diag_hessian` and `affine` are the same
-    declarations as in the JAX package.
+    declarations as in the JAX package. `active` is the knot mask, [N+1]
+    shared by all lanes or [N+1, B] one column per lane (lane-minor data).
     """
 
     fn: Callable[..., torch.Tensor]
     cone: Cone
     dim: int
-    active: torch.Tensor  # [N+1] bool
+    active: torch.Tensor  # [N+1] bool, or [N+1, B] per lane
     jac: Optional[Callable[..., torch.Tensor]] = None
     label: str = ""
     diag_hessian: bool = False
     affine: bool = False
+
+    @property
+    def per_lane(self) -> bool:
+        """True when the mask holds one column per lane."""
+        return self.active.ndim == 2
+
+    def mask(self, ks=None):
+        """The mask at knots ks (every knot when None), to broadcast against
+        a knot stack's [K, B]: [K, 1] shared or [K, B] per lane."""
+        a = self.active if ks is None else self.active[ks]
+        return a if a.ndim == 2 else a[:, None]
 
     def jacobian(self, x, u, k):
         if self.jac is not None:
@@ -400,10 +441,12 @@ class Problem:
 
     dynamics(x, u, h, k) -> x_next (component-first); dynamics_jac(x, u,
     h, k) -> [n, n+m, *batch] optional. Or dynamics=None and linear
-    dynamics arrays A [N, n, n], B [N, n, m], f_aff [N, n], shared by all
-    lanes: x' = A x + B u + f (the reference's SetLinearDynamics). x0: [n]
-    for one lane, or [n, B] lane-minor for the batched solve. h: [N], or
-    [N, B] for one step length per lane and knot in the batched solves.
+    dynamics arrays A [N, n, n], B [N, n, m], f_aff [N, n]: x' = A x + B u
+    + f (the reference's SetLinearDynamics); in the batched solves each may
+    hold one row per lane (A [N, n, n, B], B [N, n, m, B], f_aff
+    [N, n, B]). x0: [n] for one lane, or [n, B] lane-minor for the batched
+    solve. h: [N], or [N, B] for one step length per lane and knot in the
+    batched solves.
     dynamics_cols: the column-form step
     (models/tile_steps.py) that the batched rollout kernel runs on the
     card; dynamics_tile: the block-form step ([W, n] trial rows) that the
@@ -419,9 +462,9 @@ class Problem:
     cost: object  # DiagonalCost, QuadraticCost or GenericCost
     h: torch.Tensor  # [N], or [N, B] per lane
     x0: torch.Tensor
-    A: Optional[torch.Tensor] = None  # [N, n, n]
-    B: Optional[torch.Tensor] = None  # [N, n, m]
-    f_aff: Optional[torch.Tensor] = None  # [N, n]
+    A: Optional[torch.Tensor] = None  # [N, n, n], or [N, n, n, B] per lane
+    B: Optional[torch.Tensor] = None  # [N, n, m], or [N, n, m, B] per lane
+    f_aff: Optional[torch.Tensor] = None  # [N, n], or [N, n, B] per lane
     dynamics_cols: Optional[Callable[..., tuple]] = None
     dynamics_tile: Optional[Callable[..., torch.Tensor]] = None
 
@@ -437,10 +480,30 @@ class Problem:
     def linear_dynamics(self) -> bool:
         return self.dynamics is None
 
-    def _knot_rows(self, M, k, batch):
+    @property
+    def lane_leaves(self) -> Tuple[str, ...]:
+        """The names of the leaves that hold one row per lane: the cost's
+        (`cost.Q`, ...), h, A, B, f_aff and each group's mask
+        (`constraints[j].active`); x0 carries the lanes themselves."""
+        names = tuple(f"cost.{name}" for name in self.cost.lane_leaves) + _lane_leaves(self)
+        return names + tuple(f"constraints[{j}].active"
+                             for j, spec in enumerate(self.constraints) if spec.per_lane)
+
+    def _knot_rows(self, M, k, batch, base):
         """M[k] with its trailing (row) axes leading, expanded to
         (rows..., *batch); k an int or a knot tensor that broadcasts
-        against the batch dims (trailing-aligned)."""
+        against the batch dims (trailing-aligned). base: M's dims on one
+        lane; a per-lane M (base + 1 dims) takes its lane from the last
+        batch dim, whose entry in a knot tensor is 1, as in `h_at`."""
+        if M.ndim == base + 1:
+            if torch.is_tensor(k) and k.ndim and k.shape[-1] == 1:
+                k = k[..., 0]
+            Mk = M[k]  # [*knot dims, rows..., B]
+            kd = Mk.ndim - M.ndim + 1
+            rows = Mk.shape[kd:-1]
+            Mk = Mk.movedim(tuple(range(kd)), tuple(range(len(rows), len(rows) + kd)))
+            Mk = Mk.reshape(rows + (1,) * (len(batch) - 1 - kd) + Mk.shape[len(rows):])
+            return Mk.expand(rows + batch)
         Mk = M[k]
         kd = Mk.ndim - (M.ndim - 1)  # the knot tensor's dims
         rows = Mk.shape[kd:]
@@ -455,7 +518,7 @@ class Problem:
             batch = A.shape[2:]
             return (torch.einsum("ij...,j...->i...", A, x.expand((self.n,) + batch))
                     + torch.einsum("ij...,j...->i...", B, u.expand((self.m,) + batch))
-                    + self._knot_rows(self.f_aff, k, batch))
+                    + self._knot_rows(self.f_aff, k, batch, 2))
         return self.dynamics(x, u, self.h_at(k), k)
 
     def h_at(self, k):
@@ -475,7 +538,8 @@ class Problem:
         if self.linear_dynamics:
             batch = torch.broadcast_shapes(x.shape[1:], u.shape[1:],
                                            k.shape if torch.is_tensor(k) else ())
-            return self._knot_rows(self.A, k, batch), self._knot_rows(self.B, k, batch)
+            return (self._knot_rows(self.A, k, batch, 3),
+                    self._knot_rows(self.B, k, batch, 3))
         if self.dynamics_jac is not None:
             J = self.dynamics_jac(x, u, self.h_at(k), k)
             return J[:, : self.n], J[:, self.n:]

@@ -19,6 +19,13 @@ functions of the data their gradients are taken in (`diff_di_problem`,
 test_rescue.py's (`_problem`, `_batch`, `OPTS`: `rescue_pendulum_problem`,
 `rescue_pendulum_batch`, `rescue_pendulum_options`).
 
+A problem with every leaf per lane is made here too: the fleet
+of double integrators (`fleet_arrays`, `fleet_problem`,
+`fleet_options`), each lane with its own linear dynamics, QuadraticCost
+and control-bound mask, the data JAX's `prob_axes` / `jax.vmap` batch
+leaf by leaf; numpy arrays from a seed, so both packages solve the same
+numbers.
+
 The single-lane rows of scripts/bench_all.py and the JAX package's
 cart-pole oracle have theirs here too: `cartpole_swingup_problem`
 (tests/test_models_extra.py::test_cartpole_swing_up),
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 
 from altro_tpu_torch.cones import Cone
+from altro_tpu_torch.convert import problem_from_numpy
 from altro_tpu_torch.models.cartpole import cartpole_continuous
 from altro_tpu_torch.models.double_integrator import double_integrator_dynamics
 from altro_tpu_torch.models.integrators import midpoint, rk4
@@ -74,6 +82,11 @@ __all__ = [
     "rescue_pendulum_problem",
     "rescue_pendulum_batch",
     "rescue_pendulum_options",
+    "FLEET_LEAVES",
+    "fleet_arrays",
+    "fleet_bound",
+    "fleet_problem",
+    "fleet_options",
 ]
 
 DI_N, DI_DIM, DI_H = 10, 2, 0.5  # tf = 5
@@ -357,3 +370,96 @@ def rescue_pendulum_options() -> SolverOptions:
         iterations_max=3, tol_stationarity=1e-3, tol_primal_feasibility=1e-3,
         throw_errors=False, use_backtracking_linesearch=True, parallel_linesearch=True,
         ls_phase_split=True, ls_try_cubic_first=False, ls_armijo_only=True, ls_max_iters=8)
+
+
+# the fleet's per-lane leaves (arrays of `fleet_arrays`)
+FLEET_LEAVES = ("A", "B", "f_aff", "Q", "R", "H", "q", "r", "c", "active")
+FLEET_U_MAX = 2.0  # binds on 57.5% of fleet_arrays(1024)'s lanes
+
+
+def fleet_arrays(B: int, *, N: int = 30, h: float = 0.1, seed: int = 0) -> dict:
+    """A fleet of B planar double integrators (n=4: position, velocity;
+    m=2: force), each lane its own data, batch-major numpy ([B, ...]):
+
+    * linear dynamics with the lane's mass M (0.5-1.5), linear drag D
+      (0-0.5) and constant wind force w: p' = p + h v + h^2 / (2M) (u + w),
+      v' = (1 - h D / M) v + h / M (u + w); A [B, N, 4, 4], B [B, N, 4, 2],
+      f_aff [B, N, 4] (the wind's term);
+    * a QuadraticCost 0.5 (x - g)'Q(x - g) + (x - g)'H'u + 0.5 u'Ru to the
+      lane's goal g (a position, at rest), from a random positive definite
+      [[Q, H'], [H, R]] per lane (terminal Q ten times the stage's, no H
+      there): Q, R, H, q = -Q g, r = -H g, c = 0.5 g'Qg;
+    * x0 [B, 4] and the mask of the control bound |u_i| <= FLEET_U_MAX
+      (`fleet_bound`), active from the lane's first knot s in 0..3 to
+      N - 1, and nowhere on one lane in eight: active [1, B, N+1] (one
+      group).
+    """
+    rng = np.random.default_rng(seed)
+    n, m = 4, 2
+    mass = 0.5 + rng.random(B)
+    drag = 0.5 * rng.random(B)
+    wind = 0.3 * rng.standard_normal((B, 2))
+    A = np.tile(np.eye(n), (B, 1, 1))
+    A[:, 0, 2] = A[:, 1, 3] = h
+    A[:, 2, 2] = A[:, 3, 3] = 1.0 - h * drag / mass
+    Bm = np.zeros((B, n, m))
+    Bm[:, 0, 0] = Bm[:, 1, 1] = h * h / (2.0 * mass)
+    Bm[:, 2, 0] = Bm[:, 3, 1] = h / mass
+    f = np.einsum("bij,bj->bi", Bm, wind)
+    L = 0.1 * rng.standard_normal((B, n + m, n + m))
+    W = L @ L.transpose(0, 2, 1) + np.diag([1.0, 1.0, 0.1, 0.1, 1e-2, 1e-2])
+    Qs, Rs, Hs = W[:, :n, :n], W[:, n:, n:], W[:, n:, :n]
+    Q = np.repeat(Qs[:, None], N + 1, axis=1)
+    Q[:, N] *= 10.0
+    R = np.repeat(Rs[:, None], N + 1, axis=1)
+    H = np.repeat(Hs[:, None], N + 1, axis=1)
+    H[:, N] = 0.0
+    goal = np.concatenate([rng.uniform(-1.0, 1.0, (B, 2)), np.zeros((B, 2))], axis=1)
+    q = -np.einsum("bkij,bj->bki", Q, goal)
+    r = -np.einsum("bkij,bj->bki", H, goal)
+    c = 0.5 * np.einsum("bi,bkij,bj->bk", goal, Q, goal)
+    x0 = np.concatenate([rng.uniform(-2.0, 2.0, (B, 2)), 0.5 * rng.standard_normal((B, 2))],
+                        axis=1)
+    first = rng.integers(0, 4, size=B)
+    k = np.arange(N + 1)
+    active = (k[None] >= first[:, None]) & (k[None] < N) & (rng.random(B) >= 0.125)[:, None]
+    rep = lambda a: np.repeat(a[:, None], N, axis=1)  # noqa: E731
+    return dict(A=rep(A), B=rep(Bm), f_aff=rep(f), Q=Q, R=R, H=H, q=q, r=r, c=c,
+                h=np.full((B, N), h), x0=x0, active=active[None])
+
+
+def fleet_bound(N: int, *, device="cuda") -> ConstraintSpec:
+    """The fleet's control bound |u_i| <= FLEET_U_MAX: one affine
+    NEGATIVE_ORTHANT group of 4 rows (its mask is the problem's leaf)."""
+    return ConstraintSpec(fn=lambda x, u, k: torch.cat([u - FLEET_U_MAX, -FLEET_U_MAX - u]),
+                          cone=Cone.NEGATIVE_ORTHANT, dim=4,
+                          active=_mask(N, device, terminal=False), label="control_bound",
+                          diag_hessian=True, affine=True)
+
+
+def fleet_problem(arrays: dict, *, batched=FLEET_LEAVES, lane: int = 0, dtype=torch.float32,
+                  device="cuda") -> Problem:
+    """The fleet's problem from `fleet_arrays`: the leaves in `batched`
+    one row per lane (lane-minor), every other leaf lane `lane`'s, shared;
+    x0 [n, B] always."""
+    N = arrays["A"].shape[1]
+    data = {k: (v if k in batched or k == "x0" else v[:, lane] if k == "active" else v[lane])
+            for k, v in arrays.items()}
+    return problem_from_numpy(data, N=N, n=4, m=2, dynamics=None,
+                              constraints=(fleet_bound(N, device=device),),
+                              batched=tuple(batched) + ("x0",), dtype=dtype, device=device)
+
+
+def fleet_options():
+    """The fleet's options, at the bench's tolerances (1e-3: the default
+    1e-4 stationarity lies under float32's floor, where JAX's own f32
+    solve of the fleet ends 63 of 1,024 lanes LINE_SEARCH_FAILED): (the
+    vmapped solve's, with `pallas_backward` under the default strong-Wolfe
+    search; `solve_tiled`'s, the phase-split x-only Armijo-only grid with
+    the plain grid: linear dynamics have no column-form step)."""
+    tol = dict(tol_stationarity=1e-3, tol_primal_feasibility=1e-3)
+    lanes = SolverOptions(pallas_backward=True, **tol)
+    tiled = SolverOptions(use_backtracking_linesearch=True, parallel_linesearch=True,
+                          ls_phase_split=True, ls_grid_x_only=True, ls_armijo_only=True,
+                          pallas_rollout_tiled=False, **tol)
+    return lanes, tiled

@@ -49,9 +49,9 @@ def solve_tiled_with_rescue(
 ) -> Tuple[SolverState, SolveStats]:
     """`tile_solver.solve_tiled` plus the conditional failed-lane rescue.
 
-    Same layout contract as `solve_tiled`: any leaf of the DiagonalCost
-    and h may hold one row per lane, and both tiers take them as the
-    problem carries them (altro_tpu/rescue.py:57-77). Rescued lanes take
+    Same layout contract as `solve_tiled`: any leaf of the problem may
+    hold one row per lane, and both tiers take them as the problem
+    carries them (altro_tpu/rescue.py:57-77). Rescued lanes take
     the rescue's state and stats, with iterations summed over both tiers
     (`merge_rescue`). When `info` is a dict, info["rescued"] records
     whether the rescue ran. On CUDA tensors both tiers' options are
@@ -74,8 +74,8 @@ def vmap_solve_with_rescue(
 ) -> Tuple[SolverState, SolveStats]:
     """The vmapped solve (`parallel.batch.vmap_solve`'s lane loop) plus the
     conditional failed-lane rescue, batch-major at its edges: `problem`
-    holds the shared data, x0_batch [B, n] and state_batch (leaves
-    [B, ...]) the lanes'. Returns (state [B, ...], stats [B]): rescued
+    holds the other leaves, shared or one row per lane lane-minor,
+    x0_batch [B, n] and state_batch (leaves [B, ...]) the lanes'. Returns (state [B, ...], stats [B]): rescued
     lanes take the rescue's state and stats, iterations summed over both
     tiers (`merge_rescue`); the others keep the primary tier's bit for
     bit. The rescue runs only when a lane failed (one host read). When

@@ -200,7 +200,7 @@ def feasibility(problem: Problem, convals):
     viol = torch.zeros(B, dtype=problem.dtype, device=problem.device)
     for spec, c_j in zip(problem.constraints, convals):
         v = cones.project(spec.cone, c_j.movedim(1, 0)).movedim(0, 1) - c_j
-        masked = torch.where(spec.active[:, None, None], torch.abs(v), torch.zeros_like(v))
+        masked = torch.where(spec.mask()[:, None], torch.abs(v), torch.zeros_like(v))
         if masked.numel():
             viol = torch.maximum(viol, _lane_max(masked))
     return viol
@@ -211,7 +211,7 @@ def complementarity(problem: Problem, convals, z):
     comp = torch.zeros(B, dtype=problem.dtype, device=problem.device)
     for spec, c_j, z_j in zip(problem.constraints, convals, z):
         cz = torch.abs(c_j * z_j)
-        masked = torch.where(spec.active[:, None, None], cz, torch.zeros_like(cz))
+        masked = torch.where(spec.mask()[:, None], cz, torch.zeros_like(cz))
         if masked.numel():
             comp = torch.maximum(comp, _lane_max(masked))
     return comp
@@ -720,7 +720,7 @@ def iteration_update(problem: Problem, opts: SolverOptions, m, *, z, rho, status
 
     # 7. adaptive dual/penalty update
     do_dual = stat < torch.sqrt(torch.tensor(opts.tol_stationarity, **kw))
-    z_new = tuple(torch.where(do_dual & spec.active[:, None, None], zp, zj)
+    z_new = tuple(torch.where(do_dual & spec.mask()[:, None], zp, zj)
                   for spec, zp, zj in zip(problem.constraints, m.zproj, z))
     do_penalty = do_dual & (feas > opts.tol_primal_feasibility)
     rho_new = torch.where(

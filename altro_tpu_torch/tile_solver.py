@@ -20,7 +20,8 @@ parallel/batch.py (`vmap_solve`), which adds what `jax.vmap(solve)` has
 and `solve_tiled` lacks: dense expansions, the dense backward kernel
 (`pallas_backward`), the strong-Wolfe test on the grid's first trial,
 the strong-Wolfe cubic search and the sequential backtracking as a
-per-lane machine, the non-split grid and per-lane cost rows.
+per-lane machine and the non-split grid. Both take any problem leaf one
+row per lane.
 On CUDA tensors the loop runs kernels or is refused before it starts:
 `kernel_refusal` names every kernel it would launch that cannot take the
 problem, and the entry points raise with that reason.
@@ -143,7 +144,10 @@ def kernel_refusal(problem: Problem, opts: SolverOptions, *, vmapped: bool) -> O
       other than float32;
     * the trial grid of `solve_tiled` when `pallas_rollout_tiled` (the
       vmapped solve always runs the plain grid):
-      `rollout_grid.ineligibility`, a dtype other than float32.
+      `rollout_grid.ineligibility` (JAX's eligibility: no column-form
+      step, linear dynamics, a cost that is not diagonal, a group that is
+      not affine NEGATIVE_ORTHANT or whose mask is per lane, the row
+      counts), a dtype other than float32.
 
     Shapes and options only, so it runs before anything launches.
     """
@@ -315,13 +319,15 @@ def solve_tiled(problem: Problem, state: SolverState,
     """Lane-minor batched solve. Returns (SolverState, SolveStats), the
     state lane-minor and the stats [B] per lane.
 
-    problem.x0 is [n, B]. Each leaf of the DiagonalCost (Q, q, R, r, c)
-    and h is shared by all lanes or holds one row per lane on a trailing
-    lane axis, leaf by leaf, as JAX's `prob_axes` batches them; the
-    constraints are shared. The backward kernel (csrc/riccati_dense.cu)
-    takes the expansions per lane whatever the cost's leaves are; the
-    trial-grid kernel reads per-lane rows in its LANE_COST
-    instantiations (`rollout_grid.lane_rows`, once a solve). On CUDA
+    problem.x0 is [n, B]. Every other leaf (the cost's arrays, h, the
+    linear dynamics' A, B and f_aff, each constraint group's `active`
+    mask) is shared by all lanes or holds one row per lane on a trailing
+    lane axis (`problem.LEAF_DIMS`), leaf by leaf, as JAX's `prob_axes`
+    batches them. The backward kernel (csrc/riccati_dense.cu) takes the
+    expansions per lane whatever the leaves are; the trial-grid kernel
+    reads per-lane cost rows and h in its LANE_COST instantiations
+    (`rollout_grid.lane_rows`, once a solve) and refuses a per-lane mask
+    and linear dynamics, as JAX's `rollout_tiled_eligible` does. On CUDA
     tensors the backward pass runs its kernel and the line-search rollout
     its kernel when `pallas_rollout_tiled` (the plain grid otherwise, on
     any device); a problem they cannot take is refused before anything

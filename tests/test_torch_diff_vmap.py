@@ -3,8 +3,8 @@
 in f64 on the CPU: the vmapped gradient over two x0 lanes equals the
 single-lane gradient to rtol 1e-10 and JAX's vmapped gradients to 1e-8,
 under both linear solves (the Gauss-Newton backward's vmap rule, the
-conjugate gradients with frozen lanes). Vmapping over a leaf the batched
-solve keeps shared is refused by name."""
+conjugate gradients with frozen lanes). Vmapping over the linear
+dynamics' A takes one row per lane, as `jax.vmap` does."""
 
 import dataclasses
 
@@ -51,12 +51,18 @@ def test_vmap_grad_matches_single_lane_and_jax(method):
 
 
 def test_vmap_over_shared_leaf_is_refused():
-    """A/B/f_aff are shared by all lanes in the batched solve: vmapping over
-    one raises NotImplementedError naming it."""
+    """A leaf the batched solve kept shared until per-lane leaves came in
+    (the linear dynamics' A) is taken one row per lane now, as `jax.vmap`
+    batches it: the vmapped gradient in A over two lanes equals each
+    lane's own gradient and JAX's vmapped gradients."""
+    from altro_tpu.problem import Problem as JProblem
+
     pb0 = _di_problem()
     prob = diff_di_problem(t64(pb0.cost.q[0]), t64(pb0.x0))
     A = torch.eye(4, dtype=torch.float64).expand(prob.N, 4, 4).clone()
+    A[:, 0, 2] = A[:, 1, 3] = 0.1
     Bm = torch.zeros((prob.N, 4, 2), dtype=torch.float64)
+    Bm[:, :2, :] = 0.005 * torch.eye(2, dtype=torch.float64)
     Bm[:, 2:, :] = 0.1 * torch.eye(2, dtype=torch.float64)
     f = torch.zeros((prob.N, 4), dtype=torch.float64)
     linear = dataclasses.replace(prob, dynamics=None, A=A, B=Bm, f_aff=f)
@@ -64,5 +70,19 @@ def test_vmap_over_shared_leaf_is_refused():
     def loss(A_):
         return loss_of_solution(*implicit_solve(dataclasses.replace(linear, A=A_)))
 
-    with pytest.raises(NotImplementedError, match="the leaf A is batched"):
-        torch.func.vmap(torch.func.grad(loss))(torch.stack([A, A]))
+    As = torch.stack([A, A * 0.99])
+    grads = torch.func.vmap(torch.func.grad(loss))(As)
+    for b in range(2):
+        np.testing.assert_allclose(grads[b].numpy(), torch.func.grad(loss)(As[b]).numpy(),
+                                   rtol=1e-10)
+    jpb = JProblem(N=pb0.N, n=4, m=2, dynamics=None, dynamics_jac=None, constraints=(),
+                   cost=pb0.cost, h=pb0.h, x0=pb0.x0, A=jnp.asarray(A.numpy()),
+                   B=jnp.asarray(Bm.numpy()), f_aff=jnp.asarray(f.numpy()))
+
+    def jloss(A_):
+        return _loss_of_solution(*jimplicit_solve(dataclasses.replace(jpb, A=A_),
+                                                  opts=JOpts()))
+
+    jgrads = jax.jit(jax.vmap(jax.grad(jloss)))(jnp.asarray(As.numpy()))
+    np.testing.assert_allclose(grads.numpy(), np.asarray(jgrads), rtol=1e-8,
+                               atol=1e-12 * float(np.abs(jgrads).max()))

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from altro_tpu_torch import mpc, rescue, solver  # noqa: E402
+from altro_tpu_torch import reference_problems as rp  # noqa: E402
 from altro_tpu_torch import tile_solver as tsv  # noqa: E402
 from altro_tpu_torch.io.scotty import load_scotty  # noqa: E402
 from altro_tpu_torch.parallel import batch  # noqa: E402
@@ -309,13 +310,15 @@ def _per_lane_costs(prob, lanes=3):
 
 def test_per_lane_costs_refuse_the_trial_grid_kernel():
     """The trial-grid kernel reads per-lane cost rows in its LANE_COST
-    instantiations: with per-lane q and c (or h) the bicycle's problem is
-    taken by both batched kernels. The quadrotor's kernel
-    (rollout_grid_quadrotor_kernel) reads rows shared by all lanes: with
-    per-lane rows `solve_tiled` on the card is refused under
-    `pallas_rollout_tiled` before anything runs, with the reason and the
-    plain grid's switch; without it (and in the vmapped solve, which runs
-    the plain grid) nothing is refused."""
+    instantiations, the quadrotor's included: with per-lane q and c (or
+    h) the bicycle's and the quadrotor's problems are taken by both
+    batched kernels. What it refuses, as JAX's `rollout_tiled_eligible`
+    does (altro_tpu/ops/pallas_rollout_tiled.py:78-92), is a constraint
+    group with a per-lane `active` mask, and linear dynamics arrays
+    (no column-form step): `solve_tiled` on the card under
+    `pallas_rollout_tiled` refuses them before anything runs, with the
+    reason and the plain grid's switch; without it (and in the vmapped
+    solve, which runs the plain grid) nothing is refused."""
     bike = _per_lane_costs(_bicycle(2))
     assert tsv.kernel_refusal(bike, OPTS, vmapped=False) is None
     bike_h = dataclasses.replace(_bicycle(2), h=_bicycle(2).h[:, None].expand(-1, 3))
@@ -323,15 +326,21 @@ def test_per_lane_costs_refuse_the_trial_grid_kernel():
     for prob in (_per_lane_costs(_problem("quadrotor_full")),
                  dataclasses.replace(_problem("quadrotor_full"),
                                      h=_problem("quadrotor_full").h[:, None].expand(-1, 3))):
-        opts = mpc.quadrotor_tiled_options()
-        why = tsv.kernel_refusal(prob, opts, vmapped=False)
-        assert "rollout_grid" in why and "per-lane cost rows" in why
-        assert "rollout_grid_quadrotor_kernel" in why and "pallas_rollout_tiled=False" in why
-        assert tsv.kernel_refusal(prob, opts.replace(pallas_rollout_tiled=False),
-                                  vmapped=False) is None
+        assert tsv.kernel_refusal(prob, mpc.quadrotor_tiled_options(), vmapped=False) is None
         assert tsv.kernel_refusal(prob, mpc.quadrotor_options(), vmapped=True) is None
-        with pytest.raises(NotImplementedError, match="solve_tiled: .*per-lane cost rows"):
-            tsv.solve_tiled(dataclasses.replace(prob, x0=_OnCard()), None, opts)
+
+    spec = _bicycle(2).constraints[0]
+    masks = dataclasses.replace(_bicycle(2), constraints=(dataclasses.replace(
+        spec, active=spec.active[:, None].expand(-1, 3).contiguous()),))
+    fleet = rp.fleet_problem(rp.fleet_arrays(3, N=4), dtype=torch.float32, device="cpu")
+    for prob, words in ((masks, "per-lane active mask"), (fleet, "linear dynamics")):
+        why = tsv.kernel_refusal(prob, OPTS, vmapped=False)
+        assert "rollout_grid" in why and words in why and "pallas_rollout_tiled=False" in why
+        assert tsv.kernel_refusal(prob, OPTS.replace(pallas_rollout_tiled=False),
+                                  vmapped=False) is None
+        assert tsv.kernel_refusal(prob, OPTS.replace(pallas_backward=True), vmapped=True) is None
+        with pytest.raises(NotImplementedError, match=f"solve_tiled: .*{words}"):
+            tsv.solve_tiled(dataclasses.replace(prob, x0=_OnCard()), None, OPTS)
 
 
 @pytest.mark.parametrize("change", [dict(parallel_linesearch=False), dict(ls_phase_split=False),

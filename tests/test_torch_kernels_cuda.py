@@ -900,10 +900,11 @@ def test_batched_tracking_tick_launches_riccati_dense(dev):
 
 def test_refused_batched_tracking_launches_nothing(dev):
     """On the card, `batched_tracking_solver` at a shape the dense kernel
-    lacks and `solve_tiled` with per-lane cost rows on the quadrotor's
-    grid kernel (which reads rows shared by all lanes; the bicycle's
-    LANE_COST instantiations take them since the per-lane slice) under
-    `pallas_rollout_tiled` are refused before anything launches."""
+    lacks and `solve_tiled` under `pallas_rollout_tiled` with what the
+    grid kernel refuses as JAX's does (a per-lane constraint mask; the
+    per-lane cost rows that it refused on the quadrotor until its
+    LANE_COST instantiation came are taken now) are refused before
+    anything launches."""
     import dataclasses
 
     from altro_tpu_torch import mpc
@@ -927,15 +928,17 @@ def test_refused_batched_tracking_launches_nothing(dev):
         batched_tracking_solver(prob, SolverOptions(pallas_backward=True))(
             torch.zeros((Bsz, n), **kw), torch.zeros((Bsz, N + 1, n), **kw),
             torch.zeros((Bsz, N + 1), **kw), batch_init_state(prob, Bsz))
-    quad = mpc.quadrotor_waypoint_problem(N=N, device=dev)
-    lanes_cost = dataclasses.replace(
-        quad.cost, q=quad.cost.q[..., None].expand(-1, -1, Bsz).contiguous(),
-        c=quad.cost.c[:, None].expand(-1, Bsz).contiguous())
-    tiled = dataclasses.replace(quad, cost=lanes_cost, x0=quad.x0[:, None].expand(-1, Bsz)
-                                .contiguous())
-    with pytest.raises(NotImplementedError, match="per-lane cost rows"):
-        tsv.solve_tiled(tiled, tsv.state_to_lanes(batch_init_state(quad, Bsz)),
-                        mpc.quadrotor_tiled_options())
+    from altro_tpu_torch.io.scotty import load_scotty
+
+    bike = mpc.scotty_problem(load_scotty(), N=N, dtype=torch.float32, device=dev)
+    spec = bike.constraints[0]
+    tiled = dataclasses.replace(
+        bike, x0=bike.x0[:, None].expand(-1, Bsz).contiguous(),
+        constraints=(dataclasses.replace(
+            spec, active=spec.active[:, None].expand(-1, Bsz).contiguous()),))
+    with pytest.raises(NotImplementedError, match="per-lane active mask"):
+        tsv.solve_tiled(tiled, tsv.state_to_lanes(batch_init_state(bike, Bsz)),
+                        mpc.bench_options()[0])
     torch.cuda.synchronize()
     assert _kernel_launches() == before
 
@@ -1295,14 +1298,31 @@ def test_rollout_kernel_shared_rows_launch_the_shared_instantiation(dev):
     assert (rg.LAUNCHES, rg.LANE_COST_LAUNCHES) == (before[0] + 1, before[1])
 
 
-def test_quadrotor_grid_refuses_per_lane_rows(dev):
-    from altro_tpu_torch import mpc
+@pytest.mark.parametrize("Bsz, W, Nk", [(1, 4, 8), (7, 9, 17), (33, 8, 30), (1024, 8, 30),
+                                         (2048, 16, 30)])
+def test_rollout_kernel_quadrotor_lane_cost_matches_plain(dev, Bsz, W, Nk):
+    """The quadrotor's LANE_COST instantiation (one cost row and h a lane
+    b in shared memory, ten lanes a warp): ragged lane groups, trials past
+    one block, chunk edges, the row's B=1024 and the main path's 2048."""
+    prob, args = _quad_rollout_inputs(dev, Bsz, Nk, W)
+    _check_lane_cost(prob, args, Bsz, W, Nk, 12)
+
+
+def test_grid_refuses_a_per_lane_mask(dev):
+    """A constraint group with one mask column per lane: the kernel's
+    affine rows are shared by all lanes (as JAX's kernel takes an
+    unbatched constraint spec); refused before anything launches."""
+    import dataclasses
+
     from altro_tpu_torch.ops import rollout_grid as rg
 
-    prob, args = _quad_rollout_inputs(dev, 64, 8, 4)
+    prob, args = _rollout_inputs(dev, Bsz=64, Nk=8, W=4)
+    spec = prob.constraints[0]
+    lanes = spec.active[:, None].expand(-1, 64).contiguous()
+    prob = dataclasses.replace(prob, constraints=(dataclasses.replace(spec, active=lanes),))
     before = rg.LAUNCHES
-    with pytest.raises(NotImplementedError, match="per-lane cost rows"):
-        rg.rollout_grid(mpc.per_lane_rows(prob, 64), *args)
+    with pytest.raises(NotImplementedError, match="per-lane active mask"):
+        rg.rollout_grid(prob, *args)
     assert rg.LAUNCHES == before
 
 

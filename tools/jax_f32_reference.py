@@ -21,6 +21,8 @@
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --aot-default [--ticks T]
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --cartpole-depths 40,50,60,100
     JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --long-horizon-parallel-riccati [--draws K]
+    JAX_PLATFORMS=cpu python tools/jax_f32_reference.py --per-lane-leaves [--lanes B] [--ticks T]
+        [--seed S]
 
 Runs altro_tpu (the reference package, not the port) in float32 on the
 CPU: the three double integrator oracles of
@@ -191,6 +193,28 @@ K draws (--draws, default 8): objectives, statuses, iterations and each
 form's `band_verdict` against that band and against the card's f64 plain
 band (PERF.md section 2). What chip_smoke.py's parallel_riccati draws'
 gate rests on.
+
+With --per-lane-leaves it runs the rows of chip_smoke.py's
+`per_lane_leaves` phase, every problem leaf one row per lane, from the
+port's own numbers: the fleet of the port's
+`reference_problems.fleet_arrays(B, N=30, seed=S)` (B double integrators,
+each with its own A, B, f_aff, QuadraticCost and control-bound mask)
+through jax.vmap(solve) in float32 and float64 under the port's
+`fleet_options()` (the vmapped solve's strong-Wolfe search and the tiled
+phase-split Armijo-only grid: JAX's contract for `solve_tiled`; the scan
+backward, tolerance 1e-3): success
+rate, mean iterations, statuses counted, and float32 against float64
+(status agreement, the largest state difference, the share of lanes
+within 1e-3); `jax.vmap(jax.grad(loss))` over the fleet's per-lane A
+through `implicit_solve` (tvlqr, the vmapped solve's options) in both
+precisions: the float32 gradient's largest distance from the float64 one
+relative to its largest entry, and the same lane by lane (its median and
+99th percentile); and the quadrotor waypoint row with lane b starting at waypoint b
+mod 4 (q and c per lane) through jax.vmap(solve) with the tiled row's
+options and the scan backward, from the port's starts, T ticks (default
+25): success rate, mean distance of each lane from its own final
+waypoint, mean iterations. What chip_smoke.py's `per_lane_leaves` gates
+rest on.
 """
 
 from __future__ import annotations
@@ -1664,6 +1688,126 @@ def long_horizon_parallel_riccati(draws=8, band=None):
         print(json.dumps(row), flush=True)
 
 
+def _fleet_problem(a, active):
+    """The JAX package's fleet problem from one lane's arrays (the port's
+    `reference_problems.fleet_problem`)."""
+    from altro_tpu.problem import QuadraticCost
+
+    from altro_tpu_torch.reference_problems import FLEET_U_MAX
+
+    spec = ConstraintSpec(fn=lambda x, u, k: jnp.concatenate([u - FLEET_U_MAX, -FLEET_U_MAX - u]),
+                          cone=Cone.NEGATIVE_ORTHANT, dim=4, active=active,
+                          label="control_bound", diag_hessian=True, affine=True)
+    return Problem(N=a["A"].shape[0], n=4, m=2, dynamics=None, dynamics_jac=None,
+                   constraints=(spec,),
+                   cost=QuadraticCost(Q=a["Q"], R=a["R"], H=a["H"], q=a["q"], r=a["r"],
+                                      c=a["c"]),
+                   h=a["h"], x0=a["x0"], A=a["A"], B=a["B"], f_aff=a["f_aff"])
+
+
+def per_lane_leaves_rows(lanes, ticks=25, seed=0, N=30):
+    """chip_smoke.py's `per_lane_leaves` rows in JAX (see the module
+    docstring)."""
+    jax.config.update("jax_enable_x64", True)
+    from altro_tpu.diff import implicit_solve
+    from altro_tpu.parallel.batch import batch_init_state
+
+    from altro_tpu_torch.reference_problems import fleet_arrays, fleet_options
+
+    def jopts(o):  # the port's options, the scan backward and grid
+        o = o.replace(pallas_backward=False, pallas_rollout_tiled=False)
+        return SolverOptions(**{f.name: getattr(o, f.name) for f in dataclasses.fields(o)})
+
+    arrays = fleet_arrays(lanes, N=N, seed=seed)
+    names = ("A", "B", "f_aff", "Q", "R", "H", "q", "r", "c", "h", "x0")
+    lanes_o, tiled_o = fleet_options()
+    searches = {"solve_lanes": jopts(lanes_o), "solve_tiled": jopts(tiled_o)}
+    for name, opts in searches.items():
+        runs = {}
+        for dt, tag in ((jnp.float64, "f64"), (F32, "f32")):
+            def one(*a):
+                prob = _fleet_problem(dict(zip(names, a[:-1])), a[-1])
+                return solve(prob, init_state(prob), opts)
+
+            t0 = time.perf_counter()
+            st, stats = jax.block_until_ready(jax.jit(jax.vmap(one))(
+                *(jnp.asarray(arrays[k], dt) for k in names), jnp.asarray(arrays["active"][0])))
+            runs[tag] = (np.asarray(st.x, np.float64), np.asarray(stats.status),
+                         np.asarray(stats.iterations), time.perf_counter() - t0)
+        x32, s32, i32, sec = runs["f32"]
+        x64, s64, _, _ = runs["f64"]
+        dx = np.abs(x32 - x64).reshape(lanes, -1).max(axis=1)
+        print(json.dumps({"row": f"per_lane_fleet_{name}", "lanes": lanes, "N": N, "seed": seed,
+                          "f32_success_rate": float(np.mean(s32 == 0)),
+                          "f32_mean_iterations": float(np.mean(i32)),
+                          "f32_statuses": {str(k): int(v) for k, v in
+                                           zip(*np.unique(s32, return_counts=True))},
+                          "f64_success_rate": float(np.mean(s64 == 0)),
+                          "status_agreement": float(np.mean(s32 == s64)),
+                          "max_abs_dx": float(dx.max()),
+                          "lanes_within_1e-3": float(np.mean(dx <= 1e-3)),
+                          "cpu_seconds": sec}), flush=True)
+
+    grads = {}
+    for dt, tag in ((jnp.float64, "f64"), (F32, "f32")):
+        def loss(A, a):
+            x, u = implicit_solve(_fleet_problem(dict(a, A=A), a["active"]),
+                                  opts=searches["solve_lanes"])
+            return jnp.sum(x ** 2) + 0.5 * jnp.sum(u ** 2)
+
+        per_lane = {k: jnp.asarray(arrays[k], dt) for k in names}
+        per_lane["active"] = jnp.asarray(arrays["active"][0])
+        t0 = time.perf_counter()
+        g = jax.block_until_ready(jax.jit(jax.vmap(jax.grad(loss)))(per_lane.pop("A"),
+                                                                    per_lane))
+        grads[tag] = (np.asarray(g, np.float64), time.perf_counter() - t0)
+    g64, g32 = grads["f64"][0], grads["f32"][0]
+    by_lane = (np.abs(g32 - g64).reshape(lanes, -1).max(axis=1)
+               / np.abs(g64).reshape(lanes, -1).max(axis=1))
+    print(json.dumps({"row": "per_lane_fleet_grad_A", "lanes": lanes, "N": N, "seed": seed,
+                      "f32_vs_f64_rel": float(np.abs(g32 - g64).max() / np.abs(g64).max()),
+                      "lane_rel_median": float(np.median(by_lane)),
+                      "lane_rel_q99": float(np.quantile(by_lane, 0.99)),
+                      "lanes_over_1e-3": int(np.sum(by_lane > 1e-3)),
+                      "finite_f32": bool(np.isfinite(g32).all()),
+                      "cpu_seconds": grads["f32"][1]}), flush=True)
+
+    # the quadrotor waypoint row, lane b starting at waypoint b mod 4
+    problem, dyn, q_wp, c_wp, wp_idx, x0, _ = _quadrotor_setup(lanes, ticks, 25, N)
+    m = problem.m
+    vopts = dataclasses.replace(_quadrotor_tiled_opts(), pallas_backward=False)
+
+    @jax.jit
+    def tick(x, st, q, c):
+        def one(x0_, s_, q_, c_):
+            prob = dataclasses.replace(problem, x0=x0_, cost=dataclasses.replace(
+                problem.cost, q=q_, c=c_))
+            return solve(prob, s_, vopts)
+
+        st, stats = jax.vmap(one)(x, st, q, c)
+        x = jax.vmap(lambda xi, ui: dyn(xi, ui, jnp.asarray(0.05, F32), 0))(x, st.u[:, 0])
+        return x, jax.vmap(shift_trajectory)(st), stats.iterations, stats.status
+
+    st = dataclasses.replace(batch_init_state(problem, lanes),
+                             u=jnp.full((lanes, N, m), QUAD_HOVER, F32))
+    x = jnp.asarray(x0)
+    iters, statuses = [], []
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        idx = (wp_idx[t] + np.arange(lanes)) % 4
+        x, st, it, stat = tick(x, st, q_wp[idx], c_wp[idx])
+        iters.append(np.asarray(it))
+        statuses.append(np.asarray(stat))
+    final = np.asarray(QUAD_WAYPOINTS)[(wp_idx[-1] + np.arange(lanes)) % 4]
+    dist = np.linalg.norm(np.asarray(x, np.float64)[:, :3] - final, axis=1)
+    print(json.dumps({"row": "quadrotor_waypoint_per_lane_tiled", "lanes": lanes,
+                      "ticks": ticks, "success_rate": float(np.mean(np.stack(statuses) == 0)),
+                      "mean_final_waypoint_dist": float(dist.mean()),
+                      "max_final_waypoint_dist": float(dist.max()),
+                      "mean_iterations": float(np.mean(np.stack(iters))),
+                      "cpu_seconds": time.perf_counter() - t0}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tol-stationarity", type=float, default=1e-4)
@@ -1728,6 +1872,12 @@ def main():
                     help="run the bounded N=500 solve with parallel_riccati in float32 (pure "
                          "and chunk 16) over --draws rounding draws (default 8) against the "
                          "float64 serial solve's band")
+    ap.add_argument("--per-lane-leaves", action="store_true",
+                    help="run chip_smoke.py's per_lane_leaves rows: the fleet with every leaf "
+                         "per lane, its vmapped gradient in A, the quadrotor with per-lane "
+                         "waypoints (--ticks, default 25)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the fleet's seed of --per-lane-leaves (chip_smoke.py's PLL_SEED)")
     ap.add_argument("--lanes", type=int, default=1024,
                     help="lanes of the batched rows (the tiled quadrotor row: a multiple "
                          "of 1024)")
@@ -1773,7 +1923,9 @@ def main():
         cartpole_depths([int(v) for v in args.cartpole_depths.split(",")])
     if args.long_horizon_parallel_riccati:
         long_horizon_parallel_riccati(args.draws or 8, band=(18.65, 22.49))
-    if (args.long_horizon_parallel_riccati or args.aot or args.aot_default or args.cartpole_depths or args.learned_mpc or args.implicit_grad or args.vmap_rescue or args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
+    if args.per_lane_leaves:
+        per_lane_leaves_rows(args.lanes, ticks=args.ticks or 25, seed=args.seed)
+    if (args.per_lane_leaves or args.long_horizon_parallel_riccati or args.aot or args.aot_default or args.cartpole_depths or args.learned_mpc or args.implicit_grad or args.vmap_rescue or args.quadrotor or args.pendulum or args.rocket or args.batched_tracking
             or args.single_lane_rows or args.facade or args.quadrotor_vmapped or args.obstacle
             or args.obstacle_loop or args.obstacle_loop_draws or args.tracking_tiled
             or args.single_lane_options or args.quadrotor_latency):

@@ -11,8 +11,10 @@ to and that one's count, and whether the two instruction streams are
 equal. Names are compared without their anonymous namespace (nvcc names
 it after the source file's path and a hash, which differ between two
 checkouts); a function of B is matched in A by its name, else by its
-name without the template's last `bool` argument (`Lb0E`, `Lb1E`): a
-kernel that gained a template flag is held to what it was. Needs a CUDA
+name without the template's last `bool` argument (`Lb0E`, `Lb1E`), else,
+for a function template whose one argument is a `bool` (`ILb0EEEv`), by the
+name of the plain function it was: a kernel that gained a template flag is
+held to what it was. Needs a CUDA
 toolkit (cuobjdump on PATH or under /usr/local/cuda/bin); no card.
 """
 
@@ -62,7 +64,8 @@ def main():
     for name, body in sorted(fb.items()):
         if key not in name:
             continue
-        old = name if name in fa else re.sub(r"Lb[01]E(?=E)", "", name, count=1)
+        old = next((c for c in (name, re.sub(r"ILb[01]EEEv", "E", name, count=1),
+                                re.sub(r"Lb[01]E(?=E)", "", name, count=1)) if c in fa), name)
         other = fa.get(old)
         print(json.dumps({"function": name, "instructions": len(body),
                           "held_to": old if other is not None else None,
